@@ -79,8 +79,8 @@ class OptimizerConfig:
     shuffle: bool = True
     # Per-round multipliers on the footprint widths (padded with 1.0).
     sigma_anneal: Tuple[float, ...] = ()
-    # Per-neuron width fitting (not ported yet; the fields are kept so
-    # the configuration matches the JAX package's).
+    # Per-neuron width fitting: sigma_steps Adam steps on log-sigma over
+    # sigma_frames frames, every sigma_every-th round at the base widths.
     fit_sigma: bool = False
     sigma_lr: float = 0.05
     sigma_steps: int = 2

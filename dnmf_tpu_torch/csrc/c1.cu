@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas kernel dnmf_tpu/ops/pallas_culled.py c1_block_culled
 // (_c1_kernel_culled and its DMA-ring twin _c1_kernel_pipe), the video
-// pass of the closed-form-Gram default at every K.
+// pass of the closed-form-Gram default at every K, with shared anchors
+// pos [K,3] (prm_stride 0) or per-frame positions pos [B,K,3] (the
+// refinement phase; prm_stride K_pad * NPARAM).
 //
 // Bound: one exp2 plus ~8 FMAs per pixel per neuron of every block that
 // the pixel's warp does not cull; the video is read once per neuron block
@@ -21,16 +23,16 @@ namespace dnmf {
 __global__ void __launch_bounds__(THREADS)
 c1_kernel(const float* __restrict__ betas, const float* __restrict__ params,
           const float* __restrict__ blocks, const float* __restrict__ y,
-          float* __restrict__ partial, Geom g, int nkb) {
+          float* __restrict__ partial, Geom g, int nkb, int prm_stride) {
   const int chunk = blockIdx.x, n_chunks = gridDim.x;
   const int blk = blockIdx.y, b = blockIdx.z;
   __shared__ float s_beta[30];
   __shared__ float s_prm[KB * NPARAM];
-  __shared__ float s_red[NWARPS * 32];
+  __shared__ float s_red[NWARPS * KB];
   const int tid = threadIdx.x;
   if (tid < 30) s_beta[tid] = betas[b * 30 + tid];
-  for (int i = tid; i < KB * NPARAM; i += THREADS)
-    s_prm[i] = params[(size_t)blk * KB * NPARAM + i];
+  const float* prm = params + (size_t)b * prm_stride + (size_t)blk * KB * NPARAM;
+  for (int i = tid; i < KB * NPARAM; i += THREADS) s_prm[i] = prm[i];
   __syncthreads();
 
   const float lo = blocks[2 * blk], hi = blocks[2 * blk + 1];
@@ -68,16 +70,18 @@ c1_kernel(const float* __restrict__ betas, const float* __restrict__ params,
 }  // namespace dnmf
 
 // c1_out [B][nkb * KB] in sorted neuron order; partial is scratch of
-// B * nkb * n_chunks * KB floats.
+// B * nkb * n_chunks * KB floats; params [k_pad][8], or [B][k_pad][8]
+// with prm_stride = k_pad * 8.
 extern "C" int dnmf_c1(const float* betas, const float* params,
                        const float* blocks, const float* y, float* partial,
                        float* c1_out, int B, int M, int N, int Z,
-                       int normalized, int nkb, int n_chunks, void* stream) {
+                       int normalized, int nkb, int n_chunks, int prm_stride,
+                       void* stream) {
   using namespace dnmf;
   const Geom g = make_geom(M, N, Z, normalized);
   cudaStream_t s = (cudaStream_t)stream;
   c1_kernel<<<dim3(n_chunks, nkb, B), THREADS, 0, s>>>(
-      betas, params, blocks, y, partial, g, nkb);
+      betas, params, blocks, y, partial, g, nkb, prm_stride);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   sum_chunks<<<B * nkb, KB, 0, s>>>(partial, c1_out, n_chunks, KB);

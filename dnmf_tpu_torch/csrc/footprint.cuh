@@ -1,4 +1,5 @@
-// Shared device code of the demixing kernels (motion.cu, c1.cu, gram.cu).
+// Shared device code of the demixing kernels (motion.cu, c1.cu, gram.cu,
+// refine.cu).
 //
 // Every kernel evaluates warped Gaussian footprints on the fly from flat
 // voxel indices: pixel index -> (m, n, z) by integer divmod, the 10
@@ -12,6 +13,10 @@
 // neurons; each block carries an m-interval [lo, hi] widened by 6 sigma.
 // A warp (32 consecutive pixels) skips a block whose interval misses the
 // warp's deformed-m range: exp(-36) ~ 2e-16 is below float32 resolution.
+// With per-frame (tracked) positions the table holds one row set per
+// frame, prm_stride floats apart (0 for shared anchors), sorted by each
+// neuron's mean m; a block's interval spans its members' m over all
+// frames, so the same culling holds in every frame.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,8 +25,9 @@
 namespace dnmf {
 
 constexpr int KB = 32;        // neurons per culling block
-constexpr int NPARAM = 8;     // params row: px py pz sx sy sz 0 0
-                              // (s_d = log2(e) / sigma_d^2)
+constexpr int NPARAM = 8;     // params row: px py pz sx sy sz c 0
+                              // (s_d = log2(e) / sigma_d^2; the frame's
+                              // trace value c is read by refine.cu only)
 constexpr int THREADS = 256;  // threads per block of every kernel
 constexpr int NWARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -100,9 +106,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Block-wide sum of n <= 32 per-thread values into out[0..n), in a fixed
-// order: within warps by shuffle, then warp 0..NWARPS-1.  red is shared
-// scratch of NWARPS * 32 floats.
+// Block-wide sum of n <= THREADS per-thread values into out[0..n), in a
+// fixed order: within warps by shuffle, then warp 0..NWARPS-1.  red is
+// shared scratch of at least NWARPS * n floats.
 template <int n>
 __device__ __forceinline__ void block_sum(const float* vals, float* red,
                                           float* out) {
@@ -110,12 +116,12 @@ __device__ __forceinline__ void block_sum(const float* vals, float* red,
 #pragma unroll
   for (int i = 0; i < n; ++i) {
     const float v = warp_sum(vals[i]);
-    if (lane == 0) red[wid * 32 + i] = v;
+    if (lane == 0) red[wid * n + i] = v;
   }
   __syncthreads();
   if (threadIdx.x < n) {
     float s = 0.0f;
-    for (int w = 0; w < NWARPS; ++w) s += red[w * 32 + threadIdx.x];
+    for (int w = 0; w < NWARPS; ++w) s += red[w * n + threadIdx.x];
     out[threadIdx.x] = s;
   }
 }

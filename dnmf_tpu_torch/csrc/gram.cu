@@ -5,6 +5,9 @@
 // (_gram_kernel_culled / _culled_tile_body, K > 64) and
 // gram_block_pipelined (_gram_kernel_pipe, the same math behind a TPU DMA
 // ring).  It serves the analytic-Gram trust audit and gram_mode="exact".
+// With per-frame positions (prm_stride = K_pad * NPARAM) it also replaces
+// gram_block_tracked (_gram_kernel_culled(tracked=True)), the exact MU
+// statistics of the position-refinement phase.
 //
 // Bound: KB^2 = 1024 FMAs per pixel per active neuron-block pair, plus
 // one exp2 per pixel per neuron of each block of the pair.  The products
@@ -39,7 +42,7 @@ __global__ void __launch_bounds__(THREADS)
 gram_kernel(const float* __restrict__ betas, const float* __restrict__ params,
             const float* __restrict__ blocks, const float* __restrict__ y,
             float* __restrict__ gpart, float* __restrict__ cpart, Geom g,
-            int nkb, int n_pairs) {
+            int nkb, int n_pairs, int prm_stride) {
   const int chunk = blockIdx.x, n_chunks = gridDim.x;
   const int pair = blockIdx.y, b = blockIdx.z;
   int bi, bj;
@@ -54,8 +57,14 @@ gram_kernel(const float* __restrict__ betas, const float* __restrict__ params,
   for (int q = 0; q < PER_THREAD; ++q) acc[q] = 0.0f;
   float cacc = 0.0f;
 
-  // Pair cull: blocks are sorted by m, so for j >= i their intervals
-  // overlap iff block j starts before block i ends.
+  // Pair cull, testing one side only: for j >= i the intervals overlap iff
+  // block j starts before block i ends, because block j never ends below
+  // block i's start (hi_j >= lo_i).  Shared anchors: the blocks are sorted
+  // by m.  Per-frame positions: the sort key is each neuron's mean m and
+  // an interval spans its members' m over all frames, so for members q of
+  // block j and r of block i, hi_j >= max_t m_q >= mean m_q >= mean m_r
+  // >= min_t m_r >= lo_i, even where two tracks cross in m.  A skipped
+  // pair is apart in every frame.
   if (blocks[2 * bj] <= blocks[2 * bi + 1]) {
     __shared__ float s_beta[30];
     __shared__ float s_pi[KB * NPARAM], s_pj[KB * NPARAM];
@@ -63,9 +72,10 @@ gram_kernel(const float* __restrict__ betas, const float* __restrict__ params,
     __shared__ float s_ai[GT][KB], s_aj[GT][KB];
     __shared__ float s_mm[2][2];
     if (tid < 30) s_beta[tid] = betas[b * 30 + tid];
+    const float* prm = params + (size_t)b * prm_stride;
     for (int i = tid; i < KB * NPARAM; i += THREADS) {
-      s_pi[i] = params[(size_t)bi * KB * NPARAM + i];
-      s_pj[i] = params[(size_t)bj * KB * NPARAM + i];
+      s_pi[i] = prm[(size_t)bi * KB * NPARAM + i];
+      s_pj[i] = prm[(size_t)bj * KB * NPARAM + i];
     }
     const float ilo = blocks[2 * bi], ihi = blocks[2 * bi + 1];
     const float jlo = blocks[2 * bj], jhi = blocks[2 * bj + 1];
@@ -162,18 +172,19 @@ __global__ void gram_assemble(const float* __restrict__ gpart,
 
 // g_out [B][k_pad][k_pad], c1_out [B][k_pad] (sorted order).  Scratch:
 // gpart B * n_pairs * n_chunks * KB * KB floats, cpart B * nkb * n_chunks
-// * KB floats, n_pairs = nkb (nkb + 1) / 2.
+// * KB floats, n_pairs = nkb (nkb + 1) / 2.  params [k_pad][8], or
+// [B][k_pad][8] with prm_stride = k_pad * 8.
 extern "C" int dnmf_gram(const float* betas, const float* params,
                          const float* blocks, const float* y, float* gpart,
                          float* cpart, float* g_out, float* c1_out, int B,
                          int M, int N, int Z, int normalized, int nkb,
-                         int n_chunks, void* stream) {
+                         int n_chunks, int prm_stride, void* stream) {
   using namespace dnmf;
   const Geom g = make_geom(M, N, Z, normalized);
   cudaStream_t s = (cudaStream_t)stream;
   const int n_pairs = nkb * (nkb + 1) / 2;
   gram_kernel<<<dim3(n_chunks, n_pairs, B), THREADS, 0, s>>>(
-      betas, params, blocks, y, gpart, cpart, g, nkb, n_pairs);
+      betas, params, blocks, y, gpart, cpart, g, nkb, n_pairs, prm_stride);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   gram_assemble<<<dim3(n_pairs, B), THREADS, 0, s>>>(gpart, cpart, g_out,

@@ -3,10 +3,11 @@
 Counterpart of ``dnmf_tpu/engine/trainer.py`` on the main path:
 ``DeformableNMF(model, optimizer, runtime, positions=..., device=...)
 .fit(video)`` runs ``outer_rounds`` x (``motion_epochs`` parallel Adam
-epochs on the warps, then Grams and ``mu_iters`` trace updates), with
-the once-per-fit trust audit of the closed-form Grams.  Options outside
-the ported slice raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+epochs on the warps, with ``fit_sigma`` a width fit on a frame
+subsample, then Grams and ``mu_iters`` trace updates), with the
+once-per-fit trust audit of the closed-form Grams; ``.refine(video)``
+then fits per-frame neuron positions.  Options outside the ported slice
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from dnmf_tpu_torch.config import ModelConfig, OptimizerConfig, RuntimeConfig
 from dnmf_tpu_torch.models import dnmf as model_lib
+from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import gram_analytic as ga
 
@@ -99,6 +101,8 @@ class DeformableNMF:
             device=self.device)
         self.metrics: List[dict] = []
         self._base_sigma = self.state.sigma
+        # Per-frame positions [T, K, 3] from refine(), None before it.
+        self.pos_t: Optional[torch.Tensor] = None
         if self.runtime.use_kernels is None:
             self._use_kernels = self.device.type == "cuda"
         else:
@@ -121,8 +125,6 @@ class DeformableNMF:
             raise _not_ported("motion_mode='parity'", 11)
         if opt.motion_mode != "parallel":
             raise ValueError(f"unknown motion_mode: {opt.motion_mode!r}")
-        if opt.fit_sigma:
-            raise _not_ported("fit_sigma (per-neuron width fitting)", 6)
         if rt.mesh_time or rt.mesh_batch or rt.mesh_pixel:
             raise _not_ported("mesh_time/mesh_batch/mesh_pixel", 10)
         if rt.checkpoint_dir:
@@ -142,10 +144,13 @@ class DeformableNMF:
 
     def _gram_window(self) -> Optional[int]:
         """Lattice window of the closed-form Grams, sized for the widest
-        sigma the fit will see (``sigma_anneal`` scales it up)."""
+        sigma the fit will see (``sigma_anneal`` scales it up; fitted
+        widths may climb to the upper clip bound)."""
         if self._gram_mode != "analytic":
             return None
         factor = max((1.0,) + tuple(self.opt_config.sigma_anneal))
+        if self.opt_config.fit_sigma:
+            factor = max(factor, self.opt_config.sigma_bounds[1])
         return ga.default_window(factor * self.model.shape_std)
 
     def _maybe_audit_analytic(self) -> None:
@@ -208,6 +213,35 @@ class DeformableNMF:
         self.metrics.append(m)
         return m
 
+    def update_sigma(self, video, steps: Optional[int] = None) -> dict:
+        """Fit per-neuron footprint widths on ``sigma_frames`` frames spread
+        over the recording (:func:`dnmf_tpu_torch.models.dnmf.sigma_fit`);
+        updates both the live widths and the anneal base."""
+        return self._sigma(self._video_flat(video), steps)
+
+    def _sigma(self, video_flat: torch.Tensor, steps=None) -> dict:
+        cfg = self.opt_config
+        t = self.model.num_frames
+        s = min(cfg.sigma_frames, t)
+        idx = torch.as_tensor(np.linspace(0, t - 1, s).round().astype(int),
+                              device=self.device)
+        sigma, mses = model_lib.sigma_fit(
+            self.state, video_flat[idx], self.state.beta[idx],
+            self.state.c[:, idx].T, self.model,
+            steps=steps or cfg.sigma_steps, lr=cfg.sigma_lr,
+            lo=cfg.sigma_bounds[0] * self.model.shape_std,
+            hi=cfg.sigma_bounds[1] * self.model.shape_std,
+            frame_block=min(self.runtime.frame_block, s),
+            use_kernels=self._use_kernels)
+        self.state = self.state.replace(sigma=sigma)
+        self._base_sigma = sigma
+        m = {"phase": "sigma", "mse": float(mses[-1]),
+             "sigma_mean": float(torch.mean(sigma)),
+             "sigma_min": float(torch.min(sigma)),
+             "sigma_max": float(torch.max(sigma))}
+        self.metrics.append(m)
+        return m
+
     def _check_finite(self, phase: str) -> None:
         if not self.runtime.check_finite:
             return
@@ -227,12 +261,20 @@ class DeformableNMF:
         rounds = rounds or self.opt_config.outer_rounds
         self._gram_audited = False
         anneal = self.opt_config.sigma_anneal
+        plain_rounds = 0  # rounds at the base widths (sigma_every cadence)
         for r in range(rounds):
             factor = anneal[r] if r < len(anneal) else 1.0
             self.state = self.state.replace(sigma=self._base_sigma * factor)
             t0 = time.perf_counter()
             motion_m = self._motion(video_flat)
             self._check_finite("motion")
+            if self.opt_config.fit_sigma and factor == 1.0:
+                # Width fitting waits out the annealed (deliberately
+                # widened) rounds, then runs every sigma_every-th round.
+                if plain_rounds % max(self.opt_config.sigma_every, 1) == 0:
+                    self._sigma(video_flat)
+                    self._check_finite("sigma")
+                plain_rounds += 1
             traces_m = self._footprints(video_flat)
             self._check_finite("traces")
             self._sync()
@@ -242,16 +284,41 @@ class DeformableNMF:
                 **{f"motion_{k}": v for k, v in motion_m.items()},
                 **{f"traces_{k}": v for k, v in traces_m.items()},
             }
-            self.metrics.append(entry)
-            if self.runtime.metrics_path:
-                with open(self.runtime.metrics_path, "a") as f:
-                    f.write(json.dumps(entry) + "\n")
+            self._log(entry)
         # End on the base widths even when the anneal covers the last round.
         self.state = self.state.replace(sigma=self._base_sigma)
         return FitResult(state=self.state, metrics=self.metrics)
 
-    def refine(self, *args, **kwargs):
-        raise _not_ported("DeformableNMF.refine (position refinement)", 6)
+    def refine(self, video, rounds: int = 3, epochs: int = 40,
+               mu_iters: int = 40, learning_rate: float = 0.08,
+               prior: float = 3e-4) -> FitResult:
+        """Per-frame per-neuron position refinement (final polish):
+        ``rounds`` x (``epochs`` Adam steps on the positions, then the
+        tracked Grams and ``mu_iters`` trace updates).  Stores the
+        positions on ``self.pos_t`` (``[T, K, 3]``, model frame); a later
+        call starts from them.  Device-resident video only."""
+        video_flat = self._video_flat(video)
+        self._maybe_audit_analytic()
+        t0 = time.perf_counter()
+        self.state, self.pos_t, m = refine_lib.refined_rounds(
+            self.state, video_flat, self.model, rounds=rounds, epochs=epochs,
+            mu_iters=mu_iters, learning_rate=learning_rate, prior=prior,
+            frame_block=self.runtime.frame_block, pos_t=self.pos_t,
+            use_kernels=self._use_kernels, gram_mode=self._gram_mode,
+            gram_window=self._gram_window(),
+            trace_solver=self.opt_config.trace_solver)
+        self._check_finite("refine")
+        self._sync()
+        self._log({"phase": "refine", "rounds": rounds, "epochs": epochs,
+                   "seconds": time.perf_counter() - t0,
+                   "recon_mse": float(torch.mean(m["recon_mse"]))})
+        return FitResult(state=self.state, metrics=self.metrics)
+
+    def _log(self, entry: dict) -> None:
+        self.metrics.append(entry)
+        if self.runtime.metrics_path:
+            with open(self.runtime.metrics_path, "a") as f:
+                f.write(json.dumps(entry) + "\n")
 
     def save(self, path: str) -> None:
         raise _not_ported("DeformableNMF.save", 11)

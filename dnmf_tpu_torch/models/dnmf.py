@@ -2,11 +2,12 @@
 
 Counterpart of ``dnmf_tpu/models/dnmf.py`` on its main path: per-frame
 parallel Adam on the warps ``beta [T, 10, 3]``, per-frame Grams (exact,
-or closed form plus the c1 video pass), and MU or FISTA on the traces
-``C [K, T]``.  The state is a dataclass of tensors; functions run
-eagerly and loop over frame blocks in Python.  ``use_kernels`` selects
-the CUDA kernel wrappers of :mod:`dnmf_tpu_torch.ops.fused` (which run
-their plain versions on CPU tensors); ``False`` runs the plain versions.
+or closed form plus the c1 video pass), MU or FISTA on the traces
+``C [K, T]``, and the per-neuron width fit ``sigma_fit``.  The state is
+a dataclass of tensors; functions run eagerly and loop over frame blocks
+in Python.  ``use_kernels`` selects the CUDA kernel wrappers of
+:mod:`dnmf_tpu_torch.ops.fused` (which run their plain versions on CPU
+tensors); ``False`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -80,16 +81,28 @@ class Adam:
     b2: float = 0.999
     eps: float = 1e-8
 
-    def step(self, state: DNMFState, grads: torch.Tensor) -> DNMFState:
-        mu = (1 - self.b1) * grads + self.b1 * state.mu
-        nu = (1 - self.b2) * (grads * grads) + self.b2 * state.nu
-        count = state.count + 1
+    def update(self, param: torch.Tensor, grad: torch.Tensor,
+               count: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor):
+        """One step on any tensor: ``(param, count, mu, nu)`` after it."""
+        mu = (1 - self.b1) * grad + self.b1 * mu
+        nu = (1 - self.b2) * (grad * grad) + self.b2 * nu
+        count = count + 1
         f32 = dict(dtype=torch.float32, device=count.device)
         mu_hat = mu / (1 - torch.tensor(self.b1, **f32) ** count)
         nu_hat = nu / (1 - torch.tensor(self.b2, **f32) ** count)
-        update = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-        return state.replace(beta=state.beta + update * (-self.learning_rate),
-                             count=count, mu=mu, nu=nu)
+        step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        return param + step * (-self.learning_rate), count, mu, nu
+
+    @staticmethod
+    def init(param: torch.Tensor):
+        """``(count, mu, nu)`` of a fresh optimizer for ``param``."""
+        return (torch.zeros((), dtype=torch.int32, device=param.device),
+                torch.zeros_like(param), torch.zeros_like(param))
+
+    def step(self, state: DNMFState, grads: torch.Tensor) -> DNMFState:
+        beta, count, mu, nu = self.update(state.beta, grads, state.count,
+                                          state.mu, state.nu)
+        return state.replace(beta=beta, count=count, mu=mu, nu=nu)
 
 
 def make_motion_optimizer(config: OptimizerConfig) -> Adam:
@@ -118,9 +131,9 @@ def init_state(model: ModelConfig, positions=None,
     sig_shape = (k,) if model.sigma_axes == 1 else (k, 3)
     sigma = torch.full(sig_shape, model.shape_std, dtype=torch.float32,
                        device=device)
-    return DNMFState(beta=beta, c=c, pos=pos, sigma=sigma,
-                     count=torch.zeros((), dtype=torch.int32, device=device),
-                     mu=torch.zeros_like(beta), nu=torch.zeros_like(beta))
+    count, mu, nu = Adam.init(beta)
+    return DNMFState(beta=beta, c=c, pos=pos, sigma=sigma, count=count,
+                     mu=mu, nu=nu)
 
 
 def check_main_path(model: ModelConfig) -> None:
@@ -195,13 +208,16 @@ def motion_epoch_parallel(state: DNMFState, video: torch.Tensor,
 
 def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
                 frame_block: int, use_kernels: bool = False,
-                gram_mode: str = "exact", gram_window: Optional[int] = None):
+                gram_mode: str = "exact", gram_window: Optional[int] = None,
+                pos_t: Optional[torch.Tensor] = None):
     """Per-frame MU statistics ``(grams [T, K, K], c1 [T, K])``.
 
     ``gram_mode="exact"`` runs the Gram pass; ``"analytic"`` evaluates
     ``G`` in closed form (:mod:`dnmf_tpu_torch.ops.gram_analytic`) and
     runs only the c1 pass.  ``gram_window`` bounds the closed form's
-    lattice window (default: sized for ``model.shape_std``).
+    lattice window (default: sized for ``model.shape_std``).  With
+    per-frame positions ``pos_t [T, K, 3]`` the footprints sit at each
+    frame's own positions instead of the anchors (the tracked passes).
     """
     check_main_path(model)
     if gram_mode not in ("exact", "analytic"):
@@ -211,17 +227,18 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
     grams, c1s = [], []
     for s, e in _blocks(video.shape[0], frame_block):
         betas = state.beta[s:e]
+        pos = state.pos if pos_t is None else pos_t[s:e]
         if gram_mode == "analytic":
             c1_fn = fused.c1_block if use_kernels else fused.c1_block_plain
-            grams.append(ga.analytic_grams(betas, state.pos, state.sigma,
+            grams.append(ga.analytic_grams(betas, pos, state.sigma,
                                            model.size, scaling=scaling,
                                            window=window))
-            c1s.append(c1_fn(betas, state.pos, state.sigma, video[s:e],
+            c1s.append(c1_fn(betas, pos, state.sigma, video[s:e],
                              model.size, scaling))
         else:
             gram_fn = (fused.gram_block if use_kernels
                        else fused.gram_block_plain)
-            g, c1 = gram_fn(betas, state.pos, state.sigma, video[s:e],
+            g, c1 = gram_fn(betas, pos, state.sigma, video[s:e],
                             model.size, scaling)
             grams.append(g)
             c1s.append(c1)
@@ -244,6 +261,57 @@ def footprint_update(state: DNMFState, grams: torch.Tensor, c1: torch.Tensor,
     else:
         raise ValueError(f"unknown trace solver: {solver!r}")
     return state.replace(c=c)
+
+
+def sigma_fit(state: DNMFState, video_sub: torch.Tensor,
+              betas_sub: torch.Tensor, c_sub: torch.Tensor,
+              model: ModelConfig, steps: int = 4, lr: float = 0.02,
+              lo: float = 1.5, hi: float = 4.8, frame_block: int = 8,
+              use_kernels: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-neuron footprint-width fit: ``steps`` Adam iterations on
+    log-sigma against a frame subsample.
+
+    ``video_sub [S, P]``, ``betas_sub [S, 10, 3]`` and ``c_sub [S, K]``
+    are the subsampled frames, their warps and traces; sigma (``[K]`` or
+    per-axis ``[K, 3]``) is clipped to ``[lo, hi]`` pixels.  The gradient
+    of the mean per-frame data term comes from the refine pass with
+    ``want_dsigma`` at the anchors, one frame block at a time (the kernel
+    with ``use_kernels``, else autograd over pixel chunks).
+
+    Returns ``(sigma, mse_trace [steps])``, sigma in the input shape.
+    """
+    check_main_path(model)
+    s_frames = video_sub.shape[0]
+    k = state.pos.shape[0]
+    scaling = model.deformation.basis_scaling
+    refine = fused.refine_block if use_kernels else fused.refine_block_plain
+    blocks = _blocks(s_frames, frame_block)
+
+    def grads_for(sigma):
+        dsig = torch.zeros_like(sigma)
+        mse = torch.zeros((), dtype=torch.float32, device=sigma.device)
+        for s, e in blocks:
+            pos = state.pos.expand(e - s, k, 3)
+            mses, _, ds = refine(betas_sub[s:e], pos, sigma, c_sub[s:e],
+                                 video_sub[s:e], model.size, scaling,
+                                 want_dsigma=True)
+            dsig = dsig + ds.sum(dim=0)
+            mse = mse + mses.sum()
+        return dsig / s_frames, mse / s_frames
+
+    adam = Adam(lr)
+    log_lo, log_hi = float(np.log(lo)), float(np.log(hi))
+    log_s = torch.clamp(torch.log(state.sigma), log_lo, log_hi)
+    count, mu, nu = adam.init(log_s)
+    mses = []
+    for _ in range(steps):
+        sigma = torch.exp(log_s)
+        dsig, mse = grads_for(sigma)
+        log_s, count, mu, nu = adam.update(log_s, dsig * sigma, count, mu, nu)
+        log_s = torch.clamp(log_s, log_lo, log_hi)
+        mses.append(mse)
+    return torch.exp(log_s), torch.stack(mses)
 
 
 def fused_rounds(state: DNMFState, video: torch.Tensor, model: ModelConfig,

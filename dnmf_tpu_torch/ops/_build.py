@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``dnmf_tpu_torch/csrc``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface, loaded with :mod:`ctypes`; no PyTorch headers are
-involved, so a build takes seconds.  The library goes into
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles
+the sources to objects, and a last ``nvcc`` links them into one shared
+library with a plain C interface, loaded with :mod:`ctypes`; no PyTorch
+headers are involved, so a build takes seconds.  The library goes into
 ``dnmf_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags: editing a source rebuilds it, and an unchanged tree
 reuses the previous build.  Nothing here runs at import time.
@@ -22,15 +23,17 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # Entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
-    "dnmf_c1": [_P] * 6 + [_I] * 7 + [_P],
+    "dnmf_c1": [_P] * 6 + [_I] * 8 + [_P],
     "dnmf_motion": [_P] * 8 + [_I] * 7 + [_P],
-    "dnmf_gram": [_P] * 8 + [_I] * 7 + [_P],
+    "dnmf_gram": [_P] * 8 + [_I] * 8 + [_P],
+    "dnmf_refine": [_P] * 9 + [_I] * 9 + [_P],
 }
 
 _lib = None
@@ -54,11 +57,25 @@ def _sources():
 def library_path() -> Path:
     """Path of the library the current sources build into."""
     cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in cu + cuh:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_DIR / f"libdnmf_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; raise on the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 def build() -> Path:
@@ -68,15 +85,14 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [str(Path(tmp_dir) / f"{src.stem}.o") for src in cu]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(cu, objs)])
+        tmp = str(Path(tmp_dir) / out.name)
+        _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
+        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     return out
 
 

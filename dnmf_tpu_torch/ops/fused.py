@@ -1,4 +1,4 @@
-"""The three video passes of a demixing round: motion, c1 and exact Gram.
+"""The video passes of a demixing round and of position refinement.
 
 Each public function has the JAX package's signature and output layout
 (``dnmf_tpu/ops/pallas_kernels.py``, ``dnmf_tpu/ops/pallas_culled.py``)
@@ -7,7 +7,15 @@ and a ``*_plain`` PyTorch version beside it:
 * ``motion_block -> (mse [B], dbeta [B, 10, 3])``: per-frame data term
   ``sum_p (w sum_k c_k A_k - y)^2 / P`` and its beta gradient;
 * ``c1_block -> c1 [B, K]``: ``sum_p w A_k y``;
-* ``gram_block -> (G [B, K, K], c1 [B, K])``: ``sum_p (w A)(w A)^T``.
+* ``gram_block -> (G [B, K, K], c1 [B, K])``: ``sum_p (w A)(w A)^T``;
+* ``refine_block -> (mse [B], dpos [B, K, 3][, dsigma])``: the data term
+  with per-frame positions and its gradient with respect to them (and,
+  with ``want_dsigma``, to the widths).
+
+``c1_block`` and ``gram_block`` take shared anchors ``pos [K, 3]`` or
+per-frame positions ``pos [B, K, 3]``; the latter go to
+``c1_block_tracked`` and ``gram_block_tracked``, which launch the same
+kernels with one neuron table per frame.
 
 A CUDA tensor launches the hand-written kernel of ``csrc/`` (or raises);
 a CPU tensor takes the plain version.  There is no fallback from one to
@@ -15,9 +23,9 @@ the other.  Each wrapper counts its kernel launches in ``.launches``.
 
 The plain versions stream the pixels in chunks (the footprint tensor
 ``[B, P, K]`` does not fit in memory at whole-brain size), compute in
-the inputs' dtype (float64 inputs give the oracle), and take the motion
-gradient by autograd, whose ``minimum``/``maximum`` subgradients at the
-fade's ties are JAX's.
+the inputs' dtype (float64 inputs give the oracle), and take gradients
+by autograd, whose ``minimum``/``maximum`` subgradients at the fade's
+ties are JAX's.
 """
 
 from __future__ import annotations
@@ -31,9 +39,10 @@ from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import footprints as fp_ops
 
 KB = 32  # neurons per culling block (csrc/footprint.cuh)
+REFINE_SUB = 8  # neurons per thread block of the refine moments pass
 REACH_SIGMAS = 6.0  # exp(-36) ~ 2e-16: below float32 resolution
 LOG2E = 1.4426950408889634
-THREADS = 256  # pixels per step of the motion and c1 kernels
+THREADS = 256  # pixels per step of the motion, c1 and refine kernels
 GRAM_TILE = 64  # pixels per step of the Gram kernel
 TARGET_BLOCKS = 1056  # 8 thread blocks per SM of an H100
 # Gram grids hold many pair-culled blocks that exit at once: ask for more.
@@ -48,16 +57,25 @@ def _chunks(p: int, per_pixel: int):
         yield start, min(start + step, p)
 
 
-def _footprints(betas, pos, sigma, size, scaling, start, stop):
-    """Warped, faded footprints of pixels ``[start, stop)``: ``[B, C, K]``."""
+def _warped(betas, size, scaling, start, stop):
+    """Deformed pixel-space coordinates of pixels ``[start, stop)``:
+    ``[B, C, 3]``."""
     m, n, z = size
     idx = torch.arange(start, stop, device=betas.device)
     grid = torch.stack([idx // (n * z), (idx // z) % n, idx % z],
                        dim=-1).to(betas.dtype)
     if scaling == "normalized":
         grid = basis_ops.normalize_points(grid, size)
-    psi = basis_ops.warp_voxel_coords(
+    return basis_ops.warp_voxel_coords(
         basis_ops.quadratic_basis_points(grid), betas, size, scaling)
+
+
+def _footprints(betas, pos, sigma, size, scaling, start, stop):
+    """Warped, faded footprints of pixels ``[start, stop)``: ``[B, C, K]``
+    for ``pos [K, 3]`` or per-frame ``pos [B, K, 3]``."""
+    psi = _warped(betas, size, scaling, start, stop)
+    if pos.ndim == 3:
+        pos = pos[:, None]  # [B, 1, K, 3] against psi [B, C, 1, 3]
     return fp_ops.evaluate_footprints(psi, pos, sigma, size=size)
 
 
@@ -81,20 +99,21 @@ def motion_block_plain(betas, pos, sigma, c_block, y, size,
 
 
 def c1_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized"):
-    """Plain version of :func:`c1_block`."""
+    """Plain version of :func:`c1_block` (``pos [K, 3]`` or ``[B, K, 3]``)."""
     bsz, p = y.shape
-    c1 = torch.zeros((bsz, pos.shape[0]), dtype=betas.dtype,
-                     device=betas.device)
-    for start, stop in _chunks(p, bsz * pos.shape[0] * 3):
+    k = pos.shape[-2]
+    c1 = torch.zeros((bsz, k), dtype=betas.dtype, device=betas.device)
+    for start, stop in _chunks(p, bsz * k * 3):
         a = _footprints(betas, pos, sigma, size, scaling, start, stop)
         c1 += torch.bmm(y[:, None, start:stop], a)[:, 0]
     return c1
 
 
 def gram_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized"):
-    """Plain version of :func:`gram_block`."""
+    """Plain version of :func:`gram_block` (``pos [K, 3]`` or
+    ``[B, K, 3]``)."""
     bsz, p = y.shape
-    k = pos.shape[0]
+    k = pos.shape[-2]
     g = torch.zeros((bsz, k, k), dtype=betas.dtype, device=betas.device)
     c1 = torch.zeros((bsz, k), dtype=betas.dtype, device=betas.device)
     for start, stop in _chunks(p, bsz * k * 3):
@@ -102,6 +121,47 @@ def gram_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized"):
         g += torch.bmm(a.transpose(1, 2), a)
         c1 += torch.bmm(y[:, None, start:stop], a)[:, 0]
     return g, c1
+
+
+# The plain Gram takes per-frame positions as they are (so does c1's).
+gram_block_tracked_plain = gram_block_plain
+
+
+def refine_block_plain(betas, pos_t, sigma, c_block, y, size,
+                       scaling: str = "normalized", want_dsigma: bool = False):
+    """Plain version of :func:`refine_block`: autograd over pixel chunks.
+
+    The widths enter as one copy per frame, so autograd gives each
+    frame's own ``dsigma``; an isotropic width is expanded over the three
+    axes inside the graph, which sums the axis terms.
+    """
+    bsz, p = y.shape
+    k = pos_t.shape[1]
+    sse = torch.zeros(bsz, dtype=betas.dtype, device=betas.device)
+    dpos = torch.zeros_like(pos_t)
+    dsig = torch.zeros((bsz,) + sigma.shape, dtype=sigma.dtype,
+                       device=sigma.device)
+    with torch.enable_grad():
+        pt = pos_t.detach().requires_grad_(True)
+        sg = sigma.detach().expand((bsz,) + sigma.shape).clone()
+        sg.requires_grad_(want_dsigma)
+        leaves = (pt, sg) if want_dsigma else (pt,)
+        for start, stop in _chunks(p, bsz * k * 3):
+            psi = _warped(betas, size, scaling, start, stop)
+            s3 = sg if sigma.ndim == 2 else sg[..., None].expand(bsz, k, 3)
+            d = psi[:, :, None, :] - pt[:, None]  # [B, C, K, 3]
+            a = torch.exp(-torch.sum(d * d / (s3 * s3)[:, None], dim=-1))
+            a = a * fp_ops._bounds_mask(psi, size)
+            r = torch.bmm(a, c_block[:, :, None])[..., 0] - y[:, start:stop]
+            s = torch.sum(r * r, dim=1)
+            grads = torch.autograd.grad(s.sum(), leaves)
+            sse += s.detach()
+            dpos += grads[0]
+            if want_dsigma:
+                dsig += grads[1]
+    if want_dsigma:
+        return sse / p, dpos / p, dsig / p
+    return sse / p, dpos / p
 
 
 # -------------------------------------------------------- kernel inputs
@@ -114,36 +174,49 @@ def per_axis_inv_s2(sigma: torch.Tensor) -> torch.Tensor:
     return 1.0 / (sig * sig)
 
 
-def sorted_params(pos: torch.Tensor, sigma: torch.Tensor, kb: int = KB):
-    """Sort neurons by m and build the kernels' neuron tables.
+def sorted_params_tracked(pos_t: torch.Tensor, sigma: torch.Tensor,
+                          kb: int = KB, c_block=None):
+    """Sort neurons by their mean m over frames and build the kernels'
+    per-frame neuron tables.
 
-    Returns ``(perm, params [K_pad, 8], blocks [nkb, 2])``: params rows
-    ``(p_m, p_n, p_z, log2e/s_m^2, log2e/s_n^2, log2e/s_z^2, 0, 0)`` in
-    sorted order, padded neurons at 1e4 with unit scales (exactly zero
-    footprints); ``blocks`` holds each block's m-interval widened by
-    ``REACH_SIGMAS`` times its widest m-sigma.
+    ``pos_t [B, K, 3]`` holds each frame's own positions.  Returns
+    ``(perm, params [B, K_pad, 8], blocks [nkb, 2])``: params rows
+    ``(p_m, p_n, p_z, log2e/s_m^2, log2e/s_n^2, log2e/s_z^2, c, 0)`` in
+    sorted order (``c`` from ``c_block [B, K]``, else 0), padded neurons
+    at 1e4 with unit scales (exactly zero footprints); ``blocks`` holds
+    each block's m-interval over all frames, widened by ``REACH_SIGMAS``
+    times its widest m-sigma.
     """
-    k = pos.shape[0]
+    bsz, k = pos_t.shape[0], pos_t.shape[1]
     nkb = -(-k // kb)
     k_pad = nkb * kb
-    perm = torch.argsort(pos[:, 0], stable=True)
-    pos_s = pos[perm].to(torch.float32)
+    perm = torch.argsort(torch.mean(pos_t[:, :, 0], dim=0), stable=True)
+    pos_s = pos_t[:, perm].to(torch.float32)
     sig_s = sigma[perm].to(torch.float32)
-    inv_s2 = per_axis_inv_s2(sig_s)
-    params = torch.zeros((k_pad, 8), dtype=torch.float32, device=pos.device)
-    params[:, :3] = 1e4
-    params[:k, :3] = pos_s
-    params[:, 3:6] = 1.0
-    params[:k, 3:6] = inv_s2 * LOG2E
-    inf = torch.full((k_pad - k,), math.inf, device=pos.device)
-    m_lo = torch.cat([pos_s[:, 0], inf]).reshape(nkb, kb)
-    m_hi = torch.cat([pos_s[:, 0], -inf]).reshape(nkb, kb)
+    params = torch.zeros((bsz, k_pad, 8), dtype=torch.float32,
+                         device=pos_t.device)
+    params[:, :, :3] = 1e4
+    params[:, :k, :3] = pos_s
+    params[:, :, 3:6] = 1.0
+    params[:, :k, 3:6] = per_axis_inv_s2(sig_s) * LOG2E
+    if c_block is not None:
+        params[:, :k, 6] = c_block[:, perm]
+    inf = torch.full((k_pad - k,), math.inf, device=pos_t.device)
+    m_lo = torch.cat([pos_s[:, :, 0].min(dim=0).values, inf]).reshape(nkb, kb)
+    m_hi = torch.cat([pos_s[:, :, 0].max(dim=0).values, -inf]).reshape(nkb, kb)
     sig_m = sig_s[:, 0] if sig_s.ndim == 2 else sig_s
     s_pad = torch.cat([sig_m, torch.zeros_like(inf)]).reshape(nkb, kb)
     reach = REACH_SIGMAS * s_pad.max(dim=1).values
     blocks = torch.stack([m_lo.min(dim=1).values - reach,
                           m_hi.max(dim=1).values + reach], dim=1)
     return perm, params, blocks.contiguous()
+
+
+def sorted_params(pos: torch.Tensor, sigma: torch.Tensor, kb: int = KB):
+    """:func:`sorted_params_tracked` for shared anchors ``pos [K, 3]``:
+    ``(perm, params [K_pad, 8], blocks [nkb, 2])``."""
+    perm, params, blocks = sorted_params_tracked(pos[None], sigma, kb)
+    return perm, params[0], blocks
 
 
 def motion_weights(pos, sigma, c_block, perm, k_pad):
@@ -169,11 +242,11 @@ def _n_chunks(p: int, tile: int, blocks_per_chunk: int,
     return min(n_tiles, max(1, -(-target // max(blocks_per_chunk, 1))))
 
 
-def _check(name, size, scaling, y, *tensors):
+def _check(name, size, scaling, y, betas, pos, *tensors):
     dev = y.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
-    for t in (y,) + tensors:
+    for t in (y, betas, pos) + tensors:
         if t.device != dev:
             raise ValueError(f"{name}: all inputs must be on {dev}")
         if t.dtype != torch.float32:
@@ -183,6 +256,13 @@ def _check(name, size, scaling, y, *tensors):
     if y.shape[1] != size[0] * size[1] * size[2]:
         raise ValueError(f"{name}: y has {y.shape[1]} voxels, size "
                          f"{tuple(size)} has {size[0] * size[1] * size[2]}")
+    bsz = y.shape[0]
+    if tuple(betas.shape) != (bsz, 10, 3):
+        raise ValueError(f"{name}: betas {tuple(betas.shape)} for {bsz} "
+                         "frames")
+    if pos.ndim == 3 and (pos.shape[0] != bsz or pos.shape[2] != 3):
+        raise ValueError(f"{name}: per-frame positions {tuple(pos.shape)} "
+                         f"for {bsz} frames")
     if scaling not in ("normalized", "pixel"):
         raise ValueError(f"{name}: unknown scaling {scaling!r}")
 
@@ -228,18 +308,15 @@ def motion_block(betas, pos, sigma, c_block, y, size,
     return mse, dbeta
 
 
-def c1_block(betas, pos, sigma, y, size,
-             scaling: str = "normalized") -> torch.Tensor:
-    """``c1 [B, K] = sum_p w A y`` for ``betas [B, 10, 3]``, ``y [B, P]``."""
-    if y.device.type == "cpu":
-        return c1_block_plain(betas, pos, sigma, y, size, scaling)
-    _check("c1_block", size, scaling, y, betas, pos, sigma)
+def _c1_launch(betas, params, blocks, y, size, scaling):
+    """Run csrc/c1.cu on a neuron table ``params [K_pad, 8]`` (shared) or
+    ``[B, K_pad, 8]`` (per frame); ``c1 [B, K_pad]`` in sorted order."""
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
-    bsz, k = y.shape[0], pos.shape[0]
-    perm, params, blocks = sorted_params(pos, sigma)
+    bsz = y.shape[0]
     nkb = blocks.shape[0]
+    stride = nkb * KB * 8 if params.ndim == 3 else 0
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
     n_chunks = _n_chunks(y.shape[1], THREADS, bsz * nkb)
     partial = torch.empty((bsz, nkb, n_chunks, KB), dtype=torch.float32,
@@ -248,24 +325,52 @@ def c1_block(betas, pos, sigma, y, size,
     err = lib.dnmf_c1(
         beta_rows.data_ptr(), params.data_ptr(), blocks.data_ptr(),
         y.data_ptr(), partial.data_ptr(), c1.data_ptr(), bsz, m, n, z, norm,
-        nkb, n_chunks, _stream())
+        nkb, n_chunks, stride, _stream())
+    return err, c1
+
+
+def c1_block(betas, pos, sigma, y, size,
+             scaling: str = "normalized") -> torch.Tensor:
+    """``c1 [B, K] = sum_p w A y`` for ``betas [B, 10, 3]``, ``y [B, P]``;
+    ``pos [B, K, 3]`` goes to :func:`c1_block_tracked`."""
+    if pos.ndim == 3:
+        return c1_block_tracked(betas, pos, sigma, y, size, scaling)
+    if y.device.type == "cpu":
+        return c1_block_plain(betas, pos, sigma, y, size, scaling)
+    _check("c1_block", size, scaling, y, betas, pos, sigma)
+    from dnmf_tpu_torch.ops import _build
+
+    perm, params, blocks = sorted_params(pos, sigma)
+    err, c1 = _c1_launch(betas, params, blocks, y, size, scaling)
     c1_block.launches += 1
     _build.check(err, "dnmf_c1")
-    return c1[:, :k][:, torch.argsort(perm)]
+    return c1[:, :pos.shape[0]][:, torch.argsort(perm)]
 
 
-def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized"
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(G [B, K, K], c1 [B, K])`` for ``betas [B, 10, 3]``, ``y [B, P]``."""
+def c1_block_tracked(betas, pos_t, sigma, y, size,
+                     scaling: str = "normalized") -> torch.Tensor:
+    """:func:`c1_block` with per-frame positions ``pos_t [B, K, 3]``."""
     if y.device.type == "cpu":
-        return gram_block_plain(betas, pos, sigma, y, size, scaling)
-    _check("gram_block", size, scaling, y, betas, pos, sigma)
+        return c1_block_plain(betas, pos_t, sigma, y, size, scaling)
+    _check("c1_block_tracked", size, scaling, y, betas, pos_t, sigma)
+    from dnmf_tpu_torch.ops import _build
+
+    perm, params, blocks = sorted_params_tracked(pos_t, sigma)
+    err, c1 = _c1_launch(betas, params, blocks, y, size, scaling)
+    c1_block_tracked.launches += 1
+    _build.check(err, "dnmf_c1")
+    return c1[:, :pos_t.shape[1]][:, torch.argsort(perm)]
+
+
+def _gram_launch(betas, params, blocks, y, size, scaling):
+    """Run csrc/gram.cu on a shared or per-frame neuron table; ``(G, c1)``
+    padded and in sorted order."""
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
-    bsz, k = y.shape[0], pos.shape[0]
-    perm, params, blocks = sorted_params(pos, sigma)
+    bsz = y.shape[0]
     nkb = blocks.shape[0]
+    stride = nkb * KB * 8 if params.ndim == 3 else 0
     n_pairs = nkb * (nkb + 1) // 2
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
     n_chunks = _n_chunks(y.shape[1], GRAM_TILE, bsz * n_pairs,
@@ -278,14 +383,100 @@ def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized"
     err = lib.dnmf_gram(
         beta_rows.data_ptr(), params.data_ptr(), blocks.data_ptr(),
         y.data_ptr(), gpart.data_ptr(), cpart.data_ptr(), g.data_ptr(),
-        c1.data_ptr(), bsz, m, n, z, norm, nkb, n_chunks, _stream())
-    gram_block.launches += 1
-    _build.check(err, "dnmf_gram")
+        c1.data_ptr(), bsz, m, n, z, norm, nkb, n_chunks, stride, _stream())
+    return err, g, c1
+
+
+def _unpermute_grams(g, c1, perm, k):
     inv = torch.argsort(perm)
     return g[:, :k, :k][:, inv][:, :, inv], c1[:, :k][:, inv]
 
 
-KERNELS = (motion_block, c1_block, gram_block)
+def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(G [B, K, K], c1 [B, K])`` for ``betas [B, 10, 3]``, ``y [B, P]``;
+    ``pos [B, K, 3]`` goes to :func:`gram_block_tracked`."""
+    if pos.ndim == 3:
+        return gram_block_tracked(betas, pos, sigma, y, size, scaling)
+    if y.device.type == "cpu":
+        return gram_block_plain(betas, pos, sigma, y, size, scaling)
+    _check("gram_block", size, scaling, y, betas, pos, sigma)
+    from dnmf_tpu_torch.ops import _build
+
+    perm, params, blocks = sorted_params(pos, sigma)
+    err, g, c1 = _gram_launch(betas, params, blocks, y, size, scaling)
+    gram_block.launches += 1
+    _build.check(err, "dnmf_gram")
+    return _unpermute_grams(g, c1, perm, pos.shape[0])
+
+
+def gram_block_tracked(betas, pos_t, sigma, y, size,
+                       scaling: str = "normalized"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gram_block` with per-frame positions ``pos_t [B, K, 3]``."""
+    if y.device.type == "cpu":
+        return gram_block_plain(betas, pos_t, sigma, y, size, scaling)
+    _check("gram_block_tracked", size, scaling, y, betas, pos_t, sigma)
+    from dnmf_tpu_torch.ops import _build
+
+    perm, params, blocks = sorted_params_tracked(pos_t, sigma)
+    err, g, c1 = _gram_launch(betas, params, blocks, y, size, scaling)
+    gram_block_tracked.launches += 1
+    _build.check(err, "dnmf_gram")
+    return _unpermute_grams(g, c1, perm, pos_t.shape[1])
+
+
+def refine_block(betas, pos_t, sigma, c_block, y, size,
+                 scaling: str = "normalized", want_dsigma: bool = False):
+    """Per-frame ``mse [B]`` and ``dpos [B, K, 3]`` for per-frame
+    positions ``pos_t [B, K, 3]``, ``c_block [B, K]`` and ``y [B, P]``.
+
+    ``want_dsigma`` also returns each frame's ``dsigma``: ``[B, K]`` for
+    ``sigma [K]`` (the three axis terms summed) or ``[B, K, 3]`` for
+    ``sigma [K, 3]``.  Data term only: callers add the anchor tether.
+    """
+    if y.device.type == "cpu":
+        return refine_block_plain(betas, pos_t, sigma, c_block, y, size,
+                                  scaling, want_dsigma)
+    _check("refine_block", size, scaling, y, betas, pos_t, sigma, c_block)
+    from dnmf_tpu_torch.ops import _build
+
+    lib = _build.load()
+    bsz, p = y.shape
+    k = pos_t.shape[1]
+    perm, params, blocks = sorted_params_tracked(pos_t, sigma,
+                                                 c_block=c_block)
+    nkb = blocks.shape[0]
+    n_sb = nkb * (KB // REFINE_SUB)
+    nmom = 6 if want_dsigma else 3
+    beta_rows, m, n, z, norm = _common(betas, size, scaling)
+    n_res = _n_chunks(p, THREADS, bsz)
+    n_mom = _n_chunks(p, THREADS, bsz * n_sb)
+    f32 = dict(dtype=torch.float32, device=y.device)
+    rw = torch.empty((bsz, p), **f32)
+    sse_part = torch.empty((bsz, n_res), **f32)
+    sse = torch.empty(bsz, **f32)
+    mom_part = torch.empty((bsz, n_sb, n_mom, REFINE_SUB * nmom), **f32)
+    mom = torch.empty((bsz, nkb * KB, nmom), **f32)
+    err = lib.dnmf_refine(
+        beta_rows.data_ptr(), params.data_ptr(), blocks.data_ptr(),
+        y.data_ptr(), rw.data_ptr(), sse_part.data_ptr(), sse.data_ptr(),
+        mom_part.data_ptr(), mom.data_ptr(), bsz, m, n, z, norm, nkb, n_res,
+        n_mom, int(want_dsigma), _stream())
+    refine_block.launches += 1
+    _build.check(err, "dnmf_refine")
+    mom = mom[:, :k][:, torch.argsort(perm)]
+    inv_s2 = per_axis_inv_s2(sigma)  # [K, 3]
+    coeff = (4.0 / p) * c_block[:, :, None] * inv_s2  # 4 c / (P s^2)
+    dpos = coeff * mom[..., :3]
+    if not want_dsigma:
+        return sse / p, dpos
+    dsig = coeff * torch.sqrt(inv_s2) * mom[..., 3:]  # 4 c / (P s^3)
+    return sse / p, dpos, dsig if sigma.ndim == 2 else dsig.sum(dim=-1)
+
+
+KERNELS = (motion_block, c1_block, gram_block, refine_block,
+           c1_block_tracked, gram_block_tracked)
 for _fn in KERNELS:
     _fn.launches = 0
 

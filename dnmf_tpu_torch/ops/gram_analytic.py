@@ -56,10 +56,11 @@ def _warp_pixel(points: torch.Tensor, betas: torch.Tensor, size,
     return u, space
 
 
-def _invert_positions(pos: torch.Tensor, betas: torch.Tensor, size,
+def _invert_positions(pos_t: torch.Tensor, betas: torch.Tensor, size,
                       scaling: str, iters: int) -> torch.Tensor:
-    """``x_k = psi_t^{-1}(p_k)`` in pixel space, ``[B, K, 3]``."""
-    pts = pos.expand((betas.shape[0],) + pos.shape)
+    """``x_tk = psi_t^{-1}(p_tk)`` in pixel space, ``[B, K, 3]``, for
+    ``pos_t [B, K, 3]`` (or ``[1, K, 3]``, shared by every frame)."""
+    pts = pos_t.expand((betas.shape[0],) + pos_t.shape[1:])
     if scaling == "normalized":
         pn = basis_ops.normalize_points(pts, size)
         inv = basis_ops.invert_warp_points(pn, betas, iters=iters)
@@ -73,12 +74,14 @@ def analytic_grams(betas: torch.Tensor, pos: torch.Tensor,
                    plane_axis_max: int = 4) -> torch.Tensor:
     """``[B, K, K]`` closed-form Grams for ``betas [B, 10, 3]``.
 
-    ``pos [K, 3]`` (pixel space); ``sigma [K]`` or ``[K, 3]``.
+    ``pos [K, 3]`` (pixel space), or per-frame positions ``pos [B, K, 3]``
+    (:func:`analytic_grams_tracked`); ``sigma [K]`` or ``[K, 3]``.
     ``window`` is the half-width of the per-axis lattice sums; it must
     cover the pair Gaussian (:func:`default_window`).
     """
     size_t = tuple(int(s) for s in size)
     kw = dict(dtype=torch.float32, device=pos.device)
+    pos_t = pos if pos.ndim == 3 else pos[None]          # [B or 1, K, 3]
     hi = torch.tensor([float(s - 1) for s in size_t], **kw)
     bsz = betas.shape[0]
 
@@ -90,11 +93,11 @@ def analytic_grams(betas: torch.Tensor, pos: torch.Tensor,
     gamma = ck[:, None, :] * ck[None, :, :] / c
     wk = ck[:, None, :] / c
     wl = ck[None, :, :] / c
-    delta2 = (pos[:, None, :] - pos[None, :, :]) ** 2
-    pairfac = torch.exp(-torch.sum(gamma * delta2, dim=-1))  # [K, K]
+    delta2 = (pos_t[:, :, None, :] - pos_t[:, None, :, :]) ** 2
+    pairfac = torch.exp(-torch.sum(gamma * delta2, dim=-1))  # [B|1, K, K]
 
-    m = wk * pos[:, None, :] + wl * pos[None, :, :]      # [K, K, 3]
-    xk = _invert_positions(pos, betas, size_t, scaling, iters)  # [B, K, 3]
+    m = wk * pos_t[:, :, None, :] + wl * pos_t[:, None, :, :]  # [B|1, K, K, 3]
+    xk = _invert_positions(pos_t, betas, size_t, scaling, iters)  # [B, K, 3]
     xm = wk * xk[:, :, None, :] + wl * xk[:, None, :, :]  # [B, K, K, 3]
     # Expand each axis's warp around the volume-clamped inverse point
     # (equal to x_m for interior anchors).
@@ -151,7 +154,7 @@ def analytic_grams(betas: torch.Tensor, pos: torch.Tensor,
                 d, u0b[..., d], jddb[..., d],
                 xc[..., d, None].expand(zshape),
                 c[..., d, None].expand(zshape[1:]),
-                m[..., d, None].expand(zshape[1:]),
+                m[..., d, None].expand(zshape),
             )
         return pairfac * torch.sum(s_planes, dim=-1)
 
@@ -160,6 +163,13 @@ def analytic_grams(betas: torch.Tensor, pos: torch.Tensor,
         s = s * axis_sum(d, u0[..., d], jdd[..., d], xc[..., d],
                          c[..., d], m[..., d])
     return pairfac * s
+
+
+def analytic_grams_tracked(betas: torch.Tensor, pos_t: torch.Tensor,
+                           sigma: torch.Tensor, size, **kwargs) -> torch.Tensor:
+    """``[B, K, K]`` closed-form Grams with per-frame positions ``pos_t
+    [B, K, 3]`` (the refinement phase's tracked anchors)."""
+    return analytic_grams(betas, pos_t, sigma, size, **kwargs)
 
 
 def analytic_gram_frame(beta: torch.Tensor, pos: torch.Tensor,

@@ -150,6 +150,7 @@ def test_wrappers_take_plain_path_on_cpu(rng):
     """CPU tensors go to the plain versions and launch nothing."""
     size = CASES["box"]
     pos, sigma, betas, y, c = _t(*_inputs(rng, size))
+    pos_t = pos + 0.5 * torch.randn((betas.shape[0],) + pos.shape)
     fused.reset_launch_counts()
     for got, ref in [
         (fused.motion_block(betas, pos, sigma, c, y, size),
@@ -158,11 +159,20 @@ def test_wrappers_take_plain_path_on_cpu(rng):
          fused.gram_block_plain(betas, pos, sigma, y, size)),
         ((fused.c1_block(betas, pos, sigma, y, size),),
          (fused.c1_block_plain(betas, pos, sigma, y, size),)),
+        ((fused.c1_block(betas, pos_t, sigma, y, size),),
+         (fused.c1_block_plain(betas, pos_t, sigma, y, size),)),
+        (fused.gram_block_tracked(betas, pos_t, sigma, y, size),
+         fused.gram_block_plain(betas, pos_t, sigma, y, size)),
+        (fused.refine_block(betas, pos_t, sigma, c, y, size,
+                            want_dsigma=True),
+         fused.refine_block_plain(betas, pos_t, sigma, c, y, size,
+                                  want_dsigma=True)),
     ]:
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
-    assert fused.launch_counts() == {"motion_block": 0, "c1_block": 0,
-                                     "gram_block": 0}
+    assert fused.launch_counts() == {
+        "motion_block": 0, "c1_block": 0, "gram_block": 0,
+        "refine_block": 0, "c1_block_tracked": 0, "gram_block_tracked": 0}
 
 
 def test_plain_chunking_is_invisible(rng, monkeypatch):

@@ -242,7 +242,7 @@ def test_check_finite_raises(rng):
 
 @pytest.mark.parametrize("opt,rt,model,item", [
     (dict(motion_mode="parity"), {}, {}, 11),
-    (dict(fit_sigma=True), {}, {}, 6),
+    ({}, dict(mesh_batch=2), {}, 10),
     ({}, dict(mesh_time=2), {}, 10),
     ({}, dict(mesh_pixel=2), {}, 10),
     ({}, dict(checkpoint_dir="ckpt"), {}, 11),
@@ -260,17 +260,17 @@ def test_outside_the_slice_raises(opt, rt, model, item):
 
 def test_unported_methods_and_sources_raise(rng):
     _, tt, video = _trainers(rng)
-    for call in (lambda: tt.refine(video), lambda: tt.save("x"),
-                 lambda: tt.restore("x")):
-        with pytest.raises(NotImplementedError):
+    for call in (lambda: tt.save("x"), lambda: tt.restore("x")):
+        with pytest.raises(NotImplementedError, match="item 11"):
             call()
 
     class Streamed:
         def blocks(self):
             return iter(())
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tt.fit(Streamed())
+    for call in (lambda: tt.fit(Streamed()), lambda: tt.refine(Streamed())):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            call()
 
 
 def test_init_state_is_seeded(rng):
