@@ -30,7 +30,33 @@ Phases, each of which exits non-zero on failure:
 7. refine agreement: the same schedule cut to 1 fit round and
    ``refine(rounds=1, epochs=4)`` at the ROI shape with T=256, with the
    kernels and with ``use_kernels=False``; the two must agree, and so must
-   the refinement alone run both ways from one fitted state.
+   the refinement alone run both ways from one fitted state;
+8. registration kernels (part of phase 4): the phase-correlation kernel
+   F and the fused warp G on 16 frames of a seeded textured volume
+   rolled by known integer shifts, at the ROI patch grid (256x256x10,
+   3x3x1 patches of 128x128x10) and at ``bench.py``'s whole-brain one
+   (512x512x20, 4x4x2 patches of 160x160x10), and F alone at the
+   pipeline's default grid (512x512x20, 2x2x1 patches of 264x264x20):
+   F's integer shifts equal the float64 oracle's in every (frame, patch)
+   and its product spectra and G's output lie within ``KERNEL_TOL`` of
+   float64;
+9. registration path at full width: ``MotionCorrect(video,
+   cfg).motion_correct()`` on a seeded 512x512x20, T=64 recording (200
+   Gaussian neurons on a textured background, each frame warped by a
+   planted rigid + quadratic field), with ``bench.py``'s piecewise-rigid
+   settings and ``remap_mode="fused"``: F and G must have run, the patch
+   shifts must follow the planted field and the corrected movie must be
+   still (after a 16-frame warm-up run); then the pipeline's default
+   registration (2x2x1 patches of 264x264x20, ``remap_mode="exact"``) on
+   the first 32 frames: F ran, G did not, the movie is still;
+10. registration agreement: the full-width run again with
+   ``phasecorr_impl="xla"`` (the plain per-patch path, where "fused"
+   remap means "separable"); each frame block of both runs redone through
+   the same block entry and, from the kernel run's rigid estimates, in
+   float64: the kernel run's corrected movie, every frame, equals G's
+   plain version given the run's own shifts; integer shifts equal except
+   at float64 near-ties; final shifts as close to float64 as the plain
+   path's (``registration_agreement``).
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
@@ -38,19 +64,26 @@ The last two lines are a JSON object of per-kernel results and
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from dnmf_tpu_torch import config as tcfg
 from dnmf_tpu_torch.engine import trainer as ttr
 from dnmf_tpu_torch.models import refine as refine_lib
-from dnmf_tpu_torch.ops import _build, basis, footprints, fused
+from dnmf_tpu_torch.ops import (_build, basis, footprints, fused, phasecorr,
+                                warp)
+from dnmf_tpu_torch.ops.resample import trilinear_resample
+from dnmf_tpu_torch.registration import MotionCorrect
+from dnmf_tpu_torch.registration import motion_correct as mc_lib
 
 SEED = 0
 KERNEL_TOL = 1e-4  # max|kernel - float64| / max|float64|
@@ -77,7 +110,39 @@ SOURCES = {
                          "dnmf_tpu/ops/pallas_culled.py:648"),
     "gram_block_tracked": ("dnmf_tpu_torch/csrc/gram.cu",
                            "dnmf_tpu/ops/pallas_culled.py:944"),
+    "phase_corr_block": ("dnmf_tpu_torch/csrc/phasecorr.cu",
+                         "dnmf_tpu/ops/pallas_phasecorr.py:176"),
+    "fused_separable_warp": ("dnmf_tpu_torch/csrc/warp.cu",
+                             "dnmf_tpu/ops/pallas_warp.py:163"),
 }
+REG_BLOCK = 16  # frames per registration kernel check (the frame_block)
+REG_FRAMES = 64  # frames of the full-width registration recording
+PIPE_FRAMES = 32  # frames registered with the pipeline's default settings
+REG_NOISE = 0.02  # noise std of the registration recordings
+# bench.py's piecewise-rigid settings (its 512x512x20 registration timing).
+BENCH_PW = dict(strides=(128, 128, 10), overlaps=(32, 32, 0),
+                max_shifts=(6, 6, 2), max_deviation_rigid=3,
+                upsample_factor_grid=4, upsample_factor_fft=10,
+                use_remap=True, border_nan=False, rigid_decimate=4)
+# The pipeline's default registration (``register_and_demix``) at
+# 512x512x20: strides of half the frame, max_deviation_rigid 3.
+PIPE_REG = dict(max_shifts=(8, 8, 2), strides=(256, 256, 20),
+                overlaps=(8, 8, 0))
+REG_SHAPES = {  # name: (size, strides, overlaps, max_shifts, max_dev)
+    "roi": ((256, 256, 10), (96, 96, 10), (32, 32, 0), (6, 6, 2), 3),
+    "whole_brain": ((512, 512, 20), BENCH_PW["strides"],
+                    BENCH_PW["overlaps"], BENCH_PW["max_shifts"], 3),
+    "pipeline": ((512, 512, 20), PIPE_REG["strides"], PIPE_REG["overlaps"],
+                 PIPE_REG["max_shifts"], 3),
+}
+SHIFT_MEAN_TOL = 0.25  # px, mean |patch shift - planted| in m and n
+SHIFT_MAX_TOL = 1.0  # px, the same, max
+STILL_RATIO = 0.2  # corrected vs raw interior temporal variance, less noise
+TIE_GAP = 1e-5  # float64 relative gap under which float32 picks may part
+AGREE_PX = 1e-3  # final patch shifts "agree" within this, px
+AGREE_SHARE_F64 = 0.98  # kernel path vs float64 estimation, share agreeing
+AGREE_SLACK = 0.005  # ... and no worse than the plain path's share less this
+AGREE_MOVIE = 1e-3  # kernel run's corrected movie vs G's plain version
 
 
 def fail(msg: str) -> None:
@@ -455,6 +520,415 @@ def refine_agreement(dev, model):
         fail(f"refine agreement: refine alone, pos_t differs by {alone:.3e} px")
 
 
+def textured(gen, size, corr, dev):
+    """Periodic Gaussian-filtered noise of unit std with correlation
+    length ``corr`` (px, per axis), made in Fourier space."""
+    spec = torch.fft.rfftn(torch.randn(size, generator=gen, device=dev))
+    k2 = 0.0
+    for d, (n, c) in enumerate(zip(size, corr)):
+        f = (torch.fft.rfftfreq(n, device=dev) if d == len(size) - 1
+             else torch.fft.fftfreq(n, device=dev))
+        shape = [1] * len(size)
+        shape[d] = f.numel()
+        k2 = k2 + ((2.0 * math.pi * c) * f).reshape(shape) ** 2
+    out = torch.fft.irfftn(spec * torch.exp(-0.5 * k2), s=size)
+    return out / out.std()
+
+
+def registration_kernel_phase(dev, name, size, strides, overlaps,
+                              max_shifts, max_dev, with_warp=True):
+    """Kernels F and G (G only ``with_warp``) on a 16-frame block against
+    their plain versions in float32 and float64 (the oracle).
+
+    The frames are a textured volume rolled by known integer shifts plus
+    noise; F's bounds are the known shift (blurred by up to half a pixel,
+    as a rigid estimate is) +- ``max_dev``.  G warps the same frames by
+    patch shifts spread ``max_dev + 3`` px around rigid shifts, so that
+    its field clipping is active."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    b = REG_BLOCK
+    kw = dict(generator=gen, device=dev)
+    tmpl = textured(gen, size, (2.0, 2.0, 1.0), dev)
+    lim = torch.tensor([ms - 1.0 for ms in max_shifts], device=dev)
+    true = torch.floor(torch.rand((b, 3), **kw) * (2 * lim + 1)) - lim
+    frames = torch.stack([torch.roll(tmpl, tuple(int(s) for s in true[i]),
+                                     (0, 1, 2)) for i in range(b)])
+    frames += REG_NOISE * torch.randn(frames.shape, **kw)
+    starts, grid_shape, window = mc_lib.patch_grid(size, overlaps, strides)
+    pats = phasecorr.to_zm_n(
+        mc_lib._extract_patches(frames, starts, window)).contiguous()
+    t_pats = mc_lib._extract_patches(tmpl, starts, window)
+    tre, tim = phasecorr.patch_spectra(t_pats)
+    tre64, tim64 = phasecorr.patch_spectra(t_pats.double())
+    rigid = true + torch.rand((b, 3), **kw) - 0.5
+    bounds = torch.cat([torch.ceil(rigid - max_dev),
+                        torch.floor(rigid + max_dev),
+                        torch.zeros((b, 2), device=dev)], dim=1)
+    z = window[2]
+
+    def f_kernel():
+        return phasecorr.phase_corr_block(pats, tre, tim, bounds, z=z)
+
+    def f_plain():
+        return phasecorr.phase_corr_block_plain(pats, tre, tim, bounds, z=z)
+
+    got, p32 = f_kernel(), f_plain()
+    oracle = phasecorr.phase_corr_block_plain(pats.double(), tre64, tim64,
+                                              bounds, z=z)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got[0].double(), oracle[0]))
+    planted = float((got[0] == true[:, None]).all(-1).double().mean())
+    p32_miss = int((p32[0].double() != oracle[0]).any(-1).sum())
+    e_prod = max(rel_err(g, o) for g, o in zip(got[1:], oracle[1:]))
+    abs_f = max(float((g.double() - o).abs().max())
+                for g, o in zip(got[1:], oracle[1:]))
+    say(f"kernel phase_corr_block {name} ({len(starts)} patches of "
+        f"{window}): integer shifts equal float64 {same}, equal the "
+        f"planted shift in {planted:.4f} of (frame, patch); plain32 "
+        f"differs from float64 in {p32_miss}; product kernel-vs-float64 "
+        f"{e_prod:.3e} (max abs {abs_f:.3e} of "
+        f"{float(oracle[1].abs().max()):.3e}), plain32-vs-float64 "
+        f"{max(rel_err(p, o) for p, o in zip(p32[1:], oracle[1:])):.3e}")
+    if not same:
+        fail(f"phase_corr_block {name}: integer shifts differ from float64")
+    if not e_prod <= KERNEL_TOL:
+        fail(f"phase_corr_block {name}: {e_prod:.3e} > {KERNEL_TOL}")
+    del got, p32, oracle, tre64, tim64
+    timed = [("phase_corr_block", f_kernel, f_plain, abs_f)]
+    if not with_warp:
+        return time_kernels(name, b, timed)
+
+    rs = (torch.rand((b, 3), **kw) * 2.0 - 1.0) * torch.tensor(
+        [float(ms) for ms in max_shifts], device=dev)
+    ps = rs[:, None] + (torch.rand((b, len(starts), 3), **kw) * 2.0
+                        - 1.0) * (max_dev + 3.0)
+    g_args = (grid_shape, size, max_shifts, max_dev)
+
+    def g_kernel():
+        return warp.fused_separable_warp(frames, ps, rs, *g_args)
+
+    def g_plain():
+        return warp.fused_separable_warp_plain(frames, ps, rs, *g_args)
+
+    got, p32 = g_kernel(), g_plain()
+    oracle = warp.fused_separable_warp_plain(frames.double(), ps.double(),
+                                             rs.double(), *g_args)
+    e_g = rel_err(got, oracle)
+    say(f"kernel fused_separable_warp {name} (grid {grid_shape}): "
+        f"kernel-vs-float64 {e_g:.3e}, plain32-vs-float64 "
+        f"{rel_err(p32, oracle):.3e}")
+    if not e_g <= KERNEL_TOL:
+        fail(f"fused_separable_warp {name}: {e_g:.3e} > {KERNEL_TOL}")
+    abs_g = float((got.double() - oracle).abs().max())
+    del got, p32, oracle
+    timed.append(("fused_separable_warp", g_kernel, g_plain, abs_g))
+    return time_kernels(name, b, timed)
+
+
+def time_kernels(name, frames, timed):
+    """Kernel and plain times of ``(kname, kernel, plain, max_abs_err)``."""
+    out = {}
+    for kname, kern, plain, err in timed:
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        say(f"time {kname} {name}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms ({frames} frames)")
+        out[kname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def neuron_volume(gen, size, k, dev):
+    """``k`` Gaussian neurons (std 3, 3, 1.5 px; amplitudes in [0.5, 1])
+    at seeded interior positions, rendered separably."""
+    kw = dict(generator=gen, device=dev)
+    lo = torch.tensor([12.0, 12.0, 2.0], device=dev)
+    hi = torch.tensor([size[0] - 13.0, size[1] - 13.0, size[2] - 3.0],
+                      device=dev)
+    pos = lo + torch.rand((k, 3), **kw) * (hi - lo)
+    amp = 0.5 + 0.5 * torch.rand(k, **kw)
+    prof = [torch.exp(-0.5 * ((torch.arange(s, device=dev) - pos[:, d:d + 1])
+                              / sd) ** 2)
+            for d, (s, sd) in enumerate(zip(size, (3.0, 3.0, 1.5)))]
+    nz = (prof[1][:, :, None] * prof[2][:, None, :]).reshape(k, -1)
+    return (prof[0].T @ (amp[:, None] * nz)).reshape(size)
+
+
+def planted_recording(dev, size, k, t, starts, window, seed):
+    """Seeded recording ``[T, M, N, Z]`` on the host, and the planted
+    field averaged over each patch window ``[T, n_patches, 3]``.
+
+    The template is ``k`` Gaussian neurons plus a textured background
+    (amplitude 0.3, Gaussian-filtered noise of filter width 2 px in m and
+    n, 1 in z), so every patch has structure.  A smoother background
+    would bias the shifts: the unwhitened cross-correlation of a patch
+    with the template peaks short of the true shift by about (the
+    texture's correlation length)^2 / (patch width), ~0.8 px at 8 px on
+    160-px patches.  Frame t is the template sampled at ``x +
+    d_t(x)`` (``trilinear_resample``, edge padding): a rigid part (up to
+    4 px in m and n, 1 px in z) plus a quadratic one in the normalized
+    coordinates (up to 1 px in m and n, 0.5 px in z), then noise."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=gen, device=dev)
+    tmpl = neuron_volume(gen, size, k, dev) + 0.3 * textured(
+        gen, size, (2.0, 2.0, 1.0), dev)
+    grid = basis.voxel_grid(size, device=dev)
+    half = (torch.tensor(size, dtype=torch.float32, device=dev) - 1) / 2
+    u = grid / half - 1.0
+    mono = torch.stack([u[:, 0] ** 2, u[:, 1] ** 2, u[:, 0] * u[:, 1]], -1)
+    axis_scale = torch.tensor([1.0, 1.0, 0.5], device=dev)
+    rigid = (torch.rand((t, 3), **kw) * 2 - 1) * torch.tensor(
+        [4.0, 4.0, 1.0], device=dev)
+    quad = (torch.rand((t, 3, 3), **kw) * 2 - 1) / 3 * axis_scale
+    video = np.empty((t,) + tuple(size), np.float32)
+    planted = np.empty((t, len(starts), 3))
+    for i in range(t):
+        d = rigid[i] + mono @ quad[i]  # [P, 3]
+        frame = trilinear_resample(tmpl, grid + d, padding="edge")
+        frame = frame.reshape(size) + REG_NOISE * torch.randn(size, **kw)
+        video[i] = frame.cpu().numpy()
+        d = d.reshape(tuple(size) + (3,))
+        planted[i] = torch.stack([
+            d[s0:s0 + window[0], s1:s1 + window[1], s2:s2 + window[2]]
+            .mean(dim=(0, 1, 2)) for s0, s1, s2 in starts]).cpu().numpy()
+    return video, planted
+
+
+def interior(movie, dev, rows=32):
+    """Device float64 chunks of the interior of a host movie ``[T, M, N,
+    Z]`` (16 px in from the m and n borders, 3 planes from the z ones)."""
+    m, n, z = movie.shape[1:]
+    for r in range(16, m - 16, rows):
+        yield torch.from_numpy(np.ascontiguousarray(
+            movie[:, r:min(r + rows, m - 16), 16:n - 16, 3:z - 3])).to(
+            dev, torch.float64)
+
+
+def stillness(dev, raw, corrected):
+    """Interior temporal variance, less the noise variance, of the
+    corrected movie over that of the raw one."""
+    def excess(movie):
+        tot = cnt = 0.0
+        for c in interior(movie, dev):
+            tot += float(c.var(dim=0, unbiased=False).sum())
+            cnt += c[0].numel()
+        return tot / cnt - REG_NOISE ** 2
+    return excess(corrected) / excess(raw)
+
+
+def run_motion_correct(dev, video, cfg, label, time_rigid=False):
+    """``MotionCorrect(video, cfg).motion_correct()`` and the launch counts
+    of the run; prints ms per frame.  With ``time_rigid`` a rigid-only run
+    of the same recording first times the rigid phase, and the
+    piecewise-rigid phase is the full run less that."""
+    rigid_s = None
+    if time_rigid:
+        t0 = time.perf_counter()
+        MotionCorrect(video, dataclasses.replace(cfg, pw_rigid=False),
+                      device=dev).motion_correct()
+        torch.cuda.synchronize()
+        rigid_s = time.perf_counter() - t0
+    mc = MotionCorrect(video, cfg, device=dev)
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc.motion_correct()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = fused.launch_counts()
+    t = video.shape[0]
+    phases = (f"rigid phase {rigid_s / t * 1e3:.4f} ms per frame (a "
+              "rigid-only run), piecewise-rigid phase "
+              f"{(total - rigid_s) / t * 1e3:.4f} ms per frame"
+              if time_rigid else
+              f"rigid + piecewise-rigid {total / t * 1e3:.4f} ms per frame")
+    say(f"registration {label}: {phases} ({t} frames, frame_block "
+        f"{cfg.frame_block}); launches {launches}")
+    shifts = np.stack([np.asarray(mc.x_shifts_els),
+                       np.asarray(mc.y_shifts_els),
+                       np.asarray(mc.z_shifts_els)], axis=-1)
+    if not (np.isfinite(shifts).all()
+            and bool(torch.isfinite(mc.total_template_els).all())):
+        fail(f"registration {label}: non-finite shifts or template")
+    return mc, shifts, launches
+
+
+def check_still(dev, label, raw, corrected):
+    ratio = stillness(dev, raw, corrected)
+    say(f"registration {label}: interior temporal variance less noise, "
+        f"corrected over raw {ratio:.6f}")
+    if not ratio <= STILL_RATIO:
+        fail(f"registration {label}: corrected movie not still ({ratio:.4f} "
+             f"> {STILL_RATIO})")
+
+
+def pick_gap(src, tgt, a, b):
+    """Relative gap between the correlation magnitudes of patch ``src``
+    with ``tgt`` (float64) at the integer shifts ``a`` and ``b``."""
+    cross = torch.fft.ifftn(torch.fft.fftn(src)
+                            * torch.conj(torch.fft.fftn(tgt))).abs()
+    va, vb = (float(cross[tuple(int(v) % n for v, n in
+                                zip(s.tolist(), src.shape))])
+              for s in (a, b))
+    return abs(va - vb) / max(va, vb)
+
+
+def registration_agreement(dev, video, mc_k, sh_k, mc_p, sh_p):
+    """Kernel path (F + G) vs plain path (``phasecorr_impl="xla"``).
+
+    Every frame block is redone through the block entry the runs use
+    (``pwrigid_block``) with its check outputs, the rigid estimate and
+    the integer patch shifts, and must give the run's shifts again; a
+    third redo, in float64 from the kernel run's rigid estimate, is the
+    oracle.  The registration surfaces are float32 sums over ~256,000
+    voxels on top of a large constant (the recording's mean after the
+    ``-min`` offset), so two float32 paths part where the float64 surface
+    has a near-tie: at the integer peak (candidates within ``TIE_GAP``
+    relative) and at the 0.1 px subpixel peak (about 1% of the entries
+    for either path against float64).  The gates: the kernel run's
+    corrected movie, every frame, within ``AGREE_MOVIE`` of G's plain
+    version given the run's own rigid and patch shifts; integer shifts
+    equal except at float64 near-ties; the kernel path's final shifts
+    agree with float64 within ``AGREE_PX`` as often as the plain path's
+    (``AGREE_SLACK``), and in at least ``AGREE_SHARE_F64`` of the entries;
+    the two paths' shifts differ by at most one subpixel step."""
+    cfg = mc_k.config
+    xla = dataclasses.replace(cfg, phasecorr_impl="xla")
+    add = -mc_k.min_mov
+    dims = video.shape[1:]
+    starts, grid_shape, window = mc_lib.patch_grid(dims, cfg.overlaps,
+                                                   cfg.strides)
+    tmpl_k, tmpl_p = mc_k.total_template_rig, mc_p.total_template_rig
+    ints = {"kernel": [], "plain": [], "float64": []}
+    fin64, gaps = [], []
+    repro, num, den = True, 0.0, 0.0
+    for i in range(0, video.shape[0], cfg.frame_block):
+        frames = torch.from_numpy(video[i:i + cfg.frame_block]).to(dev)
+        sl = slice(i, i + frames.shape[0])
+        _, corr_k, est_k = mc_lib.pwrigid_block(frames, tmpl_k, cfg, add,
+                                                estimates=True)
+        _, corr_p, est_p = mc_lib.pwrigid_block(frames, tmpl_p, xla, add,
+                                                estimates=True)
+        _, corr_o, est_o = mc_lib.pwrigid_block(
+            frames.double(), tmpl_k.double(), xla, add,
+            rigid_shifts=est_k["rigid"].double(), estimates=True)
+        repro &= (np.array_equal(corr_k.cpu().numpy(), sh_k[sl])
+                  and np.array_equal(corr_p.cpu().numpy(), sh_p[sl]))
+        ref = warp.fused_separable_warp_plain(
+            frames + add, -torch.from_numpy(sh_k[sl]).to(dev),
+            est_k["rigid"], grid_shape, dims, cfg.max_shifts,
+            cfg.max_deviation_rigid) - add
+        got = torch.from_numpy(mc_k.mc_els[0][sl]).to(dev)
+        num = max(num, float((got - ref).abs().max()))
+        den = max(den, float(ref.abs().max()))
+        for key, est in (("kernel", est_k), ("plain", est_p),
+                         ("float64", est_o)):
+            ints[key].append(est["integer"].cpu())
+        fin64.append(corr_o.cpu().numpy())
+        parted = (est_k["integer"] != est_p["integer"]).any(-1)
+        for b, p in torch.nonzero(parted).tolist():
+            cut = tuple(slice(int(s0), int(s0) + w)
+                        for s0, w in zip(starts[p], window))
+            gaps.append(pick_gap(frames[b][cut].double() + add,
+                                 tmpl_k[cut].double() + add,
+                                 est_k["integer"][b, p],
+                                 est_p["integer"][b, p]))
+        del est_o, corr_o, ref, got
+    int_k, int_p, int_o = (torch.cat(ints[k]) for k in ("kernel", "plain",
+                                                         "float64"))
+    fin64 = np.concatenate(fin64)
+    movie = num / max(den, 1e-30)
+    n_int = int((int_k != int_p).any(-1).sum())
+    step = 1.0 / cfg.upsample_factor_fft
+    share = {}
+    for label, sh, ints_l in (("kernel", sh_k, int_k), ("plain", sh_p, int_p)):
+        off = np.abs(sh - fin64)
+        share[label] = float((off <= AGREE_PX).mean())
+        say(f"registration agreement: {label} path vs float64 estimation: "
+            f"integer shifts differ in {int((ints_l != int_o).any(-1).sum())}"
+            f" of {ints_l.shape[0] * ints_l.shape[1]} (frame, patch); final "
+            f"shifts within {AGREE_PX} px in {share[label]:.6f} of the "
+            f"entries, max diff {off.max():.4f} px")
+    diff = np.abs(sh_k - sh_p)
+    say(f"registration agreement (kernel vs plain): block redos reproduce "
+        f"the runs {repro}; integer shifts differ in {n_int}, float64 gaps "
+        f"there {[f'{g:.2e}' for g in gaps]}; final shifts within "
+        f"{AGREE_PX} px in {float((diff <= AGREE_PX).mean()):.6f}, max diff "
+        f"{diff.max():.4f} px; kernel run's corrected movie vs G's plain "
+        f"version at its own shifts, all {video.shape[0]} frames: max rel "
+        f"diff {movie:.3e}")
+    if not repro:
+        fail("registration agreement: a block redo did not give the run's "
+             "shifts again")
+    if not movie <= AGREE_MOVIE:
+        fail(f"registration agreement: corrected movie differs from G's "
+             f"plain version by {movie:.3e}")
+    if any(g > TIE_GAP for g in gaps):
+        fail("registration agreement: integer shifts differ beyond a "
+             f"float64 near-tie (gaps {gaps})")
+    if not (share["kernel"] >= AGREE_SHARE_F64
+            and share["kernel"] >= share["plain"] - AGREE_SLACK):
+        fail(f"registration agreement: final shifts vs float64 {share}")
+    if not diff.max() <= step + 1e-4:
+        fail("registration agreement: final shifts differ by more than "
+             "one subpixel step")
+
+
+def registration_path(dev):
+    """The full-width piecewise-rigid path, the pipeline's default
+    registration, and the kernel-vs-plain agreement; returns the launch
+    counts of the full-width run."""
+    size = REG_SHAPES["whole_brain"][0]
+    starts, _, window = mc_lib.patch_grid(size, BENCH_PW["overlaps"],
+                                          BENCH_PW["strides"])
+    t0 = time.perf_counter()
+    video, planted = planted_recording(dev, size, 200, REG_FRAMES, starts,
+                                       window, SEED + 3)
+    say(f"registration recording {video.shape} float32 on the host "
+        f"({video.nbytes / 1e9:.2f} GB, made in "
+        f"{time.perf_counter() - t0:.3f} s)")
+    cfg = tcfg.RegistrationConfig(**BENCH_PW, pw_rigid=True, is3d=True,
+                                  remap_mode="fused", return_mc=True)
+    # The first run in a process pays for cuFFT plans and module loads.
+    run_motion_correct(dev, video[:REG_BLOCK], cfg, "warm-up")
+    mc_k, sh_k, launches = run_motion_correct(dev, video, cfg, "fused",
+                                              time_rigid=True)
+    for kname in ("phase_corr_block", "fused_separable_warp"):
+        if launches[kname] <= 0:
+            fail(f"{kname} was not launched during motion_correct()")
+    err = np.abs((sh_k - sh_k[:1]) - (planted - planted[:1]))
+    say("registration fused: patch shifts relative to frame 0 vs the "
+        "planted field averaged over each patch: mean |error| m "
+        f"{err[..., 0].mean():.4f}, n {err[..., 1].mean():.4f}, z "
+        f"{err[..., 2].mean():.4f} px; max m {err[..., 0].max():.4f}, n "
+        f"{err[..., 1].max():.4f}, z {err[..., 2].max():.4f} px")
+    if not (err[..., :2].mean(axis=(0, 1)) <= SHIFT_MEAN_TOL).all():
+        fail("registration: mean patch shift error above "
+             f"{SHIFT_MEAN_TOL} px")
+    if not err[..., :2].max() <= SHIFT_MAX_TOL:
+        fail(f"registration: patch shift error above {SHIFT_MAX_TOL} px")
+    check_still(dev, "fused", video, mc_k.mc_els[0])
+
+    pipe = tcfg.RegistrationConfig(**PIPE_REG, pw_rigid=True, is3d=True,
+                                   border_nan=False, return_mc=True)
+    mc_d, _, pipe_launches = run_motion_correct(
+        dev, video[:PIPE_FRAMES], pipe, "pipeline default")
+    if pipe_launches["phase_corr_block"] <= 0:
+        fail("pipeline default: phase_corr_block was not launched")
+    if pipe_launches["fused_separable_warp"] != 0:
+        fail("pipeline default (remap_mode='exact') launched the fused warp")
+    check_still(dev, "pipeline default", video[:PIPE_FRAMES],
+                mc_d.mc_els[0])
+    del mc_d
+
+    plain = dataclasses.replace(cfg, phasecorr_impl="xla")
+    mc_p, sh_p, plain_launches = run_motion_correct(dev, video, plain, "xla")
+    if plain_launches["phase_corr_block"] or plain_launches[
+            "fused_separable_warp"]:
+        fail("phasecorr_impl='xla' launched a registration kernel")
+    registration_agreement(dev, video, mc_k, sh_k, mc_p, sh_p)
+    del mc_p
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -483,6 +957,10 @@ def main() -> int:
                                      margin)
         results[name].update(tracked_kernel_phase(dev, name, size, k,
                                                   frames, margin))
+        results[name].update(registration_kernel_phase(
+            dev, name, *REG_SHAPES[name]))
+    results["pipeline"] = registration_kernel_phase(
+        dev, "pipeline", *REG_SHAPES["pipeline"], with_warp=False)
     roi, _ = tcfg.baseline_workload("roi")
     model = tcfg.ModelConfig(size=roi.size, num_neurons=roi.num_neurons,
                              num_frames=MAIN_FRAMES, shape_std=roi.shape_std)
@@ -497,6 +975,9 @@ def main() -> int:
     launches["c1_block_tracked"] = auto["c1_block_tracked"]
     launches["gram_block_tracked"] = exact["gram_block_tracked"]
     refine_agreement(dev, model)
+    reg = registration_path(dev)
+    for kname in ("phase_corr_block", "fused_separable_warp"):
+        launches[kname] = reg[kname]
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

@@ -6,8 +6,8 @@ so one configuration drives either package.  The one rename is
 hand-written CUDA kernels of :mod:`dnmf_tpu_torch.ops.fused` take the
 place of the Pallas kernels.
 
-``RegistrationConfig`` and ``SimulatorConfig`` come with the registration
-and simulator slices of the port (ROADMAP Queue 1 items 7 and 9).
+``SimulatorConfig`` comes with the simulator slice of the port (ROADMAP
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -122,6 +122,76 @@ class RuntimeConfig:
     profile_dir: Optional[str] = None
     checkpoint_dir: Optional[str] = None
     metrics_path: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RegistrationConfig:
+    """FFT rigid / piecewise-rigid registration settings
+    (:class:`dnmf_tpu_torch.registration.MotionCorrect`).
+
+    Field for field ``dnmf_tpu.config.RegistrationConfig``.  Two fields
+    choose the hand-written kernels of the piecewise-rigid frame block:
+
+    * ``phasecorr_impl``: ``"fused"`` runs the per-patch correlation as
+      kernel F (:mod:`dnmf_tpu_torch.ops.phasecorr`; its plain version on
+      CPU tensors), ``"xla"`` the plain per-patch
+      ``phase_cross_correlation`` on ``torch.fft``, ``"auto"`` kernel F
+      for 3-D remap blocks on CUDA tensors and the plain path otherwise.
+    * ``remap_mode``: ``"exact"`` (trilinear gather), ``"separable"``
+      (three hat-weighted passes in plain PyTorch) or ``"fused"`` (kernel
+      G, :mod:`dnmf_tpu_torch.ops.warp`).  ``"fused"`` falls back to
+      ``"separable"`` wherever the block path is not the fused one, as
+      in the JAX package.
+
+    ``dft_precision`` is accepted for compatibility: on the card every
+    option computes the transforms in float32 FMA, without TF32.
+    """
+
+    max_shifts: Tuple[int, ...] = (6, 6)
+    niter_rig: int = 1
+    niter_els: int = 1  # the reference pins the elastic phase to 1
+    # Temporal chunking; the per-phase fields override ``splits``.
+    splits: int = 1
+    splits_rig: Optional[int] = None
+    splits_els: Optional[int] = None
+    # Frames seeding the initial template (None = all frames).
+    template_init_max_frames: Optional[int] = None
+    strides: Tuple[int, ...] = (96, 96)
+    overlaps: Tuple[int, ...] = (32, 32)
+    upsample_factor_grid: int = 4
+    upsample_factor_fft: int = 10
+    max_deviation_rigid: int = 3
+    pw_rigid: bool = False
+    is3d: bool = False
+    border_nan: object = True  # True | False | "min" | "copy"
+    gSig_filt: Optional[Tuple[int, ...]] = None
+    min_mov: Optional[float] = None
+    # Interpolating remap (True) or per-patch DFT shifts + blending.
+    use_remap: bool = True
+    remap_mode: str = "exact"  # "exact" | "separable" | "fused"
+    # x/y decimation of the global rigid pre-estimate (1 = full res).
+    rigid_decimate: int = 1
+    # Frames per device transfer and per block call.
+    frame_block: int = 16
+    # Chunks registered in template-refinement iterations (all but the
+    # last, which registers every chunk).
+    num_splits_to_process: Optional[int] = None
+    num_splits_to_process_rig: Optional[int] = None
+    num_splits_to_process_els: Optional[int] = None
+    # Keep the corrected movie (host-resident).
+    return_mc: bool = True
+    phasecorr_impl: str = "auto"  # "auto" | "fused" | "xla"
+    dft_precision: str = "high"
+
+    def resolved_splits(self, phase: str) -> int:
+        """Per-phase chunk count (``phase`` in {"rig", "els"})."""
+        v = self.splits_rig if phase == "rig" else self.splits_els
+        return self.splits if v is None else v
+
+    def resolved_num_splits_to_process(self, phase: str) -> Optional[int]:
+        v = (self.num_splits_to_process_rig if phase == "rig"
+             else self.num_splits_to_process_els)
+        return self.num_splits_to_process if v is None else v
 
 
 def baseline_workload(name: str):

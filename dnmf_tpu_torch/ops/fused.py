@@ -19,7 +19,9 @@ kernels with one neuron table per frame.
 
 A CUDA tensor launches the hand-written kernel of ``csrc/`` (or raises);
 a CPU tensor takes the plain version.  There is no fallback from one to
-the other.  Each wrapper counts its kernel launches in ``.launches``.
+the other.  Each wrapper counts its kernel launches in ``.launches``;
+:func:`launch_counts` also reads the registration kernels' counters
+(:mod:`~dnmf_tpu_torch.ops.phasecorr`, :mod:`~dnmf_tpu_torch.ops.warp`).
 
 The plain versions stream the pixels in chunks (the footprint tensor
 ``[B, P, K]`` does not fit in memory at whole-brain size), compute in
@@ -37,6 +39,7 @@ import torch
 
 from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import footprints as fp_ops
+from dnmf_tpu_torch.ops import phasecorr, warp
 
 KB = 32  # neurons per culling block (csrc/footprint.cuh)
 REFINE_SUB = 8  # neurons per thread block of the refine moments pass
@@ -476,7 +479,8 @@ def refine_block(betas, pos_t, sigma, c_block, y, size,
 
 
 KERNELS = (motion_block, c1_block, gram_block, refine_block,
-           c1_block_tracked, gram_block_tracked)
+           c1_block_tracked, gram_block_tracked,
+           phasecorr.phase_corr_block, warp.fused_separable_warp)
 for _fn in KERNELS:
     _fn.launches = 0
 

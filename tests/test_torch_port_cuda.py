@@ -1,6 +1,7 @@
 """The port's CUDA kernels (motion, c1, Gram, refine; c1 and Gram also at
-per-frame positions) against their plain PyTorch versions on the card.
-Marked ``cuda``; every test skips where no CUDA device exists.
+per-frame positions; phase correlation F and the fused warp G) against
+their plain PyTorch versions on the card.  Marked ``cuda``; every test
+skips where no CUDA device exists.
 
 Run on a machine with an H100:
 ``python -m pytest tests/test_torch_port_cuda.py -q -m cuda``.
@@ -13,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from dnmf_tpu_torch.ops import fused
+from dnmf_tpu_torch.config import RegistrationConfig
+from dnmf_tpu_torch.ops import fft_reg, fused, phasecorr, warp
+from dnmf_tpu_torch.registration import MotionCorrect
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +75,8 @@ def test_kernels_match_float64(dev, shape, scaling):
     assert rel_err(g, g_o) <= 1e-4
     assert fused.launch_counts() == {
         "motion_block": 1, "c1_block": 1, "gram_block": 1,
-        "refine_block": 0, "c1_block_tracked": 0, "gram_block_tracked": 0}
+        "refine_block": 0, "c1_block_tracked": 0, "gram_block_tracked": 0,
+        "phase_corr_block": 0, "fused_separable_warp": 0}
 
 
 def test_anisotropic_widths(dev):
@@ -155,3 +159,169 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused.gram_block(betas, pos, sigma, y.t().contiguous().t(), size)
     with pytest.raises(ValueError):
         fused.refine_block(betas, _tracked(pos, 2), sigma, c, y, size)
+
+
+# ------------------------------------------------ registration: F and G
+PC_SHAPES = {  # name: ((m, n, z), patches)
+    "box": ((16, 16, 4), 3),
+    "odd": ((20, 24, 6), 2),
+}
+
+
+def _pc_inputs(dev, shape, np_, b=3, seed=0):
+    """Smooth template patches and frames shifted from them by known
+    integer amounts (circularly), plus noise."""
+    m, n, z = shape
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    tmpl = torch.rand((np_, m, n, z), generator=gen, dtype=torch.float64)
+    true = torch.randint(-2, 3, (b, np_, 3), generator=gen)
+    pats = torch.stack([torch.stack([
+        torch.roll(tmpl[p], tuple(int(s) for s in true[i, p]), (0, 1, 2))
+        for p in range(np_)]) for i in range(b)])
+    pats = pats + 0.01 * torch.rand(pats.shape, generator=gen,
+                                    dtype=torch.float64)
+    return tmpl.to(dev), pats.to(dev), true
+
+
+def _pc_bounds(dev, b, lb, ub):
+    rows = torch.zeros((b, 8), device=dev)
+    rows[:, :3] = torch.tensor(lb, dtype=torch.float32)
+    rows[:, 3:6] = torch.tensor(ub, dtype=torch.float32)
+    rows[-1, :3] += 1.0  # a frame of its own window
+    return rows
+
+
+@pytest.mark.parametrize("shape", sorted(PC_SHAPES))
+@pytest.mark.parametrize("window", ["wide", "narrow", "empty"])
+def test_phase_corr_kernel_matches_float64(dev, shape, window):
+    size, np_ = PC_SHAPES[shape]
+    tmpl, pats, _ = _pc_inputs(dev, size, np_)
+    lb, ub = {"wide": ([-3, -3, -2], [4, 4, 3]),
+              "narrow": ([-1, 0, -1], [2, 2, 1]),
+              "empty": ([-3, 2, -2], [4, 2, 3])}[window]
+    bounds = _pc_bounds(dev, pats.shape[0], lb, ub)
+    tre, tim = phasecorr.patch_spectra(tmpl)
+    zm_n = phasecorr.to_zm_n(pats)
+    fused.reset_launch_counts()
+    got = phasecorr.phase_corr_block(zm_n.float(), tre.float(), tim.float(),
+                                     bounds, z=size[2])
+    oracle = phasecorr.phase_corr_block_plain(zm_n, tre, tim, bounds,
+                                              z=size[2])
+    plain = phasecorr.phase_corr_block_plain(zm_n.float(), tre.float(),
+                                             tim.float(), bounds, z=size[2])
+    # A caller's bound on the windows (ub - lb) sizes them without a sync.
+    capped = phasecorr.phase_corr_block(
+        zm_n.float(), tre.float(), tim.float(), bounds, z=size[2],
+        max_window=tuple(max(1, u - lo) for lo, u in zip(lb, ub)))
+    torch.cuda.synchronize()
+    assert fused.launch_counts()["phase_corr_block"] == 2
+    assert torch.equal(got[0].double(), oracle[0])
+    assert torch.equal(got[0], plain[0])
+    for g, c in zip(got, capped):
+        assert torch.equal(g, c)
+    if window == "empty":
+        assert not got[0].any()
+    for g, o in zip(got[1:], oracle[1:]):
+        assert rel_err(g, o) <= 1e-4
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("size,grid", [((16, 16, 4), (2, 2, 1)),
+                                       ((20, 24, 6), (3, 2, 2))])
+def test_fused_warp_kernel_matches_float64(dev, size, grid, clip):
+    """``clip``: patch shifts spread past max_deviation_rigid + 2 around
+    the rigid shift, so the field clipping is active."""
+    b, max_shifts, max_dev = 3, (3, 3, 2), 2
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    base = (torch.rand((b, 3), generator=gen, dtype=torch.float64) * 6 - 3)
+    spread = 6.0 if clip else 2.0
+    ps = base[:, None] + (torch.rand((b, int(np.prod(grid)), 3),
+                                     generator=gen, dtype=torch.float64)
+                          - 0.5) * 2 * spread
+    vol = torch.rand((b,) + size, generator=gen, dtype=torch.float64)
+    vol, ps, base = vol.to(dev), ps.to(dev), base.to(dev)
+    fused.reset_launch_counts()
+    got = warp.fused_separable_warp(vol.float(), ps.float(), base.float(),
+                                    grid, size, max_shifts, max_dev)
+    oracle = warp.fused_separable_warp_plain(vol, ps, base, grid, size,
+                                             max_shifts, max_dev)
+    torch.cuda.synchronize()
+    assert fused.launch_counts()["fused_separable_warp"] == 1
+    assert rel_err(got, oracle) <= 1e-4
+
+
+def test_registration_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    tmpl, pats, _ = _pc_inputs(dev, (16, 16, 4), 3)
+    tre, tim = phasecorr.patch_spectra(tmpl.float())
+    zm_n = phasecorr.to_zm_n(pats.float())
+    bounds = _pc_bounds(dev, 3, [-2] * 3, [2] * 3)
+    with pytest.raises(TypeError):
+        phasecorr.phase_corr_block(zm_n.double(), tre, tim, bounds, z=4)
+    with pytest.raises(ValueError):
+        phasecorr.phase_corr_block(zm_n, tre[:2], tim[:2], bounds, z=4)
+    with pytest.raises(ValueError):
+        phasecorr.phase_corr_block(zm_n, tre, tim, bounds, z=5)
+    vol = torch.rand((2, 16, 16, 4), device=dev)
+    with pytest.raises(ValueError):
+        warp.fused_separable_warp(vol, torch.zeros((2, 3, 3), device=dev),
+                                  torch.zeros((2, 3), device=dev), (2, 2, 1),
+                                  (16, 16, 4), (3, 3, 2), 2)
+    with pytest.raises(TypeError):
+        warp.fused_separable_warp(vol.double(),
+                                  torch.zeros((2, 4, 3), device=dev),
+                                  torch.zeros((2, 3), device=dev), (2, 2, 1),
+                                  (16, 16, 4), (3, 3, 2), 2)
+
+
+def _shifted_video(rng, shape, shifts):
+    """A smooth noise template Fourier-shifted per frame, plus noise."""
+    from scipy.ndimage import gaussian_filter
+
+    tmpl = gaussian_filter(rng.normal(size=shape), 2.0).astype(np.float32)
+    frames = fft_reg.apply_shifts_fourier(
+        torch.from_numpy(np.stack([tmpl] * len(shifts))),
+        torch.tensor(shifts, dtype=torch.float32), border_nan=False)
+    return (frames.numpy()
+            + 0.01 * rng.normal(size=frames.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("nd", [2, 3])
+def test_motion_correct_runs_on_the_card(dev, nd):
+    """Rigid then piecewise-rigid ``MotionCorrect`` on the card against
+    the same run on the CPU (the plain paths); the 3-D card run goes
+    through kernels F and G.  Shifts may part by one subpixel step where
+    a float32 surface ties (cuFFT and the kernels sum in another order
+    than the CPU; on these small patches that is a quarter of the
+    piecewise-rigid entries), so the card run is also held to the planted
+    rigid shifts."""
+    rng = np.random.default_rng(3)
+    if nd == 2:
+        shape = (64, 56)
+        shifts = [(0.0, 0.0), (2.3, -1.4), (-3.2, 2.1), (1.1, 3.3),
+                  (-2.4, -2.2), (3.1, 0.4)]
+        cfg = dict(max_shifts=(5, 5), strides=(24, 24), overlaps=(8, 8))
+    else:
+        shape = (64, 64, 8)
+        shifts = [(0.0, 0.0, 0.0), (1.3, -0.6, 0.4), (-1.8, 1.2, -0.3),
+                  (0.7, 2.2, 0.0), (-0.4, -1.3, 0.6)]
+        cfg = dict(max_shifts=(4, 4, 2), strides=(24, 24, 8),
+                   overlaps=(8, 8, 0), remap_mode="fused")
+    video = _shifted_video(rng, shape, shifts)
+    conf = RegistrationConfig(pw_rigid=True, max_deviation_rigid=2,
+                              border_nan=False, frame_block=4, **cfg)
+    fused.reset_launch_counts()
+    card = MotionCorrect(video, conf, device=dev).motion_correct()
+    launches = fused.launch_counts()
+    host = MotionCorrect(video, conf, device="cpu").motion_correct()
+    for attr in ("shifts_rig", "x_shifts_els", "y_shifts_els",
+                 "z_shifts_els"):
+        d = np.abs(np.asarray(getattr(card, attr))
+                   - np.asarray(getattr(host, attr)))
+        assert d.max() <= 0.1 + 1e-4, attr
+    rig = np.asarray(card.shifts_rig)
+    np.testing.assert_allclose(rig - rig[0], np.asarray(shifts[0])
+                               - np.asarray(shifts), rtol=0, atol=0.25)
+    assert (launches["phase_corr_block"] > 0) == (nd == 3)
+    assert (launches["fused_separable_warp"] > 0) == (nd == 3)
+    assert card.total_template_els.device.type == "cuda"
+    assert np.isfinite(card.mc_els[0]).all()
