@@ -56,7 +56,27 @@ Phases, each of which exits non-zero on failure:
    float64: the kernel run's corrected movie, every frame, equals G's
    plain version given the run's own shifts; integer shifts equal except
    at float64 near-ties; final shifts as close to float64 as the plain
-   path's (``registration_agreement``).
+   path's (``registration_agreement``);
+11. kernel C4 (part of phase 4): the Gram from precomputed coordinate
+   and fade rows, ``gram_block(..., psi_source="stream")``, against its
+   plain version in float32 and float64 and against the in-kernel-rows
+   Gram kernel, at both kernel shapes;
+12. pipeline at full width, streamed from disk: a seeded 512x512x20,
+   T=64 recording of 200 planted neurons with seeded traces, moved by a
+   planted in-plane rigid + quadratic field, written to a raw float32
+   file and opened as ``RawFileVideo(path, shape, block=16)``;
+   ``register_and_demix(source, num_neurons=200, refine_positions=True)``
+   at the pipeline's defaults.  The motion, c1, Gram, refine, tracked c1
+   and F kernels must have run, 90% of the planted neurons must have a
+   seed within ``SEED_PX`` in frame 0, the matched traces must correlate
+   with the truth (mean >= 0.9), refine must lower the reconstruction
+   error, all factors finite; stage seconds, one streamed pass's read
+   rate, C4 on the fitted state's first block (its op entry), and the
+   idle share of one more streamed fit round under ``torch.profiler``;
+13. streamed == resident: ``register_and_demix`` at the ROI shape (T=64,
+   points pinned) on a NumPy recording and on a ``StreamingVideo`` over
+   it: positions equal, traces within rtol 2e-4 / atol 1e-6, beta within
+   1e-5.
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
@@ -110,6 +130,8 @@ SOURCES = {
                          "dnmf_tpu/ops/pallas_culled.py:648"),
     "gram_block_tracked": ("dnmf_tpu_torch/csrc/gram.cu",
                            "dnmf_tpu/ops/pallas_culled.py:944"),
+    "gram_block_rows": ("dnmf_tpu_torch/csrc/gram.cu",
+                        "dnmf_tpu/ops/pallas_culled.py:508"),
     "phase_corr_block": ("dnmf_tpu_torch/csrc/phasecorr.cu",
                          "dnmf_tpu/ops/pallas_phasecorr.py:176"),
     "fused_separable_warp": ("dnmf_tpu_torch/csrc/warp.cu",
@@ -143,6 +165,22 @@ AGREE_PX = 1e-3  # final patch shifts "agree" within this, px
 AGREE_SHARE_F64 = 0.98  # kernel path vs float64 estimation, share agreeing
 AGREE_SLACK = 0.005  # ... and no worse than the plain path's share less this
 AGREE_MOVIE = 1e-3  # kernel run's corrected movie vs G's plain version
+# Peak rates of an H100 SXM (NVIDIA's data sheet, at 700 W): device memory,
+# and float32 outside the tensor cores, where every kernel here computes.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+REACH = 36.0  # |psi - p|^2 / sigma^2 past which exp() is below float32
+# The whole-brain pipeline, streamed from a raw file on disk.
+PIPE_T = 64  # frames
+PIPE_BLOCK = 16  # frames per streamed block
+PIPE_NOISE = 0.05  # noise std (a neuron's peak is 0.3 to ~3)
+# A planted neuron counts as seeded within this, frame 0.  Seeds are
+# integer peaks (up to 0.87 px off), and the frame-0 conversion of a 2x2
+# patch grid misses up to ~1 px of the planted quadratic field: at 2 px
+# the share measured 0.88 on an H100 (PERF.md).
+SEED_PX = 2.5
+SEED_SHARE = 0.9  # share of planted neurons that must be seeded
+TRACE_CORR_MEAN = 0.9  # mean correlation with the truth, matched neurons
 
 
 def fail(msg: str) -> None:
@@ -174,6 +212,62 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes, flops):
+    """``(bound_ms, bound_by)``: the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) and
+    do ``flops`` float32 operations, at its published peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def active_pairs(betas, pos, sigma, size, scaling="normalized"):
+    """``(n1, n2)`` of this run's data: the (frame, pixel, neuron) triples
+    whose footprint clears float32 resolution on all three axes, and the
+    sum over (frame, pixel) of their count squared (the Gram's neuron
+    pairs).  ``pos [K, 3]`` or per-frame ``[B, K, 3]``."""
+    sig = sigma if sigma.ndim == 2 else sigma[:, None].expand(-1, 3)
+    inv = 1.0 / (sig * sig)
+    bsz, k = betas.shape[0], pos.shape[-2]
+    p = size[0] * size[1] * size[2]
+    n1 = n2 = 0.0
+    for start, stop in fused._chunks(p, bsz * k * 3):
+        psi = fused._warped(betas, size, scaling, start, stop)[:, :, None]
+        d = psi - (pos if pos.ndim == 2 else pos[:, None])
+        act = (((d * d) * inv).sum(-1) < REACH).sum(-1).double()
+        n1 += float(act.sum())
+        n2 += float((act * act).sum())
+    return n1, n2
+
+
+def footprint_flops(kname, bsz, p, n1, n2):
+    """Float32 operations a kernel of the demixing family must do on this
+    data: per pixel and frame the warp (10 basis values, 30 FMAs, the
+    fade: 70); per active (pixel, neuron) the Gaussian, evaluated once (3
+    differences, 3 products, 3 FMAs, exp2, the fade weight: 12) and its
+    use; the Gram is symmetric, so one FMA per unordered active pair,
+    diagonal included: ``n(n + 1) / 2`` per pixel, ``n2 + n1`` operations
+    in all."""
+    warp_ops, gauss = 70.0 * bsz * p, 12.0 * n1
+    gram_pairs = n2 + n1
+    return {
+        # recon FMA and the 3 position moments per pair; dbeta: 30 FMAs
+        # and the residual per pixel
+        "motion_block": warp_ops + gauss + 8.0 * n1 + 64.0 * bsz * p,
+        "c1_block": warp_ops + gauss + 2.0 * n1,
+        "gram_block": warp_ops + gauss + 2.0 * n1 + gram_pairs,
+        # the rows are given: no warp
+        "gram_block_rows": gauss + 2.0 * n1 + gram_pairs,
+        # the residual's FMA and the 3 position moments per pair
+        "refine_block": warp_ops + gauss + 8.0 * n1,
+    }[kname]
+
+
 def kernel_inputs(dev, size, k, frames, margin, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -195,11 +289,14 @@ def check_kernels(name, frames, cases):
     """Each case's kernel against plain float32 and the float64 oracle.
 
     ``cases``: {label: (kernel, plain, output labels, args, per-frame
-    flags of the args)}; the oracle runs one frame at a time ([P, K]
-    float64).  Returns {label: {"max_abs_err", "ms", "plain_ms"}}.
+    flags of the args, float32 operations)}; the oracle runs one frame at
+    a time ([P, K] float64).  Returns {label: {"max_abs_err",
+    "max_rel_err" (the gated max|kernel - float64| / max|float64|), "ms",
+    "plain_ms", "bound_ms", "bound_by", "library_ms"}}: no one PyTorch
+    call computes these functions, so ``library_ms`` is None.
     """
     out = {}
-    for kname, (kern, plain, labels, args, framed) in cases.items():
+    for kname, (kern, plain, labels, args, framed, flops) in cases.items():
         def call(f, sl=slice(None), dtype=torch.float32):
             res = f(*(a[sl].to(dtype) if fr else a.to(dtype)
                       for a, fr in zip(args, framed)))
@@ -212,10 +309,11 @@ def check_kernels(name, frames, cases):
             for i, o in enumerate(call(plain, slice(b, b + 1), torch.float64)):
                 oracle[i].append(o)
         oracle = [torch.cat(o) for o in oracle]
-        worst_abs = 0.0
+        worst_abs = worst_rel = 0.0
         for label, g, p, o in zip(labels, got, p32, oracle):
             e_k, e_p = rel_err(g, o), rel_err(p, o)
             worst_abs = max(worst_abs, float((g.double() - o).abs().max()))
+            worst_rel = max(worst_rel, e_k)
             say(f"kernel {kname} {name} {label}: kernel-vs-float64 "
                 f"{e_k:.3e}, plain32-vs-float64 {e_p:.3e}, "
                 f"kernel-vs-plain32 {rel_err(g, p):.3e}")
@@ -223,9 +321,13 @@ def check_kernels(name, frames, cases):
                 fail(f"{kname} {name} {label}: {e_k:.3e} > {KERNEL_TOL}")
         ms = time_ms(lambda: call(kern))
         plain_ms = time_ms(lambda: call(plain))
+        bound_ms, bound_by = bound(nbytes(*args, *got), flops)
         say(f"time {kname} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms ({frames} frames)")
-        out[kname] = {"max_abs_err": worst_abs, "ms": ms, "plain_ms": plain_ms}
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}; {flops:.4e} ops) "
+            f"({frames} frames)")
+        out[kname] = {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None}
     return out
 
 
@@ -233,6 +335,8 @@ def kernel_phase(dev, name, size, k, frames, margin):
     """The demixing round's kernels at shared anchors."""
     betas, pos, sigma, c, y = kernel_inputs(dev, size, k, frames,
                                             margin, SEED)
+    p = y.shape[1]
+    n1, n2 = active_pairs(betas, pos, sigma, size)
     cases = {}
     for kname, labels, args, framed in (
             ("motion_block", ("mse", "dbeta"), (betas, pos, sigma, c, y),
@@ -243,7 +347,8 @@ def kernel_phase(dev, name, size, k, frames, margin):
         cases[kname] = (functools.partial(getattr(fused, kname), size=size),
                         functools.partial(getattr(fused, kname + "_plain"),
                                           size=size),
-                        labels, args, framed)
+                        labels, args, framed,
+                        footprint_flops(kname, frames, p, n1, n2))
     return check_kernels(name, frames, cases)
 
 
@@ -259,26 +364,96 @@ def tracked_kernel_phase(dev, name, size, k, frames, margin):
     sigma3 = 3.0 * (0.8 + 0.4 * torch.rand((k, 3), generator=gen,
                                            device=dev))
     refine_args = (1, 1, 0, 1, 1)
+    p = y.shape[1]
+    n1, n2 = active_pairs(betas, pos_t, sigma, size)
     cases = {}
     for label, sig, want in (("refine_block", sigma, False),
                              ("refine_block[dsigma]", sigma, True),
                              ("refine_block[aniso,dsigma]", sigma3, True)):
         labels = ("mse", "dpos", "dsigma")[:2 + want]
+        m1 = n1 if sig is sigma else active_pairs(betas, pos_t, sig, size)[0]
+        # dsigma: 3 more moments per pair
+        flops = footprint_flops("refine_block", frames, p, m1, 0.0) + (
+            6.0 * m1 if want else 0.0)
         cases[label] = (
             functools.partial(fused.refine_block, size=size,
                               want_dsigma=want),
             functools.partial(fused.refine_block_plain, size=size,
                               want_dsigma=want),
-            labels, (betas, pos_t, sig, c, y), refine_args)
+            labels, (betas, pos_t, sig, c, y), refine_args, flops)
     cases["c1_block_tracked"] = (
         functools.partial(fused.c1_block_tracked, size=size),
         functools.partial(fused.c1_block_plain, size=size),
-        ("c1",), (betas, pos_t, sigma, y), (1, 1, 0, 1))
+        ("c1",), (betas, pos_t, sigma, y), (1, 1, 0, 1),
+        footprint_flops("c1_block", frames, p, n1, n2))
     cases["gram_block_tracked"] = (
         functools.partial(fused.gram_block_tracked, size=size),
         functools.partial(fused.gram_block_tracked_plain, size=size),
-        ("G", "c1"), (betas, pos_t, sigma, y), (1, 1, 0, 1))
+        ("G", "c1"), (betas, pos_t, sigma, y), (1, 1, 0, 1),
+        footprint_flops("gram_block", frames, p, n1, n2))
     return check_kernels(name, frames, cases)
+
+
+def rows_kernel_phase(dev, name, size, k, frames, margin, c_ms):
+    """Kernel C4, the Gram from precomputed rows: ``gram_block(...,
+    psi_source="stream")`` against ``gram_block_rows_plain`` on the same
+    rows in float32, against the float64 oracle (rows and Gram in float64,
+    one frame at a time), and against the in-kernel-rows Gram kernel C on
+    the same inputs.  ``ms`` is the kernel on given rows; the op entry's
+    time (rows made by :func:`fused.psi_rows`, then the kernel) is printed
+    beside it and C's (``c_ms``)."""
+    betas, pos, sigma, _, y = kernel_inputs(dev, size, k, frames, margin,
+                                            SEED)
+    psi, w = fused.psi_rows(betas, size)
+
+    def kern():
+        return fused.gram_block_rows(psi, w, pos, sigma, y)
+
+    def plain():
+        return fused.gram_block_rows_plain(psi, w, pos, sigma, y)
+
+    got = fused.gram_block(betas, pos, sigma, y, size, psi_source="stream")
+    p32 = plain()
+    in_kernel = fused.gram_block(betas, pos, sigma, y, size)
+    oracle = [[], []]
+    for b in range(frames):
+        psi64, w64 = fused.psi_rows(betas[b:b + 1].double(), size)
+        for i, o in enumerate(fused.gram_block_rows_plain(
+                psi64, w64, pos.double(), sigma.double(),
+                y[b:b + 1].double())):
+            oracle[i].append(o)
+        del psi64, w64
+    oracle = [torch.cat(o) for o in oracle]
+    worst_abs = worst_rel = 0.0
+    for label, g, p_, c_, o in zip(("G", "c1"), got, p32, in_kernel, oracle):
+        e_k = rel_err(g, o)
+        worst_abs = max(worst_abs, float((g.double() - o).abs().max()))
+        worst_rel = max(worst_rel, e_k)
+        e_c = rel_err(g, c_)
+        say(f"kernel gram_block_rows {name} {label}: kernel-vs-float64 "
+            f"{e_k:.3e}, plain32-vs-float64 {rel_err(p_, o):.3e}, "
+            f"kernel-vs-plain32 {rel_err(g, p_):.3e}, vs the in-kernel-rows "
+            f"Gram kernel {e_c:.3e}")
+        if not (e_k <= KERNEL_TOL and e_c <= KERNEL_TOL):
+            fail(f"gram_block_rows {name} {label}: {e_k:.3e} / {e_c:.3e} > "
+                 f"{KERNEL_TOL}")
+    del oracle, p32, in_kernel
+    n1, n2 = active_pairs(betas, pos, sigma, size)
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    op_ms = time_ms(lambda: fused.gram_block(betas, pos, sigma, y, size,
+                                             psi_source="stream"))
+    bound_ms, bound_by = bound(
+        nbytes(psi, w, pos, sigma, y, *got),
+        footprint_flops("gram_block_rows", frames, y.shape[1], n1, n2))
+    say(f"time gram_block_rows {name}: kernel {ms:.4f} ms on given rows, "
+        f"op entry with psi_rows {op_ms:.4f} ms, in-kernel-rows Gram "
+        f"{c_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}) ({frames} frames)")
+    return {"gram_block_rows": {
+        "max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "op_ms": op_ms}}
 
 
 def ground_truth(dev, size, k, t, seed):
@@ -593,8 +768,24 @@ def registration_kernel_phase(dev, name, size, strides, overlaps,
         fail(f"phase_corr_block {name}: integer shifts differ from float64")
     if not e_prod <= KERNEL_TOL:
         fail(f"phase_corr_block {name}: {e_prod:.3e} > {KERNEL_TOL}")
-    del got, p32, oracle, tre64, tim64
-    timed = [("phase_corr_block", f_kernel, f_plain, abs_f)]
+    del p32, oracle, tre64, tim64
+    # F's least work: a real-input forward FFT of every patch (2.5 N log2
+    # N) and the cross-power product (6 per complex bin); the inverse is
+    # needed only at the window's few lattice points.
+    n_vox = window[0] * window[1] * window[2]
+    f_flops = b * len(starts) * (2.5 * n_vox * math.log2(n_vox)
+                                 + 3.0 * n_vox)
+    f_bytes = nbytes(pats, tre, tim, bounds, *got)
+    del got
+    pats5 = pats.reshape(b, len(starts), z, -1, pats.shape[-1])
+    tconj = torch.conj(torch.complex(tre, tim).reshape(pats5.shape[1:]))
+
+    def f_library():  # cuFFT cross-correlation: forward, product, inverse
+        return torch.fft.ifftn(torch.fft.fftn(pats5, dim=(-3, -2, -1))
+                               * tconj, dim=(-3, -2, -1))
+
+    timed = [("phase_corr_block", f_kernel, f_plain, abs_f, e_prod,
+              f_bytes, f_flops, f_library)]
     if not with_warp:
         return time_kernels(name, b, timed)
 
@@ -620,19 +811,34 @@ def registration_kernel_phase(dev, name, size, strides, overlaps,
     if not e_g <= KERNEL_TOL:
         fail(f"fused_separable_warp {name}: {e_g:.3e} > {KERNEL_TOL}")
     abs_g = float((got.double() - oracle).abs().max())
+    # G's least work: per voxel the field (the cubic upsampling of the
+    # patch grid, ~8 operations per axis) and a two-tap lerp per axis.
+    g_bytes = nbytes(frames, ps, rs, got)
+    g_flops = 3 * 12.0 * frames.numel()
     del got, p32, oracle
-    timed.append(("fused_separable_warp", g_kernel, g_plain, abs_g))
+    timed.append(("fused_separable_warp", g_kernel, g_plain, abs_g, e_g,
+                  g_bytes, g_flops, None))
     return time_kernels(name, b, timed)
 
 
 def time_kernels(name, frames, timed):
-    """Kernel and plain times of ``(kname, kernel, plain, max_abs_err)``."""
+    """Kernel, plain and library times of ``(kname, kernel, plain,
+    max_abs_err, max_rel_err, bytes, operations, library call or
+    None)``."""
     out = {}
-    for kname, kern, plain, err in timed:
+    for kname, kern, plain, err, rel, n_bytes, flops, library in timed:
         ms, plain_ms = time_ms(kern), time_ms(plain)
+        library_ms = time_ms(library) if library is not None else None
+        bound_ms, bound_by = bound(n_bytes, flops)
+        lib = ("none" if library_ms is None
+               else f"{library_ms:.4f} ms")
         say(f"time {kname} {name}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms ({frames} frames)")
-        out[kname] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
+            f"({bound_by}) ({frames} frames)")
+        out[kname] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                      "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
     return out
 
 
@@ -929,6 +1135,283 @@ def registration_path(dev):
     return launches
 
 
+def seeded_traces(rng, k, t):
+    """Non-negative traces ``[K, T]``: a 0.3 baseline plus sparse
+    transients (probability 0.15 per frame, exponential amplitudes of mean
+    1) that decay by 0.7 per frame."""
+    spikes = rng.exponential(1.0, (k, t)) * (rng.uniform(size=(k, t)) < 0.15)
+    c = np.empty((k, t))
+    level = np.zeros(k)
+    for i in range(t):
+        level = 0.7 * level + spikes[:, i]
+        c[:, i] = 0.3 + level
+    return c
+
+
+def pipeline_recording(dev, size, k, t, seed, out=None):
+    """Seeded recording of ``k`` Gaussian neurons with seeded traces,
+    each frame warped by a planted rigid + quadratic field, plus noise.
+
+    The neurons have the model's own form, ``exp(-|x - p|^2 / 9)``
+    (``shape_std`` 3), at seeded positions at least 12 px apart inside a
+    per-axis margin of ``min(20, (size - 1) / 4)`` px, as
+    ``interior_positions`` in ``tools/wb_recovery.py`` places the
+    whole-brain recovery neurons (the simulator's own clamp,
+    ``(size - 1) / 2``, lets them reach the border).  A seed whose
+    footprint leaves the volume in some frames gets a runaway trace in
+    both packages, with closed-form or exact Grams alike
+    (``test_border_plane_fit_matches_jax``; an open fault of the
+    reference).
+    Frame t is its template-space volume sampled at ``x + d_t(x)``
+    (``trilinear_resample``, edge padding): a rigid part (up to 4 px in m
+    and n) plus a quadratic one (up to 1 px in m and n), as
+    :func:`planted_recording` draws them, with the z parts set to 0: the
+    pipeline turns registration's z corrections into positions and warps
+    with the opposite sign (``apply_shifts_points``, the reference's z
+    convention, in both packages), so planted z motion would be doubled,
+    not removed.  Frames go to ``out`` (a binary file) or into a host
+    array.  Returns ``(video or None, positions in frame 0 [K, 3], traces
+    [K, T])``."""
+    rng = np.random.default_rng(seed)
+    lo = np.minimum(20.0, (np.array(size, float) - 1.0) / 4)
+    hi = np.array(size, float) - 1.0 - lo
+    pos = []
+    while len(pos) < k:
+        cand = lo + rng.uniform(size=3) * (hi - lo)
+        if all(np.linalg.norm(cand - q) >= 12.0 for q in pos):
+            pos.append(cand)
+    pos = np.array(pos)
+    c = seeded_traces(rng, k, t)
+    half = (np.array(size, float) - 1) / 2
+    rigid = rng.uniform(-1, 1, (t, 3)) * np.array([4.0, 4.0, 0.0])
+    quad = rng.uniform(-1, 1, (t, 3, 3)) / 3 * np.array([1.0, 1.0, 0.0])
+
+    def field(x, i):  # d_t(x) for x [Q, 3]
+        u = x / half - 1.0
+        mono = np.stack([u[:, 0] ** 2, u[:, 1] ** 2, u[:, 0] * u[:, 1]], -1)
+        return rigid[i] + mono @ quad[i]
+
+    # Frame 0 shows the neuron at p where x0 + d_0(x0) = p.
+    pos0 = pos.copy()
+    for _ in range(20):
+        pos0 = pos - field(pos0, 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prof = [torch.exp(-(torch.arange(n, device=dev, dtype=torch.float32)
+                        - torch.tensor(pos[:, d:d + 1], device=dev,
+                                       dtype=torch.float32)) ** 2 / 9.0)
+            for d, n in enumerate(size)]
+    nz = (prof[1][:, :, None] * prof[2][:, None, :]).reshape(k, -1)
+    grid = basis.voxel_grid(size, device=dev)
+    u = grid / torch.tensor(half, device=dev, dtype=torch.float32) - 1.0
+    mono = torch.stack([u[:, 0] ** 2, u[:, 1] ** 2, u[:, 0] * u[:, 1]], -1)
+    c_dev = torch.tensor(c, device=dev, dtype=torch.float32)
+    video = None if out is not None else np.empty((t,) + tuple(size),
+                                                  np.float32)
+    for i in range(t):
+        vol = (prof[0].T @ (c_dev[:, i:i + 1] * nz)).reshape(size)
+        d = (torch.tensor(rigid[i], device=dev, dtype=torch.float32)
+             + mono @ torch.tensor(quad[i], device=dev, dtype=torch.float32))
+        frame = trilinear_resample(vol, grid + d, padding="edge").reshape(
+            size) + PIPE_NOISE * torch.randn(size, generator=gen, device=dev)
+        host = frame.cpu().numpy()
+        if out is None:
+            video[i] = host
+        else:
+            out.write(host.tobytes())
+    return video, pos0, c
+
+
+def match_seeds(result, pos0, c_true):
+    """Each planted neuron's nearest seed (frame-0 positions): the share
+    seeded within ``SEED_PX`` and the trace correlations of those."""
+    seeds = result.positions[:, :, 0]
+    d = np.linalg.norm(pos0[:, None] - seeds[None], axis=-1)
+    nearest = d.argmin(axis=1)
+    dist = d[np.arange(len(pos0)), nearest]
+    hit = dist <= SEED_PX
+    say("pipeline: planted neuron to nearest seed, px: quantiles (50, 90, "
+        "99, 100) " + ", ".join(f"{q:.3f}" for q in np.quantile(
+            dist, [0.5, 0.9, 0.99, 1.0]))
+        + f"; share within 2 px {float((dist <= 2.0).mean()):.4f}")
+    traces = result.traces
+    corr = np.array([np.corrcoef(traces[j], c_true[i])[0, 1]
+                     for i, j in zip(np.flatnonzero(hit), nearest[hit])])
+    return float(hit.mean()), corr
+
+
+def idle_share(run):
+    """Wall seconds, device-busy seconds and idle share of ``run()`` under
+    ``torch.profiler`` (the union of the device's kernel and copy spans
+    over the wall; the profiler inflates host time, so read shares), and
+    the five largest device-time entries; busy None where the trace holds
+    no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not spans:
+        return wall, None, None, []
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0.0)
+
+    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:5]
+    return wall, busy * 1e-6, 1.0 - busy * 1e-6 / wall, [
+        (e.key, dev_us(e) * 1e-3) for e in top]
+
+
+def pipeline_path(dev, size, k):
+    """``register_and_demix(RawFileVideo(...), num_neurons=k,
+    refine_positions=True)`` at its defaults on a recording written to a
+    raw file; the C4 op entry on the fitted state; one more streamed fit
+    round under the profiler.  Returns the launch counts of the pipeline
+    and of the C4 path."""
+    import tempfile
+
+    from dnmf_tpu_torch.data.streaming import RawFileVideo
+    from dnmf_tpu_torch.engine.pipeline import register_and_demix
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = f"{tmp}/recording.raw"
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            _, pos0, c_true = pipeline_recording(dev, size, k, PIPE_T,
+                                                 SEED + 4, out=f)
+        shape = (PIPE_T,) + tuple(size)
+        say(f"pipeline recording {shape} float32 written to a raw file "
+            f"({PIPE_T * np.prod(size) * 4 / 1e9:.2f} GB, "
+            f"{time.perf_counter() - t0:.3f} s)")
+        src = RawFileVideo(path, shape, block=PIPE_BLOCK, device=dev)
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = register_and_demix(src, num_neurons=k, refine_positions=True)
+        total = time.perf_counter() - t0
+        launches = fused.launch_counts()
+        say(f"pipeline: launches {launches}")
+        say("pipeline seconds: " + ", ".join(
+            f"{stage} {sec:.3f}" for stage, sec in res.seconds.items())
+            + f"; total {total:.3f} ({PIPE_T} frames, "
+            f"{total / PIPE_T * 1e3:.4f} ms per frame); fit rounds "
+            + ", ".join(f"{m['seconds']:.3f}" for m in res.fit.metrics
+                        if m["phase"] == "round") + " s")
+        for kname in ("motion_block", "c1_block", "gram_block",
+                      "refine_block", "c1_block_tracked", "phase_corr_block"):
+            if launches[kname] <= 0:
+                fail(f"pipeline: {kname} was not launched")
+        # What one streamed pass costs with nothing to compute: the native
+        # reader, and a memmap read on the calling thread.
+        from dnmf_tpu_torch.data.streaming import open_memmap_video
+        for label, s in (("RawFileVideo", src), ("memmap StreamingVideo",
+                         open_memmap_video(path, shape, block=PIPE_BLOCK,
+                                           device=dev))):
+            t0 = time.perf_counter()
+            for frames, _, _ in s.blocks():
+                pass
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            say(f"one streamed pass, {label}: {sec:.3f} s "
+                f"({PIPE_T * np.prod(size) * 4 / sec / 1e9:.3f} GB/s)")
+        state = res.fit.state
+        for name in ("beta", "c", "pos", "sigma"):
+            if not bool(torch.isfinite(getattr(state, name)).all()):
+                fail(f"pipeline: non-finite {name}")
+        share, corr = match_seeds(res, pos0, c_true)
+        motion = [m for m in res.fit.metrics if m["phase"] == "motion"]
+        ref = [m for m in res.fit.metrics if m["phase"] == "refine"][-1]
+        say(f"pipeline: {res.traces.shape[0]} seeds; planted neurons seeded "
+            f"within {SEED_PX} px in frame 0: {share:.4f}; trace corr vs the "
+            f"truth over {corr.size} matched: mean {corr.mean():.6f}, min "
+            f"{corr.min():.6f}; fit's last motion recon_mse "
+            f"{motion[-1]['recon_mse']:.6e}, refine recon_mse "
+            f"{ref['recon_mse']:.6e}")
+        if not share >= SEED_SHARE:
+            fail(f"pipeline: {share:.4f} of planted neurons seeded")
+        if not corr.mean() >= TRACE_CORR_MEAN:
+            fail(f"pipeline: mean trace correlation {corr.mean():.6f}")
+        if not ref["recon_mse"] < motion[-1]["recon_mse"]:
+            fail("pipeline: refine did not lower the reconstruction error")
+
+        # C4's path, its op entry: the first block's MU statistics at the
+        # fitted state from rows computed outside the kernel.
+        frames, start, valid = next(iter(src.blocks()))
+        betas = state.beta[start:start + valid]
+        fused.reset_launch_counts()
+        g_rows, c1_rows = fused.gram_block(betas, state.pos, state.sigma,
+                                           frames[:valid], size,
+                                           psi_source="stream")
+        c4_launches = fused.launch_counts()
+        g_in, c1_in = fused.gram_block(betas, state.pos, state.sigma,
+                                       frames[:valid], size)
+        e_g, e_c = rel_err(g_rows, g_in), rel_err(c1_rows, c1_in)
+        say(f"C4 path: launches {c4_launches}; fitted-state Grams from rows "
+            f"vs the in-kernel-rows kernel: G {e_g:.3e}, c1 {e_c:.3e}")
+        if c4_launches["gram_block_rows"] <= 0:
+            fail("C4 path: gram_block_rows was not launched")
+        if not (e_g <= KERNEL_TOL and e_c <= KERNEL_TOL):
+            fail(f"C4 path: {e_g:.3e} / {e_c:.3e} > {KERNEL_TOL}")
+
+        # One more streamed fit round, profiled: does the pinned prefetch
+        # keep the card busy?
+        model = tcfg.ModelConfig(size=tuple(size), num_neurons=state.c.shape[0],
+                                 num_frames=PIPE_T, shape_std=3.0)
+        engine = ttr.DeformableNMF(
+            model, tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=1,
+                                        motion_epochs=12),
+            positions=state.pos, beta0=state.beta, device=dev)
+        engine.state = engine.state.replace(c=state.c)
+        wall, busy, idle, top = idle_share(lambda: engine.fit(src))
+        if busy is None:
+            say(f"streamed fit round (profiled): wall {wall:.3f} s; the "
+                "trace held no device events: idle share not measured")
+        else:
+            say(f"streamed fit round (profiled): wall {wall:.3f} s, device "
+                f"busy {busy:.3f} s, idle share {idle:.4f}; top device "
+                "time: " + ", ".join(f"{n} {ms:.3f} ms" for n, ms in top))
+        del src, engine, res
+    return launches, c4_launches
+
+
+def streamed_equals_resident(dev, size, k):
+    """``register_and_demix`` on an in-memory NumPy recording and on a
+    ``StreamingVideo`` over it, points pinned: the JAX package's streamed
+    == resident gates, on the card with the kernels."""
+    from dnmf_tpu_torch.data.streaming import StreamingVideo
+    from dnmf_tpu_torch.engine.pipeline import register_and_demix
+
+    video, pos0, _ = pipeline_recording(dev, size, k, PIPE_T, SEED + 5)
+    kw = dict(points=pos0, runtime=tcfg.RuntimeConfig(frame_block=PIPE_BLOCK))
+    t0 = time.perf_counter()
+    res_a = register_and_demix(video, **kw)
+    t1 = time.perf_counter()
+    res_b = register_and_demix(StreamingVideo(video, block=PIPE_BLOCK), **kw)
+    t2 = time.perf_counter()
+    same_pos = bool(np.array_equal(res_b.positions, res_a.positions))
+    d_c = np.abs(res_b.traces - res_a.traces)
+    ok_c = bool((d_c <= 1e-6 + 2e-4 * np.abs(res_a.traces)).all())
+    d_b = float(np.abs(res_b.fit.beta - res_a.fit.beta).max())
+    say(f"streamed == resident ({size}, K={k}, T={PIPE_T}): positions equal "
+        f"{same_pos}; traces max diff {d_c.max():.3e} (within rtol 2e-4 / "
+        f"atol 1e-6: {ok_c}); beta max diff {d_b:.3e}; resident "
+        f"{t1 - t0:.3f} s, streamed {t2 - t1:.3f} s")
+    if not (same_pos and ok_c and d_b <= 1e-5):
+        fail("streamed != resident")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -957,6 +1440,9 @@ def main() -> int:
                                      margin)
         results[name].update(tracked_kernel_phase(dev, name, size, k,
                                                   frames, margin))
+        results[name].update(rows_kernel_phase(
+            dev, name, size, k, frames, margin,
+            results[name]["gram_block"]["ms"]))
         results[name].update(registration_kernel_phase(
             dev, name, *REG_SHAPES[name]))
     results["pipeline"] = registration_kernel_phase(
@@ -978,17 +1464,28 @@ def main() -> int:
     reg = registration_path(dev)
     for kname in ("phase_corr_block", "fused_separable_warp"):
         launches[kname] = reg[kname]
+    pipe, c4 = pipeline_path(dev, wb.size, wb.num_neurons)
+    launches["gram_block_rows"] = c4["gram_block_rows"]
+    say(f"launches on the pipeline path: {pipe}")
+    streamed_equals_resident(dev, roi.size, roi.num_neurons)
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():
-        roi = results["roi"][kname]
+        at = results["roi"][kname]
         # The worst error over a kernel's variants (refine: dsigma, [K, 3]).
-        err = max(r["max_abs_err"] for label, r in results["roi"].items()
-                  if label.split("[")[0] == kname)
+        variants = [r for label, r in results["roi"].items()
+                    if label.split("[")[0] == kname]
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kname],
-                        "max_abs_err": err, "ms": roi["ms"],
-                        "plain_ms": roi["plain_ms"]})
+                        "max_abs_err": max(r["max_abs_err"] for r in variants),
+                        # the gated error: max|kernel - float64| over
+                        # max|float64|, against "tol"
+                        "max_rel_err": max(r["max_rel_err"] for r in variants),
+                        "tol": KERNEL_TOL, "ms": at["ms"],
+                        "plain_ms": at["plain_ms"],
+                        "bound_ms": at["bound_ms"],
+                        "bound_by": at["bound_by"],
+                        "library_ms": at["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,13 @@
 // With per-frame positions (prm_stride = K_pad * NPARAM) it also replaces
 // gram_block_tracked (_gram_kernel_culled(tracked=True)), the exact MU
 // statistics of the position-refinement phase.
+// With ROWS (entry dnmf_gram_rows) it replaces the streamed-row variant of
+// gram_block_culled (psi_source="stream", _gram_kernel_streamed): each
+// pixel's deformed coordinates psi [B][P][3] (pixel space) and fade
+// w [B][P] were computed outside the kernel and are read from global
+// memory (16 bytes more per pixel and frame) instead of being evaluated
+// from the basis and the frame's beta; culling, staging, the FMA order
+// and gram_assemble are shared.
 //
 // Bound: KB^2 = 1024 FMAs per pixel per active neuron-block pair, plus
 // one exp2 per pixel per neuron of each block of the pair.  The products
@@ -38,8 +45,10 @@ __device__ __forceinline__ void pair_of(int pair, int nkb, int& bi, int& bj) {
   bj = bi + pair;
 }
 
+template <bool ROWS>
 __global__ void __launch_bounds__(THREADS)
-gram_kernel(const float* __restrict__ betas, const float* __restrict__ params,
+gram_kernel(const float* __restrict__ betas, const float* __restrict__ psi_rows,
+            const float* __restrict__ w_rows, const float* __restrict__ params,
             const float* __restrict__ blocks, const float* __restrict__ y,
             float* __restrict__ gpart, float* __restrict__ cpart, Geom g,
             int nkb, int n_pairs, int prm_stride) {
@@ -71,7 +80,7 @@ gram_kernel(const float* __restrict__ betas, const float* __restrict__ params,
     __shared__ float s_psi[3][GT], s_w[GT], s_y[GT];
     __shared__ float s_ai[GT][KB], s_aj[GT][KB];
     __shared__ float s_mm[2][2];
-    if (tid < 30) s_beta[tid] = betas[b * 30 + tid];
+    if (!ROWS && tid < 30) s_beta[tid] = betas[b * 30 + tid];
     const float* prm = params + (size_t)b * prm_stride;
     for (int i = tid; i < KB * NPARAM; i += THREADS) {
       s_pi[i] = prm[(size_t)bi * KB * NPARAM + i];
@@ -90,10 +99,18 @@ gram_kernel(const float* __restrict__ betas, const float* __restrict__ params,
         float psi[3] = {0.0f, 0.0f, 0.0f}, w = 0.0f, yv = 0.0f;
         float mlo = CUDART_INF_F, mhi = -CUDART_INF_F;
         if (p < g.P) {
-          float phi[10];
-          basis(p, g, phi);
-          warp_psi(s_beta, phi, g, psi);
-          w = fade(psi, g);
+          if constexpr (ROWS) {
+            const size_t r = (size_t)b * g.P + p;
+            psi[0] = psi_rows[3 * r];
+            psi[1] = psi_rows[3 * r + 1];
+            psi[2] = psi_rows[3 * r + 2];
+            w = w_rows[r];
+          } else {
+            float phi[10];
+            basis(p, g, phi);
+            warp_psi(s_beta, phi, g, psi);
+            w = fade(psi, g);
+          }
           yv = yb[p];
           mlo = mhi = psi[0];
         }
@@ -174,21 +191,49 @@ __global__ void gram_assemble(const float* __restrict__ gpart,
 // gpart B * n_pairs * n_chunks * KB * KB floats, cpart B * nkb * n_chunks
 // * KB floats, n_pairs = nkb (nkb + 1) / 2.  params [k_pad][8], or
 // [B][k_pad][8] with prm_stride = k_pad * 8.
-extern "C" int dnmf_gram(const float* betas, const float* params,
-                         const float* blocks, const float* y, float* gpart,
-                         float* cpart, float* g_out, float* c1_out, int B,
-                         int M, int N, int Z, int normalized, int nkb,
-                         int n_chunks, int prm_stride, void* stream) {
+namespace {
+
+template <bool ROWS>
+int launch_gram(const float* betas, const float* psi_rows,
+                const float* w_rows, const float* params, const float* blocks,
+                const float* y, float* gpart, float* cpart, float* g_out,
+                float* c1_out, int B, const dnmf::Geom& g, int nkb,
+                int n_chunks, int prm_stride, void* stream) {
   using namespace dnmf;
-  const Geom g = make_geom(M, N, Z, normalized);
   cudaStream_t s = (cudaStream_t)stream;
   const int n_pairs = nkb * (nkb + 1) / 2;
-  gram_kernel<<<dim3(n_chunks, n_pairs, B), THREADS, 0, s>>>(
-      betas, params, blocks, y, gpart, cpart, g, nkb, n_pairs, prm_stride);
+  gram_kernel<ROWS><<<dim3(n_chunks, n_pairs, B), THREADS, 0, s>>>(
+      betas, psi_rows, w_rows, params, blocks, y, gpart, cpart, g, nkb,
+      n_pairs, prm_stride);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   gram_assemble<<<dim3(n_pairs, B), THREADS, 0, s>>>(gpart, cpart, g_out,
                                                        c1_out, nkb, n_pairs,
                                                        n_chunks);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int dnmf_gram(const float* betas, const float* params,
+                         const float* blocks, const float* y, float* gpart,
+                         float* cpart, float* g_out, float* c1_out, int B,
+                         int M, int N, int Z, int normalized, int nkb,
+                         int n_chunks, int prm_stride, void* stream) {
+  return launch_gram<false>(betas, nullptr, nullptr, params, blocks, y,
+                            gpart, cpart, g_out, c1_out, B,
+                            dnmf::make_geom(M, N, Z, normalized), nkb,
+                            n_chunks, prm_stride, stream);
+}
+
+// The same from precomputed rows: psi [B][P][3] pixel-space deformed
+// coordinates and w [B][P] fades; params [k_pad][8] (shared anchors).
+extern "C" int dnmf_gram_rows(const float* psi, const float* w,
+                              const float* params, const float* blocks,
+                              const float* y, float* gpart, float* cpart,
+                              float* g_out, float* c1_out, int B, int P,
+                              int nkb, int n_chunks, void* stream) {
+  return launch_gram<true>(nullptr, psi, w, params, blocks, y, gpart, cpart,
+                           g_out, c1_out, B, dnmf::make_geom(P, 1, 1, 0), nkb,
+                           n_chunks, 0, stream);
 }

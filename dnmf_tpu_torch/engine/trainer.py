@@ -6,8 +6,11 @@ Counterpart of ``dnmf_tpu/engine/trainer.py`` on the main path:
 epochs on the warps, with ``fit_sigma`` a width fit on a frame
 subsample, then Grams and ``mu_iters`` trace updates), with the
 once-per-fit trust audit of the closed-form Grams; ``.refine(video)``
-then fits per-frame neuron positions.  Options outside the ported slice
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+then fits per-frame neuron positions.  ``video`` is an array or tensor
+held on the engine's device, or a host-streamed source
+(:mod:`dnmf_tpu_torch.data.streaming`) whose frame blocks go to that
+device.  Options outside the ported slice raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -77,18 +80,21 @@ def _not_ported(what: str, item: int):
 
 
 class DeformableNMF:
-    """Alternating optimizer over a device-resident video.
+    """Alternating optimizer over a device-resident or streamed video.
 
     Usage::
 
-        dnmf = DeformableNMF(model_cfg, opt_cfg, positions=pos0,
-                             device="cuda")
-        result = dnmf.fit(video)   # video [T, M, N, Z] or [T, P]
+        dnmf = DeformableNMF(model_cfg, opt_cfg, positions=pos0)
+        result = dnmf.fit(video)   # video [T, M, N, Z], [T, P] or a source
+
+    The engine runs on the CUDA device unless ``device`` says otherwise
+    (``device="cpu"`` runs the plain versions on the CPU).  ``beta0 [T,
+    10, 3]`` seeds the warps, e.g. from registration.
     """
 
     def __init__(self, model: ModelConfig, optimizer: OptimizerConfig,
                  runtime: Optional[RuntimeConfig] = None, positions=None,
-                 device="cpu"):
+                 device="cuda", beta0=None):
         self.model = model
         self.opt_config = optimizer
         self.runtime = runtime or RuntimeConfig()
@@ -98,7 +104,7 @@ class DeformableNMF:
         self.state = model_lib.init_state(
             model, positions=positions,
             generator=torch.Generator().manual_seed(optimizer.seed),
-            device=self.device)
+            device=self.device, beta0=beta0)
         self.metrics: List[dict] = []
         self._base_sigma = self.state.sigma
         # Per-frame positions [T, K, 3] from refine(), None before it.
@@ -133,9 +139,26 @@ class DeformableNMF:
             raise _not_ported("profile_dir (per-round traces)", 11)
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _is_streaming(video) -> bool:
+        return hasattr(video, "blocks") and not hasattr(video, "frames_flat")
+
+    def _prepare(self, video):
+        """A streamed source as it is (on the engine's device), anything
+        else as the flat clamped tensor on the device."""
+        if not self._is_streaming(video):
+            return self._video_flat(video)
+        dev = torch.device(video.device)
+        if dev.type != self.device.type or (
+                (dev.index or 0) != (self.device.index or 0)):
+            raise ValueError(f"the source streams to {dev}, the engine runs "
+                             f"on {self.device}: open it with "
+                             f"device={str(self.device)!r}")
+        return video
+
     def _video_flat(self, video) -> torch.Tensor:
-        if hasattr(video, "blocks") or hasattr(video, "frames_flat"):
-            raise _not_ported("streamed and dataset video sources", 8)
+        if hasattr(video, "frames_flat"):
+            raise _not_ported("dataset video sources (frames_flat)", 9)
         video = torch.as_tensor(video, dtype=torch.float32, device=self.device)
         if video.ndim == 4:
             video = video.reshape(video.shape[0], -1)
@@ -178,33 +201,42 @@ class DeformableNMF:
     # ------------------------------------------------------------------
     def update_motion(self, video, epochs: Optional[int] = None) -> dict:
         """``epochs`` parallel Adam epochs on the warps."""
-        return self._motion(self._video_flat(video), epochs)
+        return self._motion(self._prepare(video), epochs)
 
-    def _motion(self, video_flat: torch.Tensor, epochs=None) -> dict:
+    def _motion(self, video, epochs=None) -> dict:
         epochs = epochs or self.opt_config.motion_epochs
+        gamma = self.opt_config.gamma_motion
         last = {}
         for _ in range(epochs):
-            self.state, m = model_lib.motion_epoch_parallel(
-                self.state, video_flat, self.model, self.optimizer,
-                self.opt_config.gamma_motion,
-                frame_block=self.runtime.frame_block,
-                use_kernels=self._use_kernels)
+            if self._is_streaming(video):
+                self.state, m = model_lib.motion_epoch_streaming(
+                    self.state, video, self.model, self.optimizer, gamma,
+                    use_kernels=self._use_kernels)
+            else:
+                self.state, m = model_lib.motion_epoch_parallel(
+                    self.state, video, self.model, self.optimizer, gamma,
+                    frame_block=self.runtime.frame_block,
+                    use_kernels=self._use_kernels)
             last = {k: float(v) for k, v in m.items()}
             self.metrics.append({"phase": "motion", **last})
         return last
 
     def update_footprints(self, video, iters: Optional[int] = None) -> dict:
         """Grams once, then ``iters`` trace updates."""
-        return self._footprints(self._video_flat(video), iters)
+        return self._footprints(self._prepare(video), iters)
 
-    def _footprints(self, video_flat: torch.Tensor, iters=None) -> dict:
+    def _footprints(self, video, iters=None) -> dict:
         iters = iters or self.opt_config.mu_iters
         self._maybe_audit_analytic()
-        grams, c1 = model_lib.compute_grams(
-            self.state, video_flat, self.model,
-            frame_block=self.runtime.frame_block,
-            use_kernels=self._use_kernels, gram_mode=self._gram_mode,
-            gram_window=self._gram_window())
+        kw = dict(use_kernels=self._use_kernels, gram_mode=self._gram_mode,
+                  gram_window=self._gram_window())
+        if self._is_streaming(video):
+            grams, c1 = model_lib.compute_grams_streaming(
+                self.state, video, self.model, **kw)
+        else:
+            grams, c1 = model_lib.compute_grams(
+                self.state, video, self.model,
+                frame_block=self.runtime.frame_block, **kw)
         self.state = model_lib.footprint_update(
             self.state, grams, c1, iters=iters,
             gamma=self.opt_config.gamma_traces,
@@ -216,17 +248,25 @@ class DeformableNMF:
     def update_sigma(self, video, steps: Optional[int] = None) -> dict:
         """Fit per-neuron footprint widths on ``sigma_frames`` frames spread
         over the recording (:func:`dnmf_tpu_torch.models.dnmf.sigma_fit`);
-        updates both the live widths and the anneal base."""
-        return self._sigma(self._video_flat(video), steps)
+        updates both the live widths and the anneal base.  A streamed
+        source gives those frames by a fixed-size host gather
+        (``read``), whatever the recording's length."""
+        return self._sigma(self._prepare(video), steps)
 
-    def _sigma(self, video_flat: torch.Tensor, steps=None) -> dict:
+    def _sigma(self, video, steps=None) -> dict:
         cfg = self.opt_config
         t = self.model.num_frames
         s = min(cfg.sigma_frames, t)
-        idx = torch.as_tensor(np.linspace(0, t - 1, s).round().astype(int),
-                              device=self.device)
+        idx_np = np.linspace(0, t - 1, s).round().astype(int)
+        idx = torch.as_tensor(idx_np, device=self.device)
+        if self._is_streaming(video):
+            video_sub = torch.from_numpy(np.concatenate(
+                [video.read(int(i), int(i) + 1) for i in idx_np])).to(
+                self.device)
+        else:
+            video_sub = video[idx]
         sigma, mses = model_lib.sigma_fit(
-            self.state, video_flat[idx], self.state.beta[idx],
+            self.state, video_sub, self.state.beta[idx],
             self.state.c[:, idx].T, self.model,
             steps=steps or cfg.sigma_steps, lr=cfg.sigma_lr,
             lo=cfg.sigma_bounds[0] * self.model.shape_std,
@@ -257,7 +297,7 @@ class DeformableNMF:
 
     def fit(self, video, rounds: Optional[int] = None) -> FitResult:
         """Full alternation schedule; returns final state + metric log."""
-        video_flat = self._video_flat(video)
+        video = self._prepare(video)
         rounds = rounds or self.opt_config.outer_rounds
         self._gram_audited = False
         anneal = self.opt_config.sigma_anneal
@@ -266,16 +306,16 @@ class DeformableNMF:
             factor = anneal[r] if r < len(anneal) else 1.0
             self.state = self.state.replace(sigma=self._base_sigma * factor)
             t0 = time.perf_counter()
-            motion_m = self._motion(video_flat)
+            motion_m = self._motion(video)
             self._check_finite("motion")
             if self.opt_config.fit_sigma and factor == 1.0:
                 # Width fitting waits out the annealed (deliberately
                 # widened) rounds, then runs every sigma_every-th round.
                 if plain_rounds % max(self.opt_config.sigma_every, 1) == 0:
-                    self._sigma(video_flat)
+                    self._sigma(video)
                     self._check_finite("sigma")
                 plain_rounds += 1
-            traces_m = self._footprints(video_flat)
+            traces_m = self._footprints(video)
             self._check_finite("traces")
             self._sync()
             entry = {
@@ -296,17 +336,24 @@ class DeformableNMF:
         ``rounds`` x (``epochs`` Adam steps on the positions, then the
         tracked Grams and ``mu_iters`` trace updates).  Stores the
         positions on ``self.pos_t`` (``[T, K, 3]``, model frame); a later
-        call starts from them.  Device-resident video only."""
-        video_flat = self._video_flat(video)
+        call starts from them.  A streamed source runs the alternation
+        block by block in one pass over the recording
+        (:func:`dnmf_tpu_torch.models.refine.refined_rounds_streaming`)."""
+        video = self._prepare(video)
         self._maybe_audit_analytic()
         t0 = time.perf_counter()
-        self.state, self.pos_t, m = refine_lib.refined_rounds(
-            self.state, video_flat, self.model, rounds=rounds, epochs=epochs,
-            mu_iters=mu_iters, learning_rate=learning_rate, prior=prior,
-            frame_block=self.runtime.frame_block, pos_t=self.pos_t,
-            use_kernels=self._use_kernels, gram_mode=self._gram_mode,
-            gram_window=self._gram_window(),
-            trace_solver=self.opt_config.trace_solver)
+        kw = dict(rounds=rounds, epochs=epochs, mu_iters=mu_iters,
+                  learning_rate=learning_rate, prior=prior, pos_t=self.pos_t,
+                  use_kernels=self._use_kernels, gram_mode=self._gram_mode,
+                  gram_window=self._gram_window(),
+                  trace_solver=self.opt_config.trace_solver)
+        if self._is_streaming(video):
+            self.state, self.pos_t, m = refine_lib.refined_rounds_streaming(
+                self.state, video, self.model, **kw)
+        else:
+            self.state, self.pos_t, m = refine_lib.refined_rounds(
+                self.state, video, self.model,
+                frame_block=self.runtime.frame_block, **kw)
         self._check_finite("refine")
         self._sync()
         self._log({"phase": "refine", "rounds": rounds, "epochs": epochs,

@@ -112,17 +112,23 @@ def make_motion_optimizer(config: OptimizerConfig) -> Adam:
 
 def init_state(model: ModelConfig, positions=None,
                generator: Optional[torch.Generator] = None,
-               device="cpu") -> DNMFState:
-    """Identity warps, uniform random traces and, without
-    ``positions``, uniform random positions, drawn on the CPU from
-    ``generator``; constant widths."""
+               device="cpu", beta0=None) -> DNMFState:
+    """Identity warps (or ``beta0 [T, 10, 3]``, e.g. registration-seeded),
+    uniform random traces and, without ``positions``, uniform random
+    positions, drawn on the CPU from ``generator``; constant widths.  The
+    Adam moments start at zero around the initial warps."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     k, t = model.num_neurons, model.num_frames
     if model.sigma_axes not in (1, 3):
         raise ValueError(f"sigma_axes must be 1 (isotropic) or 3 (per-axis), "
                          f"got {model.sigma_axes}")
-    beta = basis_ops.identity_beta(t, device=device)
+    if beta0 is None:
+        beta = basis_ops.identity_beta(t, device=device)
+    else:
+        beta = torch.as_tensor(beta0, dtype=torch.float32).to(device).clone()
+        if tuple(beta.shape) != (t, basis_ops.NUM_BASIS, 3):
+            raise ValueError(f"beta0 {tuple(beta.shape)} for {t} frames")
     c = torch.rand((k, t), generator=generator).to(device)
     if positions is None:
         positions = 1.0 + torch.rand((k, 3), generator=generator) * torch.tensor(
@@ -312,6 +318,69 @@ def sigma_fit(state: DNMFState, video_sub: torch.Tensor,
         log_s = torch.clamp(log_s, log_lo, log_hi)
         mses.append(mse)
     return torch.exp(log_s), torch.stack(mses)
+
+
+# ----------------------------------------------------------------------
+# Host-streamed variants: frame blocks from a source's ``blocks()``
+# ----------------------------------------------------------------------
+def block_state(state: DNMFState, start: int, block: int) -> DNMFState:
+    """The state of frames ``[start, start + block)``: beta padded with
+    identity warps and C with zero columns past the last frame, so that a
+    zero-padded tail block gets the same fixed shape as the others."""
+    beta = state.beta[start:start + block]
+    c = state.c[:, start:start + block]
+    short = block - beta.shape[0]
+    if short:
+        beta = torch.cat([beta, basis_ops.identity_beta(
+            short, device=beta.device)])
+        c = torch.nn.functional.pad(c, (0, short))
+    return state.replace(beta=beta, c=c)
+
+
+def _valid_mask(block: int, valid: int, device) -> torch.Tensor:
+    return (torch.arange(block, device=device) < valid).to(torch.float32)
+
+
+def motion_epoch_streaming(state: DNMFState, source, model: ModelConfig,
+                           optimizer: Adam, gamma: float,
+                           use_kernels: bool = False
+                           ) -> Tuple[DNMFState, dict]:
+    """One parallel-mode epoch over a host-streamed video: per-frame
+    gradients block by block, then one Adam step on all frames (the math
+    of :func:`motion_epoch_parallel`).  The per-block metrics stay on the
+    device: a host read per block would serialize the copies and the
+    compute."""
+    grads, mses, regs = [], [], []
+    block = source.block
+    for frames, start, valid in source.blocks():
+        st = block_state(state, start, block)
+        g, ms, rs = frame_grads_local(st, frames, model, gamma, block,
+                                      use_kernels)
+        mask = _valid_mask(block, valid, g.device)
+        grads.append(g * mask[:, None, None])
+        mses.append(torch.sum(ms * mask))
+        regs.append(torch.sum(rs * mask))
+    t = state.beta.shape[0]
+    state = optimizer.step(state, torch.cat(grads)[:t])
+    return state, {"recon_mse": torch.stack(mses).sum() / t,
+                   "reg": torch.stack(regs).sum() / t}
+
+
+def compute_grams_streaming(state: DNMFState, source, model: ModelConfig,
+                            use_kernels: bool = False,
+                            gram_mode: str = "exact",
+                            gram_window: Optional[int] = None):
+    """Per-frame MU statistics ``(grams [T, K, K], c1 [T, K])`` over a
+    host-streamed video."""
+    gs, c1s = [], []
+    block = source.block
+    for frames, start, _valid in source.blocks():
+        g, c1 = grams_local(block_state(state, start, block), frames, model,
+                            block, use_kernels, gram_mode, gram_window)
+        gs.append(g)
+        c1s.append(c1)
+    t = state.beta.shape[0]
+    return torch.cat(gs)[:t], torch.cat(c1s)[:t]
 
 
 def fused_rounds(state: DNMFState, video: torch.Tensor, model: ModelConfig,

@@ -8,6 +8,9 @@ against the reconstruction, with a quadratic tether to the anchors, and
 alternates it with trace updates on per-frame-position Grams.  Frames
 are independent, so an epoch is one Adam step on every frame at once.
 
+:func:`refined_rounds_streaming` runs the same alternation block by
+block over a host-streamed source, in one pass over the recording.
+
 With ``use_kernels`` the data term and its ``dpos`` come from the refine
 kernel (:func:`dnmf_tpu_torch.ops.fused.refine_block`, all frames in one
 call) and the Grams from the tracked c1 or Gram kernels; without, from
@@ -21,8 +24,9 @@ from typing import Optional, Tuple
 import torch
 
 from dnmf_tpu_torch.config import ModelConfig
-from dnmf_tpu_torch.models.dnmf import (Adam, DNMFState, check_main_path,
-                                        grams_local, _blocks)
+from dnmf_tpu_torch.models.dnmf import (Adam, DNMFState, block_state,
+                                        check_main_path, grams_local,
+                                        _blocks, _valid_mask)
 from dnmf_tpu_torch.ops import fused
 from dnmf_tpu_torch.ops import mu as mu_ops
 
@@ -107,11 +111,54 @@ def refined_rounds(state: DNMFState, video: torch.Tensor, model: ModelConfig,
     return state, pos_t, metrics
 
 
-def refined_rounds_streaming(*args, **kwargs):
-    """Refinement over a host-streamed recording: not ported yet."""
-    raise NotImplementedError(
-        "refined_rounds_streaming (streamed refinement) is not ported yet "
-        "(ROADMAP Queue 1 item 8)")
+def refined_rounds_streaming(state: DNMFState, source, model: ModelConfig,
+                             rounds: int = 2, epochs: int = 20,
+                             mu_iters: int = 30, learning_rate: float = 0.05,
+                             prior: float = 1e-3,
+                             pos_t: Optional[torch.Tensor] = None,
+                             use_kernels: bool = False,
+                             gram_mode: str = "exact",
+                             gram_window: Optional[int] = None,
+                             trace_solver: str = "mu"
+                             ) -> Tuple[DNMFState, torch.Tensor, dict]:
+    """:func:`refined_rounds` over a host-streamed video, in one pass.
+
+    Positions, tracked Grams and the trace update all factor over frames,
+    so each block of ``source.blocks()`` runs the whole ``rounds x
+    (epochs + trace update)`` alternation on its own frames: the
+    recording is read once.  The zero-padded tail block is padded with
+    identity warps, zero traces and the anchors, and masked out.
+    Returns ``(state with updated C, pos_t [T, K, 3], {"recon_mse"})``,
+    the last round's mean data term.
+    """
+    if trace_solver not in ("mu", "fista"):
+        raise ValueError(f"unknown trace solver: {trace_solver!r}")
+    solve = (mu_ops.nnls_temporal if trace_solver == "fista"
+             else mu_ops.run_mu_temporal)
+    t, k = state.beta.shape[0], state.pos.shape[0]
+    block = source.block
+    if pos_t is None:
+        pos_t = state.pos.expand(t, k, 3)
+    pos_pad = torch.cat([pos_t, state.pos.expand(block, k, 3)])
+    pos_out, c_out, sse = [], [], []
+    for frames, start, valid in source.blocks():
+        st = block_state(state, start, block)
+        pos_b = pos_pad[start:start + block]
+        for _ in range(rounds):
+            pos_b, m = refine_positions(
+                st, pos_b, frames, model, epochs=epochs,
+                learning_rate=learning_rate, prior=prior, frame_block=block,
+                use_kernels=use_kernels)
+            g, c1 = tracked_grams(st, pos_b, frames, model, block,
+                                  use_kernels, gram_mode, gram_window)
+            st = st.replace(c=solve(st.c, g, c1, iters=mu_iters))
+        mask = _valid_mask(block, valid, frames.device)
+        sse.append(torch.sum(m["recon_mse"] * mask))
+        pos_out.append(pos_b)
+        c_out.append(st.c)
+    c_new = torch.cat(c_out, dim=1)[:, :t]
+    return (state.replace(c=c_new), torch.cat(pos_out)[:t],
+            {"recon_mse": torch.stack(sse).sum() / t})
 
 
 def sharded_refined_rounds(*args, **kwargs):

@@ -8,6 +8,8 @@ and a ``*_plain`` PyTorch version beside it:
   ``sum_p (w sum_k c_k A_k - y)^2 / P`` and its beta gradient;
 * ``c1_block -> c1 [B, K]``: ``sum_p w A_k y``;
 * ``gram_block -> (G [B, K, K], c1 [B, K])``: ``sum_p (w A)(w A)^T``;
+  with ``psi_source="stream"`` the warped coordinates and fades come from
+  :func:`psi_rows` (or the caller) and go to :func:`gram_block_rows`;
 * ``refine_block -> (mse [B], dpos [B, K, 3][, dsigma])``: the data term
   with per-frame positions and its gradient with respect to them (and,
   with ``want_dsigma``, to the widths).
@@ -128,6 +130,32 @@ def gram_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized"):
 
 # The plain Gram takes per-frame positions as they are (so does c1's).
 gram_block_tracked_plain = gram_block_plain
+
+
+def psi_rows(betas, size, scaling: str = "normalized"):
+    """Pixel-space deformed coordinates ``psi [B, P, 3]`` of every voxel
+    and their border fades ``w [B, P]``: the rows that
+    :func:`gram_block_rows` takes."""
+    vb = (basis_ops.voxel_basis_normalized(size, device=betas.device)
+          if scaling == "normalized"
+          else basis_ops.voxel_basis(size, device=betas.device))
+    psi = basis_ops.warp_voxel_coords(vb.to(betas.dtype), betas, size,
+                                      scaling)
+    return psi, fp_ops._bounds_mask(psi, size)[..., 0]
+
+
+def gram_block_rows_plain(psi, w, pos, sigma, y):
+    """Plain version of :func:`gram_block_rows`."""
+    bsz, p = y.shape
+    k = pos.shape[0]
+    g = torch.zeros((bsz, k, k), dtype=psi.dtype, device=psi.device)
+    c1 = torch.zeros((bsz, k), dtype=psi.dtype, device=psi.device)
+    for start, stop in _chunks(p, bsz * k * 3):
+        a = (fp_ops.gaussian_footprints(psi[:, start:stop], pos, sigma)
+             * w[:, start:stop, None])
+        g += torch.bmm(a.transpose(1, 2), a)
+        c1 += torch.bmm(y[:, None, start:stop], a)[:, 0]
+    return g, c1
 
 
 def refine_block_plain(betas, pos_t, sigma, c_block, y, size,
@@ -365,6 +393,18 @@ def c1_block_tracked(betas, pos_t, sigma, y, size,
     return c1[:, :pos_t.shape[1]][:, torch.argsort(perm)]
 
 
+def _gram_outputs(bsz, p, nkb, device):
+    """``(n_chunks, gpart, cpart, G, c1)``: the partial sums and the padded
+    results of csrc/gram.cu for ``nkb`` neuron blocks."""
+    n_pairs = nkb * (nkb + 1) // 2
+    n_chunks = _n_chunks(p, GRAM_TILE, bsz * n_pairs, GRAM_TARGET_BLOCKS)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (n_chunks, torch.empty((bsz, n_pairs, n_chunks, KB * KB), **f32),
+            torch.empty((bsz, nkb, n_chunks, KB), **f32),
+            torch.empty((bsz, nkb * KB, nkb * KB), **f32),
+            torch.empty((bsz, nkb * KB), **f32))
+
+
 def _gram_launch(betas, params, blocks, y, size, scaling):
     """Run csrc/gram.cu on a shared or per-frame neuron table; ``(G, c1)``
     padded and in sorted order."""
@@ -374,15 +414,9 @@ def _gram_launch(betas, params, blocks, y, size, scaling):
     bsz = y.shape[0]
     nkb = blocks.shape[0]
     stride = nkb * KB * 8 if params.ndim == 3 else 0
-    n_pairs = nkb * (nkb + 1) // 2
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
-    n_chunks = _n_chunks(y.shape[1], GRAM_TILE, bsz * n_pairs,
-                         GRAM_TARGET_BLOCKS)
-    f32 = dict(dtype=torch.float32, device=y.device)
-    gpart = torch.empty((bsz, n_pairs, n_chunks, KB * KB), **f32)
-    cpart = torch.empty((bsz, nkb, n_chunks, KB), **f32)
-    g = torch.empty((bsz, nkb * KB, nkb * KB), **f32)
-    c1 = torch.empty((bsz, nkb * KB), **f32)
+    n_chunks, gpart, cpart, g, c1 = _gram_outputs(bsz, y.shape[1], nkb,
+                                                  y.device)
     err = lib.dnmf_gram(
         beta_rows.data_ptr(), params.data_ptr(), blocks.data_ptr(),
         y.data_ptr(), gpart.data_ptr(), cpart.data_ptr(), g.data_ptr(),
@@ -395,10 +429,25 @@ def _unpermute_grams(g, c1, perm, k):
     return g[:, :k, :k][:, inv][:, :, inv], c1[:, :k][:, inv]
 
 
-def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized"
+def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized",
+               psi_source: str = "kernel", rows=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(G [B, K, K], c1 [B, K])`` for ``betas [B, 10, 3]``, ``y [B, P]``;
-    ``pos [B, K, 3]`` goes to :func:`gram_block_tracked`."""
+    ``pos [B, K, 3]`` goes to :func:`gram_block_tracked`.
+
+    ``psi_source="stream"`` computes the deformed coordinates and fades
+    outside the kernel (:func:`psi_rows`, or ``rows = (psi [B, P, 3], w
+    [B, P])`` from the caller: the hook for coordinate fields computed
+    elsewhere) and hands them to :func:`gram_block_rows`.
+    """
+    if psi_source == "stream":
+        if pos.ndim == 3:
+            raise ValueError("psi_source='stream' takes shared anchors "
+                             "pos [K, 3]")
+        psi, w = rows if rows is not None else psi_rows(betas, size, scaling)
+        return gram_block_rows(psi, w, pos, sigma, y)
+    if psi_source != "kernel":
+        raise ValueError(f"unknown psi_source: {psi_source!r}")
     if pos.ndim == 3:
         return gram_block_tracked(betas, pos, sigma, y, size, scaling)
     if y.device.type == "cpu":
@@ -410,6 +459,40 @@ def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized"
     err, g, c1 = _gram_launch(betas, params, blocks, y, size, scaling)
     gram_block.launches += 1
     _build.check(err, "dnmf_gram")
+    return _unpermute_grams(g, c1, perm, pos.shape[0])
+
+
+def gram_block_rows(psi, w, pos, sigma, y
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(G [B, K, K], c1 [B, K])`` from precomputed rows: pixel-space
+    deformed coordinates ``psi [B, P, 3]`` and fades ``w [B, P]`` of
+    ``y [B, P]``, for shared anchors ``pos [K, 3]``."""
+    if y.device.type == "cpu":
+        return gram_block_rows_plain(psi, w, pos, sigma, y)
+    bsz, p = y.shape
+    if tuple(psi.shape) != (bsz, p, 3) or tuple(w.shape) != (bsz, p):
+        raise ValueError(f"gram_block_rows: psi {tuple(psi.shape)} and w "
+                         f"{tuple(w.shape)} for y {tuple(y.shape)}")
+    for t in (psi, w, pos, sigma, y):
+        if t.device != y.device:
+            raise ValueError(f"gram_block_rows: all inputs must be on "
+                             f"{y.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"gram_block_rows: the kernel takes float32, got "
+                            f"{t.dtype}")
+    from dnmf_tpu_torch.ops import _build
+
+    lib = _build.load()
+    psi, w, y = psi.contiguous(), w.contiguous(), y.contiguous()
+    perm, params, blocks = sorted_params(pos, sigma)
+    nkb = blocks.shape[0]
+    n_chunks, gpart, cpart, g, c1 = _gram_outputs(bsz, p, nkb, y.device)
+    err = lib.dnmf_gram_rows(
+        psi.data_ptr(), w.data_ptr(), params.data_ptr(), blocks.data_ptr(),
+        y.data_ptr(), gpart.data_ptr(), cpart.data_ptr(), g.data_ptr(),
+        c1.data_ptr(), bsz, p, nkb, n_chunks, _stream())
+    gram_block_rows.launches += 1
+    _build.check(err, "dnmf_gram_rows")
     return _unpermute_grams(g, c1, perm, pos.shape[0])
 
 
@@ -479,7 +562,7 @@ def refine_block(betas, pos_t, sigma, c_block, y, size,
 
 
 KERNELS = (motion_block, c1_block, gram_block, refine_block,
-           c1_block_tracked, gram_block_tracked,
+           c1_block_tracked, gram_block_tracked, gram_block_rows,
            phasecorr.phase_corr_block, warp.fused_separable_warp)
 for _fn in KERNELS:
     _fn.launches = 0

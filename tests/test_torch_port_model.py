@@ -177,7 +177,7 @@ def _trainers(rng, **runtime):
                            positions=jnp.asarray(pos))
     tt = ttr.DeformableNMF(tm, tcfg.OptimizerConfig(**okw),
                            tcfg.RuntimeConfig(frame_block=FB, **runtime),
-                           positions=pos)
+                           positions=pos, device="cpu")
     # jax.random and torch draw different initial traces: hand JAX's over.
     tt.state = tM.state_from_numpy(_jax_to_numpy(jt.state))
     tt._base_sigma = tt.state.sigma
@@ -255,7 +255,7 @@ def test_outside_the_slice_raises(opt, rt, model, item):
                          deformation=tcfg.DeformationConfig(**model))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ttr.DeformableNMF(m, tcfg.OptimizerConfig(**opt),
-                          tcfg.RuntimeConfig(**rt))
+                          tcfg.RuntimeConfig(**rt), device="cpu")
 
 
 def test_unported_methods_and_sources_raise(rng):
@@ -264,12 +264,22 @@ def test_unported_methods_and_sources_raise(rng):
         with pytest.raises(NotImplementedError, match="item 11"):
             call()
 
-    class Streamed:
+    class Streamed:  # a source that streams to another device
+        block = 4
+        device = "meta"
+
         def blocks(self):
             return iter(())
 
+    class Dataset:
+        def frames_flat(self):
+            return video
+
     for call in (lambda: tt.fit(Streamed()), lambda: tt.refine(Streamed())):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="streams to meta"):
+            call()
+    for call in (lambda: tt.fit(Dataset()), lambda: tt.refine(Dataset())):
+        with pytest.raises(NotImplementedError, match="item 9"):
             call()
 
 

@@ -350,7 +350,7 @@ def _trainers(rng, sigma_axes=1, runtime=None, **opt):
     tt = ttr.DeformableNMF(tm, tcfg.OptimizerConfig(**okw),
                            tcfg.RuntimeConfig(frame_block=FB,
                                               **(runtime or {})),
-                           positions=pos)
+                           positions=pos, device="cpu")
     # jax.random and torch draw different initial traces: hand JAX's over.
     tt.state = tM.state_from_numpy(_jax_to_numpy(jt.state))
     tt._base_sigma = tt.state.sigma
@@ -398,7 +398,7 @@ def test_gram_window_matches_jax(fit_sigma, anneal):
     okw = dict(fit_sigma=fit_sigma, sigma_anneal=anneal)
     jt = jtr.DeformableNMF(jm, jcfg.OptimizerConfig(**okw),
                            jcfg.RuntimeConfig(use_pallas=False))
-    tt = ttr.DeformableNMF(tm, tcfg.OptimizerConfig(**okw))
+    tt = ttr.DeformableNMF(tm, tcfg.OptimizerConfig(**okw), device="cpu")
     assert tt._gram_window() == jt._gram_window()
 
 
@@ -421,18 +421,23 @@ def test_refine_on_cpu_with_kernels_is_the_plain_refine(rng):
 def test_streamed_and_sharded_refine_raise(rng):
     _, tt, video = _trainers(rng)
 
-    class Streamed:
+    class Streamed:  # a source that streams to another device
         block = 4
+        device = "meta"
 
         def blocks(self):
             return iter(())
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    class Dataset:
+        def frames_flat(self):
+            return video
+
+    with pytest.raises(ValueError, match="streams to meta"):
         tt.refine(Streamed())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tR.refined_rounds_streaming(tt.state, Streamed(), tt.model)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tt.refine(Dataset())
     with pytest.raises(NotImplementedError, match="item 10"):
         tR.sharded_refined_rounds(tt.state, video, tt.model, None)
     with pytest.raises(NotImplementedError, match="item 10"):
         ttr.DeformableNMF(tt.model, tcfg.OptimizerConfig(),
-                          tcfg.RuntimeConfig(mesh_time=2))
+                          tcfg.RuntimeConfig(mesh_time=2), device="cpu")
