@@ -1,6 +1,12 @@
 """Drive the PyTorch + CUDA port's main path once on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile   # only the F and D breakdowns
+
+``--profile`` prints the ``torch.profiler`` device time, launch by
+launch, of the phase-correlation kernel F at the pipeline's patch grid
+and of the refine kernel D at the whole-brain shape (2 and 16 frames,
+with and without dsigma), and stops.
 
 Phases, each of which exits non-zero on failure:
 
@@ -14,7 +20,9 @@ Phases, each of which exits non-zero on failure:
    their plain PyTorch versions in float32 and against the plain versions
    in float64 (the oracle, one frame at a time) at the ROI shape
    (256x256x10, K=50, 8 frames) and the whole-brain shape (512x512x20,
-   K=200, 2 frames), with times (median of 5 after a warm-up);
+   K=200, 2 frames), with times (median of 5 after a warm-up); the
+   refine kernel also reports the (frame, voxel, neuron) triples its
+   brick culling evaluates beside the active ones the bound counts;
 5. main path: ``DeformableNMF.fit`` on a seeded synthetic ground-truth
    video at the ROI shapes with T=256 (2 rounds, gram_mode="auto", so the
    closed-form Grams, the c1 pass and the exact-Gram audit all run; then
@@ -39,7 +47,8 @@ Phases, each of which exits non-zero on failure:
    pipeline's default grid (512x512x20, 2x2x1 patches of 264x264x20):
    F's integer shifts equal the float64 oracle's in every (frame, patch)
    and its product spectra and G's output lie within ``KERNEL_TOL`` of
-   float64;
+   float64; F is timed beside one cuFFT call for the same correlation,
+   and the redesigned kernels (F, D) beside their earlier times;
 9. registration path at full width: ``MotionCorrect(video,
    cfg).motion_correct()`` on a seeded 512x512x20, T=64 recording (200
    Gaussian neurons on a textured background, each frame warped by a
@@ -170,6 +179,13 @@ AGREE_MOVIE = 1e-3  # kernel run's corrected movie vs G's plain version
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 REACH = 36.0  # |psi - p|^2 / sigma^2 past which exp() is below float32
+# Times of the kernels this slice redesigned, before it (PERF.md, PR 4's
+# run; NVIDIA H100 80GB HBM3, 700.00 W), ms: printed beside the new ones.
+EARLIER_MS = {("refine_block", "roi"): 1.3885,
+              ("refine_block", "whole_brain"): 5.9111,
+              ("phase_corr_block", "roi"): 5.7497,
+              ("phase_corr_block", "whole_brain"): 31.2069,
+              ("phase_corr_block", "pipeline"): 32.8219}
 # The whole-brain pipeline, streamed from a raw file on disk.
 PIPE_T = 64  # frames
 PIPE_BLOCK = 16  # frames per streamed block
@@ -210,6 +226,12 @@ def time_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def earlier(kname, name):
+    """`` (earlier X ms)`` for a kernel this slice redesigned."""
+    ms = EARLIER_MS.get((kname.split("[")[0], name))
+    return "" if ms is None else f" (earlier {ms:.4f} ms)"
 
 
 def bound(nbytes, flops):
@@ -322,9 +344,9 @@ def check_kernels(name, frames, cases):
         ms = time_ms(lambda: call(kern))
         plain_ms = time_ms(lambda: call(plain))
         bound_ms, bound_by = bound(nbytes(*args, *got), flops)
-        say(f"time {kname} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {bound_ms:.4f} ms ({bound_by}; {flops:.4e} ops) "
-            f"({frames} frames)")
+        say(f"time {kname} {name}: kernel {ms:.4f} ms{earlier(kname, name)}"
+            f", plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by};"
+            f" {flops:.4e} ops) ({frames} frames)")
         out[kname] = {"max_abs_err": worst_abs, "max_rel_err": worst_rel,
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": None}
@@ -381,6 +403,18 @@ def tracked_kernel_phase(dev, name, size, k, frames, margin):
             functools.partial(fused.refine_block_plain, size=size,
                               want_dsigma=want),
             labels, (betas, pos_t, sig, c, y), refine_args, flops)
+    # D culls by spatial bricks: the (frame, voxel, neuron) triples it
+    # evaluates, against the active ones (n1) that the bound counts.
+    *_, counts = fused.refine_block(betas, pos_t, sigma, c, y, size,
+                                    brick_counts=True)
+    ids, nb = fused.brick_ids(size, dev)
+    vox = torch.bincount(ids, minlength=nb).double()
+    pairs = float((counts.double() * vox).sum())
+    say(f"kernel refine_block {name}: candidate pairs {pairs:.4e} (mean "
+        f"{float(counts.double().mean()):.3f} neurons per brick of "
+        f"{fused.refine_bricks(size)}), active pairs n1 {n1:.4e} (ratio "
+        f"{pairs / max(n1, 1.0):.3f})")
+    del counts, ids, vox
     cases["c1_block_tracked"] = (
         functools.partial(fused.c1_block_tracked, size=size),
         functools.partial(fused.c1_block_plain, size=size),
@@ -710,16 +744,11 @@ def textured(gen, size, corr, dev):
     return out / out.std()
 
 
-def registration_kernel_phase(dev, name, size, strides, overlaps,
-                              max_shifts, max_dev, with_warp=True):
-    """Kernels F and G (G only ``with_warp``) on a 16-frame block against
-    their plain versions in float32 and float64 (the oracle).
-
-    The frames are a textured volume rolled by known integer shifts plus
-    noise; F's bounds are the known shift (blurred by up to half a pixel,
-    as a rigid estimate is) +- ``max_dev``.  G warps the same frames by
-    patch shifts spread ``max_dev + 3`` px around rigid shifts, so that
-    its field clipping is active."""
+def registration_inputs(dev, size, strides, overlaps, max_shifts, max_dev):
+    """F's inputs on a 16-frame block: a textured volume rolled by known
+    integer shifts plus noise, cut into the patch grid; the bounds are the
+    known shift (blurred by up to half a pixel, as a rigid estimate is)
+    +- ``max_dev``.  Returns a dict; ``gen`` goes on to draw G's inputs."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     b = REG_BLOCK
     kw = dict(generator=gen, device=dev)
@@ -734,15 +763,107 @@ def registration_kernel_phase(dev, name, size, strides, overlaps,
         mc_lib._extract_patches(frames, starts, window)).contiguous()
     t_pats = mc_lib._extract_patches(tmpl, starts, window)
     tre, tim = phasecorr.patch_spectra(t_pats)
-    tre64, tim64 = phasecorr.patch_spectra(t_pats.double())
     rigid = true + torch.rand((b, 3), **kw) - 0.5
     bounds = torch.cat([torch.ceil(rigid - max_dev),
                         torch.floor(rigid + max_dev),
                         torch.zeros((b, 2), device=dev)], dim=1)
+    return dict(gen=gen, frames=frames, true=true, starts=starts,
+                grid_shape=grid_shape, window=window, pats=pats, tre=tre,
+                tim=tim, t_pats=t_pats, bounds=bounds)
+
+
+def device_breakdown(label, run, reps=5):
+    """Print the device time of ``run()`` by kernel name under
+    ``torch.profiler`` (launches and ms per call), and its time per call
+    by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(run, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(
+            e, "cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us / reps * 1e-3, e.count / reps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    say(f"profile {label}: {ms:.4f} ms per call (CUDA events), device "
+        f"{busy:.4f} ms in {sum(r[1] for r in rows):g} launches per call")
+    for t, n, key in rows:
+        if t >= 0.005 * busy:
+            say(f"profile {label}:   {t:.4f} ms ({100 * t / busy:.1f}%) in "
+                f"{n:g} launches: {key[:90]}")
+    # One call's launches in order (key_averages merges a kernel's calls).
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end - e.time_range.start,
+                    e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _, us, key in spans:
+        say(f"profile {label}:   launch {us * 1e-3:.4f} ms: {key[:90]}")
+
+
+def profile_kernels(dev):
+    """Device breakdowns of kernels F (at the pipeline's patch grid) and D
+    (at the whole-brain shape with 2 and 16 frames, with and without
+    dsigma): ``python3 chip_smoke.py --profile``."""
+    inp = registration_inputs(dev, *REG_SHAPES["pipeline"])
+    z = inp["window"][2]
+    cap = max(1, int(2 * REG_SHAPES["pipeline"][4]))
+    device_breakdown(
+        f"F pipeline ({len(inp['starts'])} patches of {inp['window']}, "
+        f"{REG_BLOCK} frames)",
+        lambda: phasecorr.phase_corr_block(inp["pats"], inp["tre"],
+                                           inp["tim"], inp["bounds"], z=z,
+                                           max_window=(cap, cap, cap)))
+    del inp
+    size, k, _, margin = SHAPES["whole_brain"]
+    for frames in (2, 16):
+        betas, pos, sigma, c, y = kernel_inputs(dev, size, k, frames, margin,
+                                                SEED)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        pos_t = pos[None] + torch.randn((frames, k, 3), generator=gen,
+                                        device=dev)
+        for want in (False, True):
+            device_breakdown(
+                f"D whole-brain {frames} frames dsigma={want}",
+                lambda: fused.refine_block(betas, pos_t, sigma, c, y, size,
+                                           want_dsigma=want))
+
+
+def registration_kernel_phase(dev, name, size, strides, overlaps,
+                              max_shifts, max_dev, with_warp=True):
+    """Kernels F and G (G only ``with_warp``) on a 16-frame block against
+    their plain versions in float32 and float64 (the oracle).
+
+    The frames are those of :func:`registration_inputs`.  G warps them by
+    patch shifts spread ``max_dev + 3`` px around rigid shifts, so that
+    its field clipping is active."""
+    inp = registration_inputs(dev, size, strides, overlaps, max_shifts,
+                              max_dev)
+    gen, frames, true, starts = (inp["gen"], inp["frames"], inp["true"],
+                                 inp["starts"])
+    grid_shape, window, pats, tre, tim, bounds = (
+        inp["grid_shape"], inp["window"], inp["pats"], inp["tre"],
+        inp["tim"], inp["bounds"])
+    tre64, tim64 = phasecorr.patch_spectra(inp["t_pats"].double())
+    del inp
+    b = REG_BLOCK
+    kw = dict(generator=gen, device=dev)
     z = window[2]
 
+    # The registration path's call: ub - lb <= 2 max_dev bounds the
+    # windows (motion_correct.tile_and_correct_block), so no sync.
+    cap = max(1, int(2 * max_dev))
+
     def f_kernel():
-        return phasecorr.phase_corr_block(pats, tre, tim, bounds, z=z)
+        return phasecorr.phase_corr_block(pats, tre, tim, bounds, z=z,
+                                          max_window=(cap, cap, cap))
 
     def f_plain():
         return phasecorr.phase_corr_block_plain(pats, tre, tim, bounds, z=z)
@@ -831,10 +952,11 @@ def time_kernels(name, frames, timed):
         library_ms = time_ms(library) if library is not None else None
         bound_ms, bound_by = bound(n_bytes, flops)
         lib = ("none" if library_ms is None
-               else f"{library_ms:.4f} ms")
-        say(f"time {kname} {name}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
-            f"({bound_by}) ({frames} frames)")
+               else f"{library_ms:.4f} ms (kernel / library "
+               f"{ms / library_ms:.4f})")
+        say(f"time {kname} {name}: kernel {ms:.4f} ms{earlier(kname, name)}"
+            f", plain {plain_ms:.4f} ms, library {lib}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}) ({frames} frames)")
         out[kname] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
                       "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1420,6 +1542,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    profile_only = sys.argv[1:] == ["--profile"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1434,6 +1557,9 @@ def main() -> int:
         f"({_build.library_path().name})")
 
     dev = torch.device("cuda")
+    if profile_only:
+        profile_kernels(dev)
+        return 0
     results = {}
     for name, (size, k, frames, margin) in SHAPES.items():
         results[name] = kernel_phase(dev, name, size, k, frames,

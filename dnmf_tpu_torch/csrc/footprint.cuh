@@ -1,5 +1,5 @@
 // Shared device code of the demixing kernels (motion.cu, c1.cu, gram.cu,
-// refine.cu).
+// refine.cu; refine.cu culls by spatial bricks, cull.cuh).
 //
 // Every kernel evaluates warped Gaussian footprints on the fly from flat
 // voxel indices: pixel index -> (m, n, z) by integer divmod, the 10
@@ -25,9 +25,8 @@
 namespace dnmf {
 
 constexpr int KB = 32;        // neurons per culling block
-constexpr int NPARAM = 8;     // params row: px py pz sx sy sz c 0
-                              // (s_d = log2(e) / sigma_d^2; the frame's
-                              // trace value c is read by refine.cu only)
+constexpr int NPARAM = 8;     // params row: px py pz sx sy sz 0 0
+                              // (s_d = log2(e) / sigma_d^2)
 constexpr int THREADS = 256;  // threads per block of every kernel
 constexpr int NWARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -39,11 +38,9 @@ struct Geom {
   float den[3];     // max(size_d - 1, 1) (normalization scale)
 };
 
-__device__ __forceinline__ void basis(int p, const Geom& g, float phi[10]) {
-  const int zi = p % g.Z;
-  const int rest = p / g.Z;
-  const int ni = rest % g.N;
-  const int mi = rest / g.N;
+// The 10 quadratic basis values at voxel (mi, ni, zi).
+__device__ __forceinline__ void basis_at(int mi, int ni, int zi,
+                                         const Geom& g, float phi[10]) {
   float x = (float)mi, y = (float)ni, z = (float)zi;
   if (g.normalized) {
     x = 2.0f * x / g.den[0] - 1.0f;
@@ -53,6 +50,12 @@ __device__ __forceinline__ void basis(int p, const Geom& g, float phi[10]) {
   phi[0] = 1.0f; phi[1] = x; phi[2] = y; phi[3] = z;
   phi[4] = x * x; phi[5] = y * y; phi[6] = z * z;
   phi[7] = x * y; phi[8] = x * z; phi[9] = y * z;
+}
+
+// The basis at flat voxel index p = (mi * N + ni) * Z + zi.
+__device__ __forceinline__ void basis(int p, const Geom& g, float phi[10]) {
+  const int rest = p / g.Z;
+  basis_at(rest / g.N, rest % g.N, p % g.Z, g, phi);
 }
 
 // Pixel-space deformed coordinates; beta is one frame's [10][3] row-major.

@@ -9,27 +9,28 @@
 // patches [B, NP, z*m, n] (row = z_index * m + m_index), spectra in the
 // same layout with the standard frequency index on every axis.
 //
-// What bounds it on this card: the forward transform is ~0.7 GFLOP per
-// 160x160x10 patch as dense DFT products (~22 GFLOP per whole-brain
-// frame of 32 patches), so it is bound by fp32 FMA throughput and by
-// shared-memory reads of the tiles (2 loads per 4 FMAs).  The design:
+// What bounds it on this card: bytes.  The least traffic is the patches
+// read once and prod written once; an FFT's ~5 L log2 L operations per
+// line are ~100x under the fp32 peak at these sizes.  The design moves
+// the complex volume through device memory three times and keeps every
+// transform in shared memory:
 //
-// * one generic kernel, dft_axis, contracts one axis of a batch of
-//   complex (or real) arrays against the twiddles exp(sign 2 pi i k x / L)
-//   as a shared-memory-tiled complex product (32 outputs x 32 columns per
-//   block, 2 x 2 per thread, fp32 FMA in a fixed order, no TF32).
-//   Twiddles are evaluated in the block as sincospif(2 ((k x) mod L) / L)
-//   with the index reduced in integers: no L x L table has to fit shared
-//   memory (264 x 264 complex would be 557 KB).
-// * F1 is three dft_axis launches (n, m, z); the z pass multiplies by the
-//   conjugated template spectrum in its epilogue and writes prod_re/im.
-// * F2 does not invert the whole spectrum: the window keeps at most
-//   ub - lb shifts per axis (<= 2 max_deviation_rigid), so dft_axis runs
-//   the inverse restricted to the window's lattice points (n, then m,
-//   then z: the same sums at the same points, ~1% of a full inverse),
-//   and window_argmax takes the magnitude and the argmax, one block per
-//   (frame, patch).  Each block derives its frame's candidates from the
-//   bounds row (shift_window), so nothing goes through the host.
+// * forward transforms are mixed-radix Stockham FFTs over lines held in
+//   shared memory (fft_lines): a host plan (ops/phasecorr.py fft_plan)
+//   factors each length into radices 8, 4, 2, 11, 5, 3 (specialised
+//   butterflies) and any other prime (one generic radix-p butterfly);
+//   twiddles come from one float32 table of L entries per length, made in
+//   float64 and cached on the device by the wrapper.  fp32 throughout.
+// * launch 1 (fft_rows): a few whole rows per block, real input, two rows
+//   per complex transform along n, complex rows into prod (as scratch);
+// * launch 2 (fft_cols): an m x (up to 16) column tile per block, the m
+//   transform, in place in prod;
+// * launch 3 (fft_z_product): all z x a run of n columns at one m per
+//   block: the z transform, S * conj(T) written to prod, then the inverse
+//   along n at the shift window's lattice points only (at most the
+//   caller's cap, 2 max_deviation_rigid), so prod is never read back;
+// * launch 4 (window_argmax): one block per (frame, patch): the windowed
+//   inverse along m and z, the magnitude and the first-occurrence argmax.
 // Candidates are listed per axis in ascending wrapped index, so the
 // flattened (z, m, n) candidate order is the JAX kernel's first-occurrence
 // order.  An empty window gives shift 0, as the masked -1 surface does.
@@ -40,10 +41,15 @@
 
 namespace {
 
-constexpr int TK = 32;       // output positions per tile
-constexpr int TC = 32;       // columns per tile
-constexpr int TX = 32;       // contraction chunk
 constexpr int THREADS = 256;
+constexpr int MAX_STAGES = 20;  // ops/phasecorr.py MAX_STAGES
+constexpr unsigned FULL = 0xffffffffu;
+
+// One length's FFT plan: its radices in stage order.
+struct Plan {
+  int L, nst;
+  int radix[MAX_STAGES];
+};
 
 // Axis d's shift window for one frame (bounds row: lb m, n, z, ub m, n,
 // z, 0, 0): the signed shifts s in [lb, ub - 1] that length L has
@@ -54,6 +60,10 @@ struct Window {
   int lo, count, npos;  // lowest shift, candidates, non-negative ones
   __device__ int shift(int k) const {
     return k < npos ? max(lo, 0) + k : lo + (k - npos);
+  }
+  __device__ int wrapped(int k, int L) const {
+    const int s = shift(k);
+    return s < 0 ? s + L : s;
   }
 };
 
@@ -71,138 +81,385 @@ __device__ Window shift_window(const float* bnd, int d, int L, int cap) {
   return w;
 }
 
-struct Axis {
-  const float* in_re;
-  const float* in_im;        // null: real input
-  float* out_re;
-  float* out_im;
-  const float* t_re;         // non-null: multiply by conj(T) (epilogue)
-  const float* t_im;
-  const float* bounds;       // non-null: output k evaluates the k-th shift
-                             // of axis win_axis's window of frame b / pos_div
-  long long in_sb, in_sx, in_sc;
-  long long out_sb, out_sk, out_sc;
-  long long t_sb;
-  int t_mod;                 // template batch index = b % t_mod
-  int win_axis, pos_div;
-  int L, K, C;
-  long long nb;
-  float sign;                // -1 forward, +1 inverse
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -(a.y * b.y)), fmaf(a.x, b.y, a.y * b.x));
+}
+
+// a * conj(b)
+__device__ __forceinline__ float2 cmulc(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, a.y * b.y), fmaf(a.y, b.x, -(a.x * b.y)));
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+// ------------------------------------------------------------ butterflies
+// In-register DFT of R points, X[q] = sum_r v[r] exp(-2 pi i r q / R);
+// w[k lr] = exp(-2 pi i k / R) (odd R only: the length's table in shared
+// memory, read where used so that no register holds it).
+template <int R>
+struct Butterfly;
+
+template <>
+struct Butterfly<2> {
+  __device__ static void run(float2 (&v)[2], const float2*, int) {
+    const float2 t = csub(v[0], v[1]);
+    v[0] = cadd(v[0], v[1]);
+    v[1] = t;
+  }
 };
 
-// out[b, k, c] = sum_{x < L} exp(sign 2 pi i x pos_k / L) in[b, x, c],
-// pos_k = k, or the wrapped index of the window's k-th shift
-__global__ void __launch_bounds__(THREADS) dft_axis(Axis p) {
-  __shared__ float xre[TX][TC + 1], xim[TX][TC + 1];
-  __shared__ float wre[TK][TX + 1], wim[TK][TX + 1];
-  __shared__ int kpos[TK];
+__device__ __forceinline__ void dft4(float2& v0, float2& v1, float2& v2,
+                                     float2& v3) {
+  const float2 a = cadd(v0, v2), b = csub(v0, v2);
+  const float2 c = cadd(v1, v3), d = csub(v1, v3);
+  v0 = cadd(a, c);
+  v2 = csub(a, c);
+  v1 = make_float2(b.x + d.y, b.y - d.x);  // b - i d
+  v3 = make_float2(b.x - d.y, b.y + d.x);  // b + i d
+}
 
-  const int nct = (p.C + TC - 1) / TC;
-  const int nkt = (p.K + TK - 1) / TK;
-  long long blk = blockIdx.x;
-  const int ct = static_cast<int>(blk % nct);
-  blk /= nct;
-  const int kt = static_cast<int>(blk % nkt);
-  const long long b = blk / nkt;
-  const int c0 = ct * TC, k0 = kt * TK;
-  // Threads run along the output's contiguous axis, so stores coalesce.
-  const bool kfast = p.out_sk == 1;
-  const int lo = threadIdx.x & 15, hi = threadIdx.x >> 4;
-  const int tk = kfast ? lo : hi, tc = kfast ? hi : lo;
-
-  if (threadIdx.x < TK) {
-    const int k = k0 + threadIdx.x;
-    int v = 0;
-    if (k < p.K && !p.bounds) {
-      v = k;
-    } else if (k < p.K) {
-      const Window w =
-          shift_window(p.bounds + (b / p.pos_div) * 8, p.win_axis, p.L, p.K);
-      const int sh = w.shift(k);
-      v = k < w.count ? (sh < 0 ? sh + p.L : sh) : 0;
-    }
-    kpos[threadIdx.x] = v;
+template <>
+struct Butterfly<4> {
+  __device__ static void run(float2 (&v)[4], const float2*, int) {
+    dft4(v[0], v[1], v[2], v[3]);
   }
-  const float* in_re = p.in_re + b * p.in_sb;
-  const float* in_im = p.in_im ? p.in_im + b * p.in_sb : nullptr;
-  const bool xfast = p.in_sx == 1;
+};
 
-  float are[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  float aim[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int x0 = 0; x0 < p.L; x0 += TX) {
-    __syncthreads();  // kpos written; previous chunk consumed
-    for (int e = threadIdx.x; e < TX * TC; e += THREADS) {
-      const int xi = xfast ? e % TX : e / TC;
-      const int ci = xfast ? e / TX : e % TC;
-      const int x = x0 + xi, c = c0 + ci;
-      float vr = 0.f, vi = 0.f;
-      if (x < p.L && c < p.C) {
-        const long long off = x * p.in_sx + c * p.in_sc;
-        vr = in_re[off];
-        if (in_im) vi = in_im[off];
-      }
-      xre[xi][ci] = vr;
-      xim[xi][ci] = vi;
+template <>
+struct Butterfly<8> {
+  __device__ static void run(float2 (&v)[8], const float2*, int) {
+    constexpr float H = 0.70710678118654752f;
+    dft4(v[0], v[2], v[4], v[6]);  // even points: E[q] in v[2q]
+    dft4(v[1], v[3], v[5], v[7]);  // odd points: O[q] in v[2q + 1]
+    // O[q] *= exp(-2 pi i q / 8)
+    float2 o1 = v[3], o2 = v[5], o3 = v[7];
+    o1 = make_float2(H * (o1.x + o1.y), H * (o1.y - o1.x));
+    o2 = make_float2(o2.y, -o2.x);
+    o3 = make_float2(H * (o3.y - o3.x), -H * (o3.x + o3.y));
+    const float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6], o0 = v[1];
+    v[0] = cadd(e0, o0);
+    v[4] = csub(e0, o0);
+    v[1] = cadd(e1, o1);
+    v[5] = csub(e1, o1);
+    v[2] = cadd(e2, o2);
+    v[6] = csub(e2, o2);
+    v[3] = cadd(e3, o3);
+    v[7] = csub(e3, o3);
+  }
+};
+
+// Odd R: pair r with R - r, X[q] = v0 + sum_r cos (v_r + v_{R-r})
+// - i sin (v_r - v_{R-r}), angles 2 pi r q / R read from w.
+template <int R>
+struct ButterflyOdd {
+  __device__ static void run(float2 (&v)[R], const float2* w, int lr) {
+    constexpr int H = (R - 1) / 2;
+    float2 s[H], d[H];
+    float2 x0 = v[0];
+#pragma unroll
+    for (int r = 1; r <= H; ++r) {
+      s[r - 1] = cadd(v[r], v[R - r]);
+      d[r - 1] = csub(v[r], v[R - r]);
+      x0 = cadd(x0, s[r - 1]);
     }
-    for (int e = threadIdx.x; e < TK * TX; e += THREADS) {
-      const int ki = e / TX, xi = e % TX;
-      const long long r =
-          (static_cast<long long>(x0 + xi) * kpos[ki]) % p.L;
-      float s, c;
-      sincospif(2.0f * static_cast<float>(r) / static_cast<float>(p.L), &s,
-                &c);
-      wre[ki][xi] = c;
-      wim[ki][xi] = p.sign * s;
+    const float2 v0 = v[0];
+    v[0] = x0;
+#pragma unroll
+    for (int q = 1; q <= H; ++q) {
+      float2 a = v0, b = v0;
+#pragma unroll
+      for (int r = 1; r <= H; ++r) {
+        const float2 t = w[((r * q) % R) * lr];  // (cos, -sin)
+        const float cr = t.x * s[r - 1].x, ci = t.x * s[r - 1].y;
+        const float sr = -t.y * d[r - 1].y, si = -t.y * d[r - 1].x;
+        a = make_float2(a.x + (cr + sr), a.y + (ci - si));
+        b = make_float2(b.x + (cr - sr), b.y + (ci + si));
+      }
+      v[q] = a;
+      v[R - q] = b;
+    }
+  }
+};
+
+template <>
+struct Butterfly<3> : ButterflyOdd<3> {};
+template <>
+struct Butterfly<5> : ButterflyOdd<5> {};
+template <>
+struct Butterfly<11> : ButterflyOdd<11> {};
+
+// ------------------------------------------------------- Stockham stages
+// Element x of line l lives at buf[l * ls + x * xs].  Threads run along
+// the lines (line_fast) or along the butterflies of one line.
+struct Lines {
+  int count, ls, xs;
+  bool line_fast;
+};
+
+// One radix-R stage of a length-L transform after stages of product ns:
+// butterfly j (k = j mod ns) reads x = j + r L/R, multiplies by the
+// twiddle exp(-2 pi i r k / (ns R)) = tw[r k L / (ns R)], transforms, and
+// writes x = (j - k) R + k + q ns (Stockham: natural order at the end).
+template <int R>
+__device__ void stage(const float2* __restrict__ src, float2* __restrict__ dst,
+                      const Lines& ln, int L, int ns,
+                      const float2* __restrict__ tw) {
+  const int lr = L / R, stride = L / (ns * R);
+  const int total = ln.count * lr;
+  for (int t = threadIdx.x; t < total; t += THREADS) {
+    const int line = ln.line_fast ? t % ln.count : t / lr;
+    const int j = ln.line_fast ? t / ln.count : t % lr;
+    const int k = j % ns;
+    const float2* s = src + line * ln.ls;
+    float2* o = dst + line * ln.ls;
+    float2 v[R];
+    v[0] = s[j * ln.xs];
+#pragma unroll
+    for (int r = 1; r < R; ++r)
+      v[r] = cmul(s[(j + r * lr) * ln.xs], tw[r * k * stride]);
+    Butterfly<R>::run(v, tw, lr);
+    const int d = (j - k) * R + k;
+#pragma unroll
+    for (int q = 0; q < R; ++q) o[(d + q * ns) * ln.xs] = v[q];
+  }
+}
+
+// Any radix p (a prime the specialised butterflies do not cover): output
+// q of butterfly j is sum_r src[j + r L/p] tw[(r e_q) mod L] with
+// e_q = (L / (ns p)) (k + q ns): the stage twiddle and the p-point DFT in
+// one exponent.
+__device__ void stage_generic(const float2* __restrict__ src,
+                              float2* __restrict__ dst, const Lines& ln,
+                              int L, int ns, int R,
+                              const float2* __restrict__ tw) {
+  const int lr = L / R, stride = L / (ns * R);
+  const int total = ln.count * lr * R;
+  for (int t = threadIdx.x; t < total; t += THREADS) {
+    const int q = t % R;
+    const int u = t / R;
+    const int line = ln.line_fast ? u % ln.count : u / lr;
+    const int j = ln.line_fast ? u / ln.count : u % lr;
+    const int k = j % ns;
+    const float2* s = src + line * ln.ls;
+    const int step = stride * (k + q * ns);
+    float2 acc = make_float2(0.f, 0.f);
+    int e = 0;
+    for (int r = 0; r < R; ++r) {
+      const float2 p = cmul(s[(j + r * lr) * ln.xs], tw[e]);
+      acc = cadd(acc, p);
+      e += step;
+      if (e >= L) e -= L;
+    }
+    dst[line * ln.ls + ((j - k) * R + k + q * ns) * ln.xs] = acc;
+  }
+}
+
+// Forward FFT of every line in a (b is the ping-pong buffer); returns the
+// buffer that holds the result.  The caller syncs after filling a.
+__device__ float2* fft_lines(float2* a, float2* b, const Lines& ln,
+                             const Plan& pl, const float2* tw) {
+  int ns = 1;
+  for (int s = 0; s < pl.nst; ++s) {
+    const int R = pl.radix[s];
+    switch (R) {
+      case 2: stage<2>(a, b, ln, pl.L, ns, tw); break;
+      case 3: stage<3>(a, b, ln, pl.L, ns, tw); break;
+      case 4: stage<4>(a, b, ln, pl.L, ns, tw); break;
+      case 5: stage<5>(a, b, ln, pl.L, ns, tw); break;
+      case 8: stage<8>(a, b, ln, pl.L, ns, tw); break;
+      case 11: stage<11>(a, b, ln, pl.L, ns, tw); break;
+      default: stage_generic(a, b, ln, pl.L, ns, R, tw); break;
     }
     __syncthreads();
-    const int xn = min(TX, p.L - x0);
-    for (int xi = 0; xi < xn; ++xi) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float wr = wre[tk + 16 * i][xi], wi = wim[tk + 16 * i][xi];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float vr = xre[xi][tc + 16 * j], vi = xim[xi][tc + 16 * j];
-          are[i][j] = fmaf(wr, vr, are[i][j]);
-          are[i][j] = fmaf(-wi, vi, are[i][j]);
-          aim[i][j] = fmaf(wr, vi, aim[i][j]);
-          aim[i][j] = fmaf(wi, vr, aim[i][j]);
-        }
-      }
-    }
+    float2* t = a;
+    a = b;
+    b = t;
+    ns *= R;
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int k = k0 + tk + 16 * i;
-    if (k >= p.K) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = c0 + tc + 16 * j;
-      if (c >= p.C) continue;
-      float re = are[i][j], im = aim[i][j];
-      const long long off = k * p.out_sk + c * p.out_sc;
-      if (p.t_re) {
-        // q = S * conj(T)
-        const long long toff = (b % p.t_mod) * p.t_sb + off;
-        const float tr = p.t_re[toff], ti = p.t_im[toff];
-        const float qr = fmaf(re, tr, im * ti);
-        const float qi = fmaf(im, tr, -(re * ti));
-        re = qr;
-        im = qi;
-      }
-      p.out_re[b * p.out_sb + off] = re;
-      p.out_im[b * p.out_sb + off] = im;
+  return a;
+}
+
+__device__ void load_twiddles(float2* dst, const float2* src, int L) {
+  for (int i = threadIdx.x; i < L; i += THREADS) dst[i] = src[i];
+}
+
+// ------------------------------------------------------------- launches
+// Launch 1: rb rows of length n per block (real input) -> complex rows.
+// Rows 2p and 2p + 1 go through one complex FFT as its real and imaginary
+// parts, Z = FFT(x + i y), and are split after it: X[k] = (Z[k] +
+// conj Z[-k]) / 2, Y[k] = (Z[k] - conj Z[-k]) / 2i.
+__global__ void __launch_bounds__(THREADS, 3)
+fft_rows(const float* __restrict__ in, float* __restrict__ out_re,
+         float* __restrict__ out_im, long long rows, int rb, Plan pn,
+         const float2* __restrict__ tw_n) {
+  extern __shared__ float2 sm[];
+  const int n = pn.L;
+  float2* tw = sm;
+  float2* a = tw + n;
+  float2* b = a + ((rb + 1) / 2) * n;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rb;
+  const int nr = static_cast<int>(min(static_cast<long long>(rb), rows - r0));
+  const int pairs = (nr + 1) / 2;
+  load_twiddles(tw, tw_n, n);
+  const float* src = in + r0 * n;
+  for (int e = threadIdx.x; e < pairs * n; e += THREADS) {
+    const int p = e / n, x = e - p * n;
+    const float y = 2 * p + 1 < nr ? src[(2 * p + 1) * n + x] : 0.f;
+    a[e] = make_float2(src[2 * p * n + x], y);
+  }
+  __syncthreads();
+  const float2* res = fft_lines(a, b, Lines{pairs, n, 1, false}, pn, tw);
+  float* ore = out_re + r0 * n;
+  float* oim = out_im + r0 * n;
+  for (int e = threadIdx.x; e < pairs * n; e += THREADS) {
+    const int p = e / n, k = e - p * n;
+    const float2 zk = res[e], zc = res[p * n + (k == 0 ? 0 : n - k)];
+    const int o = 2 * p * n + k;
+    ore[o] = 0.5f * (zk.x + zc.x);
+    oim[o] = 0.5f * (zk.y - zc.y);
+    if (2 * p + 1 < nr) {
+      ore[o + n] = 0.5f * (zk.y + zc.y);
+      oim[o + n] = 0.5f * (zc.x - zk.x);
     }
   }
 }
 
-// One block per (frame, patch): magnitude of the windowed correlation
-// cc [bp, wz, wm * wn] and the first-occurrence argmax over the frame's
-// candidates.
-__global__ void __launch_bounds__(THREADS) window_argmax(
-    const float* __restrict__ cc_re, const float* __restrict__ cc_im,
-    const float* __restrict__ bounds, float* __restrict__ shifts, int np,
-    int z, int m, int n, int wm, int wn, int wz) {
+// Launch 2: the m transform of an m x cc column tile of one [m, n] plane,
+// in place.
+__global__ void __launch_bounds__(THREADS, 3)
+fft_cols(float* __restrict__ re, float* __restrict__ im, int n, int cc,
+         Plan pm, const float2* __restrict__ tw_m) {
+  extern __shared__ float2 sm[];
+  const int m = pm.L;
+  float2* tw = sm;
+  float2* a = tw + m;
+  float2* b = a + m * cc;
+  const int nct = (n + cc - 1) / cc;
+  const long long plane = blockIdx.x / nct;
+  const int c0 = (blockIdx.x % nct) * cc;
+  const int cw = min(cc, n - c0);
+  const long long base = plane * m * n + c0;
+  load_twiddles(tw, tw_m, m);
+  for (int e = threadIdx.x; e < m * cw; e += THREADS) {
+    const long long off = base + static_cast<long long>(e / cw) * n + e % cw;
+    a[e] = make_float2(re[off], im[off]);
+  }
+  __syncthreads();
+  const float2* res = fft_lines(a, b, Lines{cw, 1, cw, true}, pm, tw);
+  for (int e = threadIdx.x; e < m * cw; e += THREADS) {
+    const long long off = base + static_cast<long long>(e / cw) * n + e % cw;
+    re[off] = res[e].x;
+    im[off] = res[e].y;
+  }
+}
+
+// Launch 3: one m index and a run of cw n columns of one (frame, patch):
+// the z transform, the product with conj(T) (written to prod), and the
+// inverse along n at the frame's window lattice points, summed over this
+// run's columns: r1[bp][chunk][z * m][wn].
+__global__ void __launch_bounds__(THREADS, 3)
+fft_z_product(float* __restrict__ re, float* __restrict__ im,
+              const float* __restrict__ t_re, const float* __restrict__ t_im,
+              const float* __restrict__ bounds, float2* __restrict__ r1,
+              int np, int m, int cw, int wn, Plan pz, Plan pn,
+              const float2* __restrict__ tw_z_g,
+              const float2* __restrict__ tw_n_g) {
+  extern __shared__ float2 sm[];
+  const int z = pz.L, n = pn.L;
+  const int nch = (n + cw - 1) / cw;
+  float2* tw_z = sm;
+  float2* tw_n = tw_z + z;
+  float2* a = tw_n + n;
+  float2* b = a + z * cw;
+  float2* tb = b + z * cw;  // the template spectra, loaded with the data
+  long long blk = blockIdx.x;
+  const int ch = static_cast<int>(blk % nch);
+  blk /= nch;
+  const int mi = static_cast<int>(blk % m);
+  const long long bp = blk / m;
+  const int c0 = ch * cw;
+  const int w = min(cw, n - c0);
+  const long long vol = static_cast<long long>(z) * m * n;
+  const long long mn = static_cast<long long>(m) * n;
+  const long long base = bp * vol + static_cast<long long>(mi) * n + c0;
+  const long long tbase = (bp % np) * vol + static_cast<long long>(mi) * n + c0;
+  load_twiddles(tw_z, tw_z_g, z);
+  load_twiddles(tw_n, tw_n_g, n);
+  for (int e = threadIdx.x; e < z * w; e += THREADS) {
+    const long long rel = (e / w) * mn + e % w;
+    a[e] = make_float2(re[base + rel], im[base + rel]);
+    tb[e] = make_float2(t_re[tbase + rel], t_im[tbase + rel]);
+  }
+  __syncthreads();
+  float2* res = fft_lines(a, b, Lines{w, 1, w, true}, pz, tw_z);
+  for (int e = threadIdx.x; e < z * w; e += THREADS) {
+    const long long rel = (e / w) * mn + e % w;
+    const float2 q = cmulc(res[e], tb[e]);  // S * conj(T)
+    re[base + rel] = q.x;
+    im[base + rel] = q.y;
+    res[e] = q;
+  }
+  __syncthreads();
+  // The inverse along n at the window's points, z * count outputs, each
+  // summed by `split` threads over every split-th column of the run (then
+  // combined by shuffles in a fixed order).
+  const Window win = shift_window(bounds + (bp / np) * 8, 1, n, wn);
+  const int outs = z * win.count;
+  int split = 1;
+  while (split < 8 && outs * split * 2 <= THREADS) split *= 2;
+  float2* out = r1 + ((bp * nch + ch) * z * m + mi) * wn;
+  for (int o0 = 0; o0 < outs * split; o0 += THREADS) {
+    const int t = o0 + threadIdx.x, o = t / split, part = t % split;
+    float2 acc = make_float2(0.f, 0.f);
+    if (o < outs) {
+      const int zi = o / win.count, j = o % win.count;
+      const int u = win.wrapped(j, n);
+      // exp(+2 pi i x u / n) = conj(tw_n[x u mod n]), x = c0 + c; two
+      // chains (columns c and c + split), added at the end.
+      int e0 = static_cast<int>((static_cast<long long>(c0 + part) * u) % n);
+      int e1 = static_cast<int>(
+          (static_cast<long long>(c0 + part + split) * u) % n);
+      const int step =
+          static_cast<int>((static_cast<long long>(2 * split) * u) % n);
+      float2 acc1 = make_float2(0.f, 0.f);
+      const float2* row = res + zi * w;
+      int c = part;
+      for (; c + split < w; c += 2 * split) {
+        acc = cadd(acc, cmulc(row[c], tw_n[e0]));
+        acc1 = cadd(acc1, cmulc(row[c + split], tw_n[e1]));
+        e0 += step;
+        if (e0 >= n) e0 -= n;
+        e1 += step;
+        if (e1 >= n) e1 -= n;
+      }
+      if (c < w) acc = cadd(acc, cmulc(row[c], tw_n[e0]));
+      acc = cadd(acc, acc1);
+    }
+    for (int off = 1; off < split; off <<= 1) {
+      acc.x += __shfl_xor_sync(FULL, acc.x, off);
+      acc.y += __shfl_xor_sync(FULL, acc.y, off);
+    }
+    if (o < outs && part == 0)
+      out[static_cast<long long>(o / win.count) * m * wn + o % win.count] =
+          acc;
+  }
+}
+
+// Launch 4: one block per (frame, patch): the inverse along m of r1
+// (summed over its n chunks) into r2 [z][cm][cn], then along z at each
+// candidate, the magnitude and the first-occurrence argmax.
+__global__ void __launch_bounds__(THREADS)
+window_argmax(const float2* __restrict__ r1, float2* __restrict__ r2,
+              const float* __restrict__ bounds, float* __restrict__ shifts,
+              int np, int z, int m, int n, int nch, int wm, int wn, int wz,
+              const float2* __restrict__ tw_m,
+              const float2* __restrict__ tw_z) {
   __shared__ float sval[THREADS];
   __shared__ int sidx[THREADS];
   const long long bp = blockIdx.x;
@@ -211,17 +468,41 @@ __global__ void __launch_bounds__(THREADS) window_argmax(
   const Window win_n = shift_window(bnd, 1, n, wn);
   const Window win_z = shift_window(bnd, 2, z, wz);
   const int cm = win_m.count, cn = win_n.count, cz = win_z.count;
-  const int total = cm * cn * cz;
-  const float* re = cc_re + bp * wz * wm * wn;
-  const float* im = cc_im + bp * wz * wm * wn;
+  const long long zmw = static_cast<long long>(z) * m * wn;
+  const float2* src = r1 + bp * nch * zmw;
+  float2* mid = r2 + bp * z * wm * wn;
 
+  for (int o = threadIdx.x; o < z * cm * cn; o += THREADS) {
+    const int zi = o / (cm * cn), i = (o / cn) % cm, j = o % cn;
+    const int u = win_m.wrapped(i, m);
+    float2 acc = make_float2(0.f, 0.f);
+    int e = 0;
+    for (int x = 0; x < m; ++x) {
+      const long long off = (static_cast<long long>(zi) * m + x) * wn + j;
+      float2 v = src[off];
+      for (int c = 1; c < nch; ++c) v = cadd(v, src[c * zmw + off]);
+      acc = cadd(acc, cmulc(v, tw_m[e]));
+      e += u;
+      if (e >= m) e -= m;
+    }
+    mid[o] = acc;
+  }
+  __syncthreads();
+
+  const int total = cz * cm * cn;
   float best = -1.0f;
   int best_i = total;  // none
   for (int e = threadIdx.x; e < total; e += THREADS) {
-    const int l = e / (cm * cn), i = (e / cn) % cm, j = e % cn;
-    const long long off = (static_cast<long long>(l) * wm + i) * wn + j;
-    const float a = re[off], bimag = im[off];
-    const float mag = sqrtf(fmaf(a, a, bimag * bimag));
+    const int l = e / (cm * cn), ij = e % (cm * cn);
+    const int u = win_z.wrapped(l, z);
+    float2 acc = make_float2(0.f, 0.f);
+    int t = 0;
+    for (int zi = 0; zi < z; ++zi) {
+      acc = cadd(acc, cmulc(mid[zi * cm * cn + ij], tw_z[t]));
+      t += u;
+      if (t >= z) t -= z;
+    }
+    const float mag = sqrtf(fmaf(acc.x, acc.x, acc.y * acc.y));
     if (mag > best) {  // ascending e per thread: keeps the first maximum
       best = mag;
       best_i = e;
@@ -257,95 +538,73 @@ __global__ void __launch_bounds__(THREADS) window_argmax(
   }
 }
 
-cudaError_t launch(const Axis& p, cudaStream_t stream) {
-  const long long blocks = static_cast<long long>((p.C + TC - 1) / TC) *
-                           ((p.K + TK - 1) / TK) * p.nb;
-  dft_axis<<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(p);
-  return cudaGetLastError();
+Plan make_plan(const int* row) {
+  Plan p{};
+  p.L = row[0];
+  p.nst = row[1];
+  for (int s = 0; s < p.nst && s < MAX_STAGES; ++s) p.radix[s] = row[2 + s];
+  return p;
 }
 
-Axis axis(const float* in_re, const float* in_im, float* out_re,
-          float* out_im, long long nb, int L, int K, int C, long long in_sb,
-          long long in_sx, long long in_sc, long long out_sb,
-          long long out_sk, long long out_sc, float sign) {
-  Axis p{};
-  p.in_re = in_re;
-  p.in_im = in_im;
-  p.out_re = out_re;
-  p.out_im = out_im;
-  p.in_sb = in_sb;
-  p.in_sx = in_sx;
-  p.in_sc = in_sc;
-  p.out_sb = out_sb;
-  p.out_sk = out_sk;
-  p.out_sc = out_sc;
-  p.t_mod = 1;
-  p.pos_div = 1;
-  p.L = L;
-  p.K = K;
-  p.C = C;
-  p.nb = nb;
-  p.sign = sign;
-  return p;
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
 
 // patches [B, NP, z*m, n]; tmpl_re/im [NP, z*m, n]; bounds [B, 8]; wm,
 // wn, wz >= 1 bound the windows' candidate counts.  Outputs prod_re/im
-// [B, NP, z*m, n] and shifts [B, NP, 3]; scratch buf_re/im as prod,
-// r1 [B*NP, z*m, wn], r2 [B*NP*z, wm, wn], cc [B*NP, wz, wm*wn].
+// [B, NP, z*m, n] and shifts [B, NP, 3]; scratch r1 [B*NP, nch, z*m, wn]
+// and r2 [B*NP, z, wm, wn] complex (float2) with nch = ceil(n / cw).
+// plans: host ints, per axis (m, n, z) a row of 2 + MAX_STAGES: L, stage
+// count, radices.  tw_m/n/z: device twiddle tables exp(-2 pi i x / L).
+// Tiles: rb rows per block (launch 1), cc columns (launch 2), cw columns
+// (launch 3).
 extern "C" int dnmf_phasecorr(
     const float* patches, const float* tmpl_re, const float* tmpl_im,
-    const float* bounds, float* prod_re, float* prod_im,
-    float* buf_re, float* buf_im, float* r1_re, float* r1_im, float* r2_re,
-    float* r2_im, float* cc_re, float* cc_im, float* shifts, int nframes,
-    int np, int z, int m, int n, int wm, int wn, int wz,
-    cudaStream_t stream) {
+    const float* bounds, float* prod_re, float* prod_im, void* r1, void* r2,
+    float* shifts, const void* tw_m, const void* tw_n, const void* tw_z,
+    const int* plans, int nframes, int np, int z, int m, int n, int wm,
+    int wn, int wz, int rb, int cc, int cw, cudaStream_t stream) {
   const long long bp = static_cast<long long>(nframes) * np;
-  const long long vol = static_cast<long long>(z) * m * n;
-  const long long mn = static_cast<long long>(m) * n;
+  const Plan pm = make_plan(plans);
+  const Plan pn = make_plan(plans + 2 + MAX_STAGES);
+  const Plan pz = make_plan(plans + 2 * (2 + MAX_STAGES));
+  const float2* twm = static_cast<const float2*>(tw_m);
+  const float2* twn = static_cast<const float2*>(tw_n);
+  const float2* twz = static_cast<const float2*>(tw_z);
+  float2* r1c = static_cast<float2*>(r1);
+  float2* r2c = static_cast<float2*>(r2);
+  const int nch = (n + cw - 1) / cw;
   cudaError_t err;
 
-  // F1: forward n pass (real input) into prod, m pass into buf, z pass
-  // with the conj(T) product back into prod.
-  Axis p = axis(patches, nullptr, prod_re, prod_im, bp, n, n, z * m, vol, 1,
-                n, vol, 1, n, -1.f);
-  if ((err = launch(p, stream)) != cudaSuccess) return err;
-  p = axis(prod_re, prod_im, buf_re, buf_im, bp * z, m, m, n, mn, n, 1, mn,
-           n, 1, -1.f);
-  if ((err = launch(p, stream)) != cudaSuccess) return err;
-  p = axis(buf_re, buf_im, prod_re, prod_im, bp, z, z, static_cast<int>(mn),
-           vol, mn, 1, vol, mn, 1, -1.f);
-  p.t_re = tmpl_re;
-  p.t_im = tmpl_im;
-  p.t_sb = vol;
-  p.t_mod = np;
-  if ((err = launch(p, stream)) != cudaSuccess) return err;
+  const long long rows = bp * z * m;
+  const size_t s1 =
+      (n + 2 * static_cast<size_t>((rb + 1) / 2) * n) * sizeof(float2);
+  if ((err = allow_smem(fft_rows, s1)) != cudaSuccess) return err;
+  fft_rows<<<static_cast<unsigned>((rows + rb - 1) / rb), THREADS, s1,
+             stream>>>(patches, prod_re, prod_im, rows, rb, pn, twn);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // F2: the inverse at the window's lattice points only (n, m, z), then
-  // the magnitude and the argmax.
-  p = axis(prod_re, prod_im, r1_re, r1_im, bp, n, wn, z * m, vol, 1, n,
-           static_cast<long long>(z) * m * wn, 1, wn, 1.f);
-  p.bounds = bounds;
-  p.win_axis = 1;
-  p.pos_div = np;
-  if ((err = launch(p, stream)) != cudaSuccess) return err;
-  const long long mw = static_cast<long long>(m) * wn;
-  const long long ww = static_cast<long long>(wm) * wn;
-  p = axis(r1_re, r1_im, r2_re, r2_im, bp * z, m, wm, wn, mw, wn, 1, ww, wn,
-           1, 1.f);
-  p.bounds = bounds;
-  p.win_axis = 0;
-  p.pos_div = np * z;
-  if ((err = launch(p, stream)) != cudaSuccess) return err;
-  p = axis(r2_re, r2_im, cc_re, cc_im, bp, z, wz, static_cast<int>(ww),
-           z * ww, ww, 1, wz * ww, ww, 1, 1.f);
-  p.bounds = bounds;
-  p.win_axis = 2;
-  p.pos_div = np;
-  if ((err = launch(p, stream)) != cudaSuccess) return err;
+  const size_t s2 = (m + 2 * static_cast<size_t>(m) * cc) * sizeof(float2);
+  if ((err = allow_smem(fft_cols, s2)) != cudaSuccess) return err;
+  fft_cols<<<static_cast<unsigned>(bp * z * ((n + cc - 1) / cc)), THREADS,
+             s2, stream>>>(prod_re, prod_im, n, cc, pm, twm);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t s3 =
+      (z + n + 3 * static_cast<size_t>(z) * cw) * sizeof(float2);
+  if ((err = allow_smem(fft_z_product, s3)) != cudaSuccess) return err;
+  fft_z_product<<<static_cast<unsigned>(bp * m * nch), THREADS, s3,
+                  stream>>>(prod_re, prod_im, tmpl_re, tmpl_im, bounds, r1c,
+                            np, m, cw, wn, pz, pn, twz, twn);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
   window_argmax<<<static_cast<unsigned>(bp), THREADS, 0, stream>>>(
-      cc_re, cc_im, bounds, shifts, np, z, m, n, wm, wn, wz);
+      r1c, r2c, bounds, shifts, np, z, m, n, nch, wm, wn, wz, twm, twz);
   return cudaGetLastError();
 }

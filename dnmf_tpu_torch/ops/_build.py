@@ -34,8 +34,8 @@ SIGNATURES = {
     "dnmf_motion": [_P] * 8 + [_I] * 7 + [_P],
     "dnmf_gram": [_P] * 8 + [_I] * 8 + [_P],
     "dnmf_gram_rows": [_P] * 9 + [_I] * 4 + [_P],
-    "dnmf_refine": [_P] * 9 + [_I] * 9 + [_P],
-    "dnmf_phasecorr": [_P] * 15 + [_I] * 8 + [_P],
+    "dnmf_refine": [_P] * 11 + [_I] * 12 + [_P],
+    "dnmf_phasecorr": [_P] * 13 + [_I] * 11 + [_P],
     "dnmf_warp": [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P],
 }
 

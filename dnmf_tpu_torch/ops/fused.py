@@ -44,7 +44,9 @@ from dnmf_tpu_torch.ops import footprints as fp_ops
 from dnmf_tpu_torch.ops import phasecorr, warp
 
 KB = 32  # neurons per culling block (csrc/footprint.cuh)
-REFINE_SUB = 8  # neurons per thread block of the refine moments pass
+REFINE_BRICK_MN = 8  # refine kernel: brick extent in m and in n
+REFINE_ROW = 16  # floats per neuron row of the refine kernel's table
+REFINE_PART_FLOATS = 1 << 20  # refine kernel: partial sums per frame
 REACH_SIGMAS = 6.0  # exp(-36) ~ 2e-16: below float32 resolution
 LOG2E = 1.4426950408889634
 THREADS = 256  # pixels per step of the motion, c1 and refine kernels
@@ -206,17 +208,16 @@ def per_axis_inv_s2(sigma: torch.Tensor) -> torch.Tensor:
 
 
 def sorted_params_tracked(pos_t: torch.Tensor, sigma: torch.Tensor,
-                          kb: int = KB, c_block=None):
+                          kb: int = KB):
     """Sort neurons by their mean m over frames and build the kernels'
     per-frame neuron tables.
 
     ``pos_t [B, K, 3]`` holds each frame's own positions.  Returns
     ``(perm, params [B, K_pad, 8], blocks [nkb, 2])``: params rows
-    ``(p_m, p_n, p_z, log2e/s_m^2, log2e/s_n^2, log2e/s_z^2, c, 0)`` in
-    sorted order (``c`` from ``c_block [B, K]``, else 0), padded neurons
-    at 1e4 with unit scales (exactly zero footprints); ``blocks`` holds
-    each block's m-interval over all frames, widened by ``REACH_SIGMAS``
-    times its widest m-sigma.
+    ``(p_m, p_n, p_z, log2e/s_m^2, log2e/s_n^2, log2e/s_z^2, 0, 0)`` in
+    sorted order, padded neurons at 1e4 with unit scales (exactly zero
+    footprints); ``blocks`` holds each block's m-interval over all
+    frames, widened by ``REACH_SIGMAS`` times its widest m-sigma.
     """
     bsz, k = pos_t.shape[0], pos_t.shape[1]
     nkb = -(-k // kb)
@@ -230,8 +231,6 @@ def sorted_params_tracked(pos_t: torch.Tensor, sigma: torch.Tensor,
     params[:, :k, :3] = pos_s
     params[:, :, 3:6] = 1.0
     params[:, :k, 3:6] = per_axis_inv_s2(sig_s) * LOG2E
-    if c_block is not None:
-        params[:, :k, 6] = c_block[:, perm]
     inf = torch.full((k_pad - k,), math.inf, device=pos_t.device)
     m_lo = torch.cat([pos_s[:, :, 0].min(dim=0).values, inf]).reshape(nkb, kb)
     m_hi = torch.cat([pos_s[:, :, 0].max(dim=0).values, -inf]).reshape(nkb, kb)
@@ -512,53 +511,126 @@ def gram_block_tracked(betas, pos_t, sigma, y, size,
     return _unpermute_grams(g, c1, perm, pos_t.shape[1])
 
 
+def refine_bricks(size):
+    """``(bm, bn, bz)``: the refine kernel's brick for a volume ``size =
+    (M, N, Z)`` (csrc/cull.cuh): 8 x 8 voxels in (m, n) by the z extent
+    cut into equal runs of at most 32; bricks at the far faces are
+    clipped."""
+    z = int(size[2])
+    return REFINE_BRICK_MN, REFINE_BRICK_MN, -(-z // -(-z // 32))
+
+
+def brick_ids(size, device=None) -> Tuple[torch.Tensor, int]:
+    """``([P] brick number of every voxel, number of bricks)``; bricks
+    are numbered ``((im * nbn) + in) * nbz + iz``."""
+    m, n, z = (int(s) for s in size)
+    bm, bn, bz = refine_bricks(size)
+    nbn, nbz = -(-n // bn), -(-z // bz)
+    idx = torch.arange(m * n * z, device=device)
+    ids = (((idx // (n * z)) // bm) * nbn + ((idx // z) % n) // bn) * nbz \
+        + (idx % z) // bz
+    return ids, -(-m // bm) * nbn * nbz
+
+
+def brick_candidates_plain(betas, pos_t, sigma, size,
+                           scaling: str = "normalized") -> torch.Tensor:
+    """The refine kernel's culling rule in plain torch: ``[B, n_bricks,
+    K]``, True where neuron k's per-axis box ``pos_t[b, k] +- 6 sigma_k``
+    meets the exact per-axis range of frame b's deformed coordinates over
+    the brick (on all three axes).  Any other neuron's footprint is below
+    ``exp(-36)`` at every voxel of the brick."""
+    bsz = betas.shape[0]
+    ids, nb = brick_ids(size, betas.device)
+    psi = _warped(betas, size, scaling, 0, ids.numel())  # [B, P, 3]
+    idx = ids[None, :, None].expand_as(psi)
+    lo = torch.full((bsz, nb, 3), math.inf, dtype=psi.dtype,
+                    device=psi.device).scatter_reduce(1, idx, psi, "amin")
+    hi = torch.full((bsz, nb, 3), -math.inf, dtype=psi.dtype,
+                    device=psi.device).scatter_reduce(1, idx, psi, "amax")
+    sig3 = sigma if sigma.ndim == 2 else sigma[:, None].expand(-1, 3)
+    reach = REACH_SIGMAS * sig3
+    pt = pos_t[:, None]  # [B, 1, K, 3]
+    meets = (pt + reach >= lo[:, :, None]) & (pt - reach <= hi[:, :, None])
+    return meets.all(dim=-1)
+
+
+def refine_table(pos_t, sigma, c_block):
+    """The refine kernel's per-frame neuron tables, each sorted by the
+    frame's own m coordinate: ``(table [B, K, 16], order [B, K], rmax
+    [1])``; rows ``(p_m, p_n, p_z, log2e/s_m^2, log2e/s_n^2, log2e/s_z^2,
+    c, 0, 6 s_m, 6 s_n, 6 s_z, 0, 1/s_m^2, 1/s_n^2, 1/s_z^2, 0)``;
+    ``order[b, i]`` is row i's neuron; ``rmax`` the largest m reach (on
+    the device: no sync)."""
+    order = torch.argsort(pos_t[:, :, 0], dim=1, stable=True)
+    sig = sigma.to(torch.float32)
+    reach = REACH_SIGMAS * (sig if sig.ndim == 2
+                            else sig[:, None].expand(-1, 3))
+    inv_s2 = per_axis_inv_s2(sigma)
+    zero = torch.zeros_like(reach[:, :1])
+    rows = torch.cat([zero, zero, zero, inv_s2 * LOG2E, zero, zero, reach,
+                      zero, inv_s2, zero], dim=1)[order]  # [B, K, 16]
+    rows[..., :3] = torch.take_along_dim(pos_t, order[..., None], dim=1)
+    rows[..., 6] = torch.take_along_dim(c_block, order, dim=1)
+    return rows, order, reach[:, 0].amax().reshape(1)
+
+
 def refine_block(betas, pos_t, sigma, c_block, y, size,
-                 scaling: str = "normalized", want_dsigma: bool = False):
+                 scaling: str = "normalized", want_dsigma: bool = False,
+                 brick_counts: bool = False):
     """Per-frame ``mse [B]`` and ``dpos [B, K, 3]`` for per-frame
     positions ``pos_t [B, K, 3]``, ``c_block [B, K]`` and ``y [B, P]``.
 
     ``want_dsigma`` also returns each frame's ``dsigma``: ``[B, K]`` for
     ``sigma [K]`` (the three axis terms summed) or ``[B, K, 3]`` for
-    ``sigma [K, 3]``.  Data term only: callers add the anchor tether.
+    ``sigma [K, 3]``.  ``brick_counts`` appends the kernel's candidate
+    count of every brick, ``[B, n_bricks]`` int32 (on CPU tensors: from
+    :func:`brick_candidates_plain`).  Data term only: callers add the
+    anchor tether.
     """
     if y.device.type == "cpu":
-        return refine_block_plain(betas, pos_t, sigma, c_block, y, size,
-                                  scaling, want_dsigma)
+        out = refine_block_plain(betas, pos_t, sigma, c_block, y, size,
+                                 scaling, want_dsigma)
+        if brick_counts:
+            out = out + (brick_candidates_plain(
+                betas, pos_t, sigma, size, scaling).sum(-1).to(torch.int32),)
+        return out
     _check("refine_block", size, scaling, y, betas, pos_t, sigma, c_block)
     from dnmf_tpu_torch.ops import _build
 
-    lib = _build.load()
     bsz, p = y.shape
     k = pos_t.shape[1]
-    perm, params, blocks = sorted_params_tracked(pos_t, sigma,
-                                                 c_block=c_block)
-    nkb = blocks.shape[0]
-    n_sb = nkb * (KB // REFINE_SUB)
     nmom = 6 if want_dsigma else 3
+    if k * (nmom + 10) * 4 > phasecorr.SMEM_BYTES - 4096:
+        raise ValueError(f"refine_block: K={k} neurons do not fit the "
+                         "kernel's shared memory")
+    lib = _build.load()
+    table, order, rmax = refine_table(pos_t, sigma, c_block)
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
-    n_res = _n_chunks(p, THREADS, bsz)
-    n_mom = _n_chunks(p, THREADS, bsz * n_sb)
+    bm, bn, bz = refine_bricks(size)
+    n_bricks = -(-m // bm) * -(-n // bn) * -(-z // bz)
+    # Groups of bricks per thread block: the partial sums stay within
+    # REFINE_PART_FLOATS per frame; the count depends on the volume and K
+    # only, so a frame's result does not depend on the call's other frames.
+    per_group = max(1, -(-n_bricks * k * 6 // REFINE_PART_FLOATS))
+    n_groups = -(-n_bricks // per_group)
     f32 = dict(dtype=torch.float32, device=y.device)
-    rw = torch.empty((bsz, p), **f32)
-    sse_part = torch.empty((bsz, n_res), **f32)
-    sse = torch.empty(bsz, **f32)
-    mom_part = torch.empty((bsz, n_sb, n_mom, REFINE_SUB * nmom), **f32)
-    mom = torch.empty((bsz, nkb * KB, nmom), **f32)
+    sse_part = torch.empty((bsz, n_groups), **f32)
+    mom_part = torch.empty((bsz, n_groups, k, nmom), **f32)
+    mse = torch.empty(bsz, **f32)
+    dpos = torch.empty((bsz, k, 3), **f32)
+    dsig = (torch.empty((bsz, k) + tuple(sigma.shape[1:]), **f32)
+            if want_dsigma else dpos)
+    counts = torch.empty((bsz, n_bricks), dtype=torch.int32, device=y.device)
     err = lib.dnmf_refine(
-        beta_rows.data_ptr(), params.data_ptr(), blocks.data_ptr(),
-        y.data_ptr(), rw.data_ptr(), sse_part.data_ptr(), sse.data_ptr(),
-        mom_part.data_ptr(), mom.data_ptr(), bsz, m, n, z, norm, nkb, n_res,
-        n_mom, int(want_dsigma), _stream())
+        beta_rows.data_ptr(), table.data_ptr(), order.data_ptr(),
+        rmax.data_ptr(), y.data_ptr(), sse_part.data_ptr(),
+        mom_part.data_ptr(), mse.data_ptr(), dpos.data_ptr(),
+        dsig.data_ptr(), counts.data_ptr(), bsz, m, n, z, norm, k, bm, bn,
+        bz, per_group, int(want_dsigma), int(sigma.ndim == 2), _stream())
     refine_block.launches += 1
     _build.check(err, "dnmf_refine")
-    mom = mom[:, :k][:, torch.argsort(perm)]
-    inv_s2 = per_axis_inv_s2(sigma)  # [K, 3]
-    coeff = (4.0 / p) * c_block[:, :, None] * inv_s2  # 4 c / (P s^2)
-    dpos = coeff * mom[..., :3]
-    if not want_dsigma:
-        return sse / p, dpos
-    dsig = coeff * torch.sqrt(inv_s2) * mom[..., 3:]  # 4 c / (P s^3)
-    return sse / p, dpos, dsig if sigma.ndim == 2 else dsig.sum(dim=-1)
+    out = (mse, dpos, dsig) if want_dsigma else (mse, dpos)
+    return out + (counts,) if brick_counts else out
 
 
 KERNELS = (motion_block, c1_block, gram_block, refine_block,

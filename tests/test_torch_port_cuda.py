@@ -112,25 +112,66 @@ def _tracked(pos, b, seed=1, crossing=False):
     return pos_t
 
 
+def _refine_inputs(size, k, dev, scaling, aniso, warp):
+    """``_inputs`` with per-frame positions, some neurons on brick edges
+    (multiples of 8 in m and n) and on the volume's border; ``warp =
+    "quadratic"`` adds strongly quadratic warps."""
+    betas, pos, sigma, c, y = _inputs(size, k, dev, aniso=aniso)
+    hi = torch.tensor(size, dtype=torch.float32, device=dev) - 1
+    pos[:4, :2] = torch.round(pos[:4, :2] / 8) * 8
+    pos[4] = 0.0
+    pos[5] = hi
+    pos[6, 1] = hi[1]
+    if warp == "quadratic":
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        quad = 0.15 if scaling == "normalized" else 0.02
+        betas[:, 4:] += quad * (2 * torch.rand((betas.shape[0], 6, 3),
+                                               generator=gen) - 1).to(dev)
+    return betas, _tracked(pos, betas.shape[0]), sigma, c, y
+
+
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 @pytest.mark.parametrize("scaling", ["normalized", "pixel"])
 @pytest.mark.parametrize("aniso", [False, True])
-def test_refine_kernel_matches_float64(dev, shape, scaling, aniso):
+@pytest.mark.parametrize("warp", ["mild", "quadratic"])
+def test_refine_kernel_matches_float64(dev, shape, scaling, aniso, warp):
+    """Neurons on brick edges and the border, K not a multiple of 32 (20,
+    45, 100), mild and strongly quadratic warps; two launches give
+    bit-equal outputs."""
     size, k = SHAPES[shape]
-    betas, pos, sigma, c, y = _inputs(size, k, dev, aniso=aniso)
-    pos_t = _tracked(pos, betas.shape[0])
+    betas, pos_t, sigma, c, y = _refine_inputs(size, k, dev, scaling, aniso,
+                                               warp)
     d = [t.double() for t in (betas, pos_t, sigma, c, y)]
     fused.reset_launch_counts()
     for want in (False, True):
         got = fused.refine_block(betas, pos_t, sigma, c, y, size, scaling,
                                  want_dsigma=want)
+        again = fused.refine_block(betas, pos_t, sigma, c, y, size, scaling,
+                                   want_dsigma=want)
         ref = fused.refine_block_plain(*d, size, scaling, want_dsigma=want)
         torch.cuda.synchronize()
         assert len(got) == len(ref) == 2 + want
-        for g, r in zip(got, ref):
+        for g, a, r in zip(got, again, ref):
             assert g.shape == r.shape
             assert rel_err(g, r) <= 1e-4
-    assert fused.launch_counts()["refine_block"] == 2
+            assert torch.equal(g, a)
+    assert fused.launch_counts()["refine_block"] == 4
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES) + ["deep_z"])
+@pytest.mark.parametrize("warp", ["mild", "quadratic"])
+def test_refine_brick_counts_match_the_plain_rule(dev, shape, warp):
+    """The kernel's candidate count per brick, returned by the launch,
+    equals ``brick_candidates_plain``'s on the same inputs."""
+    size, k = SHAPES.get(shape, ((24, 17, 40), 33))
+    betas, pos_t, sigma, c, y = _refine_inputs(size, k, dev, "normalized",
+                                               True, warp)
+    *_, counts = fused.refine_block(betas, pos_t, sigma, c, y, size,
+                                    brick_counts=True)
+    mask = fused.brick_candidates_plain(betas, pos_t, sigma, size)
+    torch.cuda.synchronize()
+    assert counts.dtype == torch.int32
+    assert torch.equal(counts, mask.sum(-1).to(torch.int32))
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
@@ -170,6 +211,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 PC_SHAPES = {  # name: ((m, n, z), patches)
     "box": ((16, 16, 4), 3),
     "odd": ((20, 24, 6), 2),
+    "radix": ((33, 35, 7), 2),  # factors 3, 11, 5, 7; odd z
+    "prime": ((67, 13, 5), 2),  # a prime above 13 (generic butterfly)
+    "flat": ((30, 22, 1), 3),  # z = 1
+    "odd_all": ((15, 21, 9), 2),  # odd m, n and z
+    "long": ((264, 40, 2), 1),  # the pipeline's 264 = 8 * 11 * 3
 }
 
 
@@ -199,6 +245,8 @@ def _pc_bounds(dev, b, lb, ub):
 @pytest.mark.parametrize("shape", sorted(PC_SHAPES))
 @pytest.mark.parametrize("window", ["wide", "narrow", "empty"])
 def test_phase_corr_kernel_matches_float64(dev, shape, window):
+    """Exact integer shifts and product spectra within 1e-4 of float64 at
+    lengths of every radix, a prime above 13, odd axes and z = 1."""
     size, np_ = PC_SHAPES[shape]
     tmpl, pats, _ = _pc_inputs(dev, size, np_)
     lb, ub = {"wide": ([-3, -3, -2], [4, 4, 3]),
@@ -218,12 +266,15 @@ def test_phase_corr_kernel_matches_float64(dev, shape, window):
     capped = phasecorr.phase_corr_block(
         zm_n.float(), tre.float(), tim.float(), bounds, z=size[2],
         max_window=tuple(max(1, u - lo) for lo, u in zip(lb, ub)))
+    again = phasecorr.phase_corr_block(zm_n.float(), tre.float(),
+                                       tim.float(), bounds, z=size[2])
     torch.cuda.synchronize()
-    assert fused.launch_counts()["phase_corr_block"] == 2
+    assert fused.launch_counts()["phase_corr_block"] == 3
     assert torch.equal(got[0].double(), oracle[0])
     assert torch.equal(got[0], plain[0])
-    for g, c in zip(got, capped):
+    for g, c, a in zip(got, capped, again):
         assert torch.equal(g, c)
+        assert torch.equal(g, a)  # two launches: bit-equal
     if window == "empty":
         assert not got[0].any()
     for g, o in zip(got[1:], oracle[1:]):

@@ -167,21 +167,19 @@ def test_tracked_c1_and_gram_plain_match_pallas(rng, case, aniso, crossing):
 @pytest.mark.parametrize("crossing", [False, True])
 def test_sorted_params_tracked_match_jax(rng, aniso, crossing):
     """Per-frame neuron tables: the mean-m order, each frame's centers,
-    per-axis scales, trace column and all-frame block intervals."""
-    betas, pos_t, sigma, c, _ = _inputs(rng, CASES["box"], aniso, b=4)
+    per-axis scales and all-frame block intervals."""
+    betas, pos_t, sigma, _, _ = _inputs(rng, CASES["box"], aniso, b=4)
     if crossing:
         pos_t = _crossing(pos_t)
     perm_r, params_r, blocks_r = pc._sorted_params_tracked(
-        *_j(pos_t, sigma), 8, 3, c_block=jnp.asarray(c))
-    perm, params, blocks = fused.sorted_params_tracked(
-        *_t(pos_t, sigma), kb=8, c_block=torch.from_numpy(c))
+        *_j(pos_t, sigma), 8, 3)
+    perm, params, blocks = fused.sorted_params_tracked(*_t(pos_t, sigma),
+                                                       kb=8)
     np.testing.assert_array_equal(perm.numpy(), np.asarray(perm_r))
     params_r = np.asarray(params_r)
     np.testing.assert_array_equal(params[..., :3].numpy(), params_r[..., :3])
     np.testing.assert_allclose(params[..., 3:6].numpy(),
                                params_r[..., [3, 5, 6]], rtol=1e-6)
-    np.testing.assert_array_equal(params[:, :K, 6].numpy(),
-                                  params_r[:, :K, 4])
     np.testing.assert_allclose(blocks.numpy(), np.asarray(blocks_r),
                                rtol=1e-6)
     # The shared-anchor table is the one-frame case.
