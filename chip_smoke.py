@@ -1,12 +1,14 @@
 """Drive the PyTorch + CUDA port's main path once on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --profile   # only the F and D breakdowns
+    python3 chip_smoke.py --profile   # only the kernel breakdowns
 
 ``--profile`` prints the ``torch.profiler`` device time, launch by
 launch, of the phase-correlation kernel F at the pipeline's patch grid
-and of the refine kernel D at the whole-brain shape (2 and 16 frames,
-with and without dsigma), and stops.
+and of the motion kernel A, the c1 kernel B (shared anchors and
+per-frame positions) and the refine kernel D (with and without dsigma)
+at the whole-brain shape with 2 and 16 frames, each beside its time per
+call and the host's share of it, and stops.
 
 Phases, each of which exits non-zero on failure:
 
@@ -21,8 +23,11 @@ Phases, each of which exits non-zero on failure:
    in float64 (the oracle, one frame at a time) at the ROI shape
    (256x256x10, K=50, 8 frames) and the whole-brain shape (512x512x20,
    K=200, 2 frames), with times (median of 5 after a warm-up); the
-   refine kernel also reports the (frame, voxel, neuron) triples its
-   brick culling evaluates beside the active ones the bound counts;
+   brick kernels (motion, c1 at shared anchors and per-frame positions,
+   refine) also report the (frame, voxel, neuron) triples their brick
+   culling evaluates (each kernel's own count per brick) beside the
+   active ones the bounds count, and their neuron table (csrc/table.cu)
+   is held against its plain version;
 5. main path: ``DeformableNMF.fit`` on a seeded synthetic ground-truth
    video at the ROI shapes with T=256 (2 rounds, gram_mode="auto", so the
    closed-form Grams, the c1 pass and the exact-Gram audit all run; then
@@ -48,7 +53,7 @@ Phases, each of which exits non-zero on failure:
    F's integer shifts equal the float64 oracle's in every (frame, patch)
    and its product spectra and G's output lie within ``KERNEL_TOL`` of
    float64; F is timed beside one cuFFT call for the same correlation,
-   and the redesigned kernels (F, D) beside their earlier times;
+   and the redesigned kernels (F, D, A, B) beside their earlier times;
 9. registration path at full width: ``MotionCorrect(video,
    cfg).motion_correct()`` on a seeded 512x512x20, T=64 recording (200
    Gaussian neurons on a textured background, each frame warped by a
@@ -179,13 +184,19 @@ AGREE_MOVIE = 1e-3  # kernel run's corrected movie vs G's plain version
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 REACH = 36.0  # |psi - p|^2 / sigma^2 past which exp() is below float32
-# Times of the kernels this slice redesigned, before it (PERF.md, PR 4's
-# run; NVIDIA H100 80GB HBM3, 700.00 W), ms: printed beside the new ones.
+# Times of the redesigned kernels before their redesign (PERF.md section
+# 6; NVIDIA H100 80GB HBM3, 700.00 W), ms: printed beside the new ones.
 EARLIER_MS = {("refine_block", "roi"): 1.3885,
               ("refine_block", "whole_brain"): 5.9111,
               ("phase_corr_block", "roi"): 5.7497,
               ("phase_corr_block", "whole_brain"): 31.2069,
-              ("phase_corr_block", "pipeline"): 32.8219}
+              ("phase_corr_block", "pipeline"): 32.8219,
+              ("motion_block", "roi"): 1.3252,
+              ("motion_block", "whole_brain"): 1.7000,
+              ("c1_block", "roi"): 0.9059,
+              ("c1_block", "whole_brain"): 1.9410,
+              ("c1_block_tracked", "roi"): 0.9004,
+              ("c1_block_tracked", "whole_brain"): 1.9809}
 # The whole-brain pipeline, streamed from a raw file on disk.
 PIPE_T = 64  # frames
 PIPE_BLOCK = 16  # frames per streamed block
@@ -371,7 +382,44 @@ def kernel_phase(dev, name, size, k, frames, margin):
                                           size=size),
                         labels, args, framed,
                         footprint_flops(kname, frames, p, n1, n2))
-    return check_kernels(name, frames, cases)
+    out = check_kernels(name, frames, cases)
+    check_table(name, pos[None], sigma)
+    # A and B cull by spatial bricks: the (frame, voxel, neuron) triples
+    # each evaluates (the kernel's own count per brick), against the active
+    # ones (n1) that the bounds count.
+    for kname, counts in (
+            ("motion_block", fused.motion_block(betas, pos, sigma, c, y, size,
+                                                brick_counts=True)[2]),
+            ("c1_block", fused.c1_block(betas, pos, sigma, y, size,
+                                        brick_counts=True)[1])):
+        say_candidates(kname, name, counts, size, n1)
+    return out
+
+
+def check_table(name, pos_t, sigma):
+    """``build_table`` (csrc/table.cu), which the motion, c1 and refine
+    wrappers launch before their kernels, against its plain version: the
+    same order and largest reach, rows within 1e-6 relative."""
+    table, order, rmax = fused.neuron_table(pos_t, sigma)
+    t_ref, o_ref, r_ref = fused.neuron_table_plain(pos_t.cpu(), sigma.cpu())
+    ok = (torch.equal(order.cpu(), o_ref) and torch.equal(rmax.cpu(), r_ref)
+          and torch.allclose(table.cpu(), t_ref, rtol=1e-6, atol=0.0))
+    say(f"table {name} {tuple(pos_t.shape)} sigma {tuple(sigma.shape)}: "
+        f"order and reach equal the plain table, rows within 1e-6: {ok}")
+    if not ok:
+        fail(f"neuron table {name}: differs from neuron_table_plain")
+
+
+def say_candidates(kname, name, counts, size, n1):
+    """Print the (frame, voxel, neuron) triples that a brick kernel's
+    counts per brick ``[B, n_bricks]`` stand for, beside the active ones."""
+    ids, nb = fused.brick_ids(size, counts.device)
+    vox = torch.bincount(ids, minlength=nb).double()
+    pairs = float((counts.double() * vox).sum())
+    say(f"kernel {kname} {name}: candidate pairs {pairs:.4e} (mean "
+        f"{float(counts.double().mean()):.3f} neurons per brick of "
+        f"{fused.refine_bricks(size)}), active pairs n1 {n1:.4e} (ratio "
+        f"{pairs / max(n1, 1.0):.3f})")
 
 
 def tracked_kernel_phase(dev, name, size, k, frames, margin):
@@ -403,18 +451,13 @@ def tracked_kernel_phase(dev, name, size, k, frames, margin):
             functools.partial(fused.refine_block_plain, size=size,
                               want_dsigma=want),
             labels, (betas, pos_t, sig, c, y), refine_args, flops)
-    # D culls by spatial bricks: the (frame, voxel, neuron) triples it
-    # evaluates, against the active ones (n1) that the bound counts.
-    *_, counts = fused.refine_block(betas, pos_t, sigma, c, y, size,
-                                    brick_counts=True)
-    ids, nb = fused.brick_ids(size, dev)
-    vox = torch.bincount(ids, minlength=nb).double()
-    pairs = float((counts.double() * vox).sum())
-    say(f"kernel refine_block {name}: candidate pairs {pairs:.4e} (mean "
-        f"{float(counts.double().mean()):.3f} neurons per brick of "
-        f"{fused.refine_bricks(size)}), active pairs n1 {n1:.4e} (ratio "
-        f"{pairs / max(n1, 1.0):.3f})")
-    del counts, ids, vox
+    check_table(name, pos_t, sigma)
+    check_table(name, pos_t, sigma3)
+    # D and the tracked c1 cull by spatial bricks: their own counts.
+    say_candidates("refine_block", name, fused.refine_block(
+        betas, pos_t, sigma, c, y, size, brick_counts=True)[2], size, n1)
+    say_candidates("c1_block_tracked", name, fused.c1_block_tracked(
+        betas, pos_t, sigma, y, size, brick_counts=True)[1], size, n1)
     cases["c1_block_tracked"] = (
         functools.partial(fused.c1_block_tracked, size=size),
         functools.partial(fused.c1_block_plain, size=size),
@@ -774,11 +817,17 @@ def registration_inputs(dev, size, strides, overlaps, max_shifts, max_dev):
 
 def device_breakdown(label, run, reps=5):
     """Print the device time of ``run()`` by kernel name under
-    ``torch.profiler`` (launches and ms per call), and its time per call
-    by CUDA events."""
+    ``torch.profiler`` (launches and ms per call), its time per call by
+    CUDA events, and the host time per call (the call's return, nothing
+    synchronized: the wrapper's own work and its launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = time_ms(run, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             run()
@@ -792,7 +841,8 @@ def device_breakdown(label, run, reps=5):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     say(f"profile {label}: {ms:.4f} ms per call (CUDA events), device "
-        f"{busy:.4f} ms in {sum(r[1] for r in rows):g} launches per call")
+        f"{busy:.4f} ms in {sum(r[1] for r in rows):g} launches per call, "
+        f"host {host_ms:.4f} ms per call")
     for t, n, key in rows:
         if t >= 0.005 * busy:
             say(f"profile {label}:   {t:.4f} ms ({100 * t / busy:.1f}%) in "
@@ -809,9 +859,11 @@ def device_breakdown(label, run, reps=5):
 
 
 def profile_kernels(dev):
-    """Device breakdowns of kernels F (at the pipeline's patch grid) and D
-    (at the whole-brain shape with 2 and 16 frames, with and without
-    dsigma): ``python3 chip_smoke.py --profile``."""
+    """Device breakdowns of kernel F (at the pipeline's patch grid) and of
+    kernels A (motion), B (c1 at shared anchors and at per-frame
+    positions) and D (refine, with and without dsigma) at the whole-brain
+    shape with 2 and 16 frames (16: the pipeline's frame block):
+    ``python3 chip_smoke.py --profile``."""
     inp = registration_inputs(dev, *REG_SHAPES["pipeline"])
     z = inp["window"][2]
     cap = max(1, int(2 * REG_SHAPES["pipeline"][4]))
@@ -829,9 +881,16 @@ def profile_kernels(dev):
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         pos_t = pos[None] + torch.randn((frames, k, 3), generator=gen,
                                         device=dev)
+        wb = f"whole-brain {frames} frames"
+        device_breakdown(f"A {wb}", lambda: fused.motion_block(
+            betas, pos, sigma, c, y, size))
+        device_breakdown(f"B1 {wb}", lambda: fused.c1_block(
+            betas, pos, sigma, y, size))
+        device_breakdown(f"B-tracked {wb}", lambda: fused.c1_block_tracked(
+            betas, pos_t, sigma, y, size))
         for want in (False, True):
             device_breakdown(
-                f"D whole-brain {frames} frames dsigma={want}",
+                f"D {wb} dsigma={want}",
                 lambda: fused.refine_block(betas, pos_t, sigma, c, y, size,
                                            want_dsigma=want))
 

@@ -1,89 +1,191 @@
 // c1 video pass: c1[b][k] = sum_p w(psi_b(p)) A_k(psi_b(p)) y_b(p).
 //
-// Replaces the Pallas kernel dnmf_tpu/ops/pallas_culled.py c1_block_culled
-// (_c1_kernel_culled and its DMA-ring twin _c1_kernel_pipe), the video
-// pass of the closed-form-Gram default at every K, with shared anchors
-// pos [K,3] (prm_stride 0) or per-frame positions pos [B,K,3] (the
-// refinement phase; prm_stride K_pad * NPARAM).
+// Replaces the Pallas kernel dnmf_tpu/ops/pallas_culled.py:648
+// c1_block_culled (bodies _c1_kernel_culled :548 and its DMA-ring twin
+// _c1_kernel_pipe :611, calls at :723 and :764), the video pass of the
+// closed-form-Gram default at every K, with shared anchors pos [K,3] (one
+// neuron table) or per-frame positions pos [B,K,3] (the refinement phase;
+// one table per frame, sorted by that frame's own m).
 //
-// Bound: one exp2 plus ~8 FMAs per pixel per neuron of every block that
-// the pixel's warp does not cull; the video is read once per neuron block
-// (4 bytes per pixel, far below the card's bandwidth at these exp rates).
-// Design: grid (pixel chunk, neuron block, frame).  A chunk is every
-// n_chunks-th tile of THREADS pixels; each thread walks its chunk one pixel
-// per step and keeps the block's KB sums in registers, so
-// nothing leaves the SM until the chunk ends; a warp skips a neuron block
-// whose m-interval misses its 32 pixels.  Chunk partials [B][nkb][chunks][KB]
-// are summed in a fixed order by sum_chunks (deterministic, float32
-// accumulation throughout).
-#include "footprint.cuh"
+// What bounds it on this card: operations.  Per pixel and frame the warp
+// (basis, 30 FMAs) and the fade; per neuron within reach (6 sigma: a few
+// per pixel) a Gaussian and one FMA; the video is read once (4 bytes per
+// pixel: well under the card's memory rate at these operation counts).
+// The earlier design culled by m alone (32-neuron blocks sorted by m,
+// tested per warp of 32 pixels that span every z), so each pixel
+// evaluated the 32 Gaussians of every block whose m band it met, and its
+// grid (chunk, neuron block, frame) read the video and evaluated each
+// pixel's warp once per neuron block.  The design here (cull.cuh, as
+// refine.cu):
+//  * table.cu sorts the neurons by m on the card (once for shared anchors,
+//    once per frame for per-frame positions); the table stays in global
+//    memory, where it is L1- and L2-resident;
+//  * one launch, grid (brick group, frame).  A thread block walks its
+//    group's bricks (8 m x 8 n x up to 32 z), keeping each pixel's warp,
+//    fade and video value in registers: one warp evaluation and one video
+//    read per pixel (basis coordinates from a per-brick table, pixel slots
+//    from a per-block one: no division per pixel);
+//  * the brick's exact psi box against each neuron's per-axis 6 sigma box
+//    lists the candidates, in table order, into shared rows, CAND at a
+//    time, so any K runs;
+//  * per chunk of CH candidates, per-thread sums over the thread's pixels,
+//    block-reduced in a fixed order and added by one thread each to the
+//    group's own dense [K] row of partials in global memory (zeroed first;
+//    the barriers order the additions);
+//  * c1_finish adds the groups' rows in a fixed order and writes each
+//    neuron's c1 at its place in the caller's order.  No float atomics:
+//    results repeat exactly, and the group count depends only on the
+//    volume and K, so a frame's result does not depend on the other frames
+//    of the call.
+#include "cull.cuh"
 
 namespace dnmf {
 
-__global__ void __launch_bounds__(THREADS)
-c1_kernel(const float* __restrict__ betas, const float* __restrict__ params,
-          const float* __restrict__ blocks, const float* __restrict__ y,
-          float* __restrict__ partial, Geom g, int nkb, int prm_stride) {
-  const int chunk = blockIdx.x, n_chunks = gridDim.x;
-  const int blk = blockIdx.y, b = blockIdx.z;
+constexpr int CH = 8;              // candidates per reduction chunk
+constexpr int CAND = 2 * THREADS;  // candidate rows listed at a time
+
+// A candidate's shared row, two float4s: p (3), log2e / s^2 (3), 0, 0.
+// rmax: the largest m reach of the tables; counts (or null): [B][n_bricks]
+// candidates per brick.
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 4)
+c1_bricks(const float* __restrict__ betas, const float* __restrict__ table,
+          int tab_stride, const float* __restrict__ rmax,
+          const float* __restrict__ y,
+          float* __restrict__ partial, int* __restrict__ counts, Geom g,
+          Bricks bk, int n_bricks, int bricks_per_group, int k) {
+  const int grp = blockIdx.x, n_groups = gridDim.x, b = blockIdx.y;
+  __shared__ float4 s_rows[CAND * 2];
+  __shared__ int s_cand[CAND];
   __shared__ float s_beta[30];
-  __shared__ float s_prm[KB * NPARAM];
-  __shared__ float s_red[NWARPS * KB];
+  __shared__ float s_red[NWARPS * CH];
+  __shared__ float s_box[6];
+  __shared__ int s_off[NP * THREADS];
+  __shared__ float s_coord[2][COORDS];
+  __shared__ int s_warp_n[NWARPS];
+  __shared__ int s_range[2];
   const int tid = threadIdx.x;
   if (tid < 30) s_beta[tid] = betas[b * 30 + tid];
-  const float* prm = params + (size_t)b * prm_stride + (size_t)blk * KB * NPARAM;
-  for (int i = tid; i < KB * NPARAM; i += THREADS) s_prm[i] = prm[i];
-  __syncthreads();
-
-  const float lo = blocks[2 * blk], hi = blocks[2 * blk + 1];
+  brick_slots<NP>(bk, s_off);
+  float* out = partial + ((size_t)b * n_groups + grp) * k;
+  for (int i = tid; i < k; i += THREADS) out[i] = 0.0f;
+  const float* tab = table + (size_t)b * tab_stride;
+  const float rm = *rmax;
   const float* yb = y + (size_t)b * g.P;
-  float acc[KB];
-#pragma unroll
-  for (int k = 0; k < KB; ++k) acc[k] = 0.0f;
 
-  // Tiles are dealt to the chunks round-robin, so every chunk of a
-  // neuron block meets that block's active region alike.
-  const int n_tiles = (g.P + THREADS - 1) / THREADS;
-  for (int tile = chunk; tile < n_tiles; tile += n_chunks) {
-    const int p = tile * THREADS + tid;
-    float psi[3] = {0.0f, 0.0f, 0.0f};
-    float wy = 0.0f, mlo = CUDART_INF_F, mhi = -CUDART_INF_F;
-    if (p < g.P) {
-      float phi[10];
-      basis(p, g, phi);
-      warp_psi(s_beta, phi, g, psi);
-      wy = fade(psi, g) * yb[p];
-      mlo = mhi = psi[0];
-    }
-    mlo = warp_min(mlo);
-    mhi = warp_max(mhi);
-    if (lo <= mhi && hi >= mlo) {
+  const int first = grp * bricks_per_group;
+  const int last = min(first + bricks_per_group, n_bricks);
+  for (int id = first; id < last; ++id) {
+    const Brick br = brick_at(id, bk, g);
+    float* coord = s_coord[(id - first) & 1];
+    const int npix = br.count();
+    float psi[NP][3], yv[NP], w[NP];
+    brick_pixels<true, NP>(br, bk, g, s_off, coord, s_beta, yb, psi, yv, s_red);
 #pragma unroll
-      for (int k = 0; k < KB; ++k)
-        acc[k] = fmaf(gauss(&s_prm[k * NPARAM], psi), wy, acc[k]);
-    }
+    for (int i = 0; i < NP; ++i) w[i] = fade(psi[i], g);
+    const int nc = list_candidates(
+        tab, tab, TROW, k, rm, CAND, s_red, s_box, s_cand, s_warp_n, s_range,
+        [&](int slot, int, const float* row) {
+          s_rows[slot * 2] = make_float4(row[0], row[1], row[2], row[3]);
+          s_rows[slot * 2 + 1] = make_float4(row[4], row[5], 0.0f, 0.0f);
+        },
+        [&](int n, bool, bool) {
+          for (int c0 = 0; c0 < n; c0 += CH) {
+            float acc[CH];
+#pragma unroll
+            for (int j = 0; j < CH; ++j) acc[j] = 0.0f;
+#pragma unroll
+            for (int cc = 0; cc < CH; ++cc) {
+              if (c0 + cc >= n) break;
+              const float4 r0 = s_rows[(c0 + cc) * 2];
+              const float4 r1 = s_rows[(c0 + cc) * 2 + 1];
+#pragma unroll
+              for (int i = 0; i < NP; ++i) {
+                if (tid + i * THREADS >= npix) continue;
+                // gauss() of footprint.cuh, from the float4 row.
+                const float d0 = r0.x - psi[i][0], d1 = r0.y - psi[i][1];
+                const float d2 = r0.z - psi[i][2];
+                float e = d0 * d0 * r0.w;
+                e += d1 * d1 * r1.x;
+                e += d2 * d2 * r1.y;
+                acc[cc] = fmaf(exp2f(-e), w[i] * yv[i], acc[cc]);
+              }
+            }
+            // block_sum<CH>, its result added to the group's row.
+            const int lane = tid & 31, wid = tid >> 5;
+#pragma unroll
+            for (int j = 0; j < CH; ++j) {
+              const float v = warp_sum(acc[j]);
+              if (lane == 0) s_red[wid * CH + j] = v;
+            }
+            __syncthreads();
+            if (tid < CH && c0 + tid < n) {
+              float t = 0.0f;
+              for (int wi = 0; wi < NWARPS; ++wi) t += s_red[wi * CH + tid];
+              out[s_cand[c0 + tid]] += t;
+            }
+            __syncthreads();
+          }
+        });
+    if (counts != nullptr && tid == 0) counts[(size_t)b * n_bricks + id] = nc;
   }
-  block_sum<KB>(acc, s_red,
-                partial + (((size_t)b * nkb + blk) * n_chunks + chunk) * KB);
+}
+
+// c1 of 32 table rows (blockIdx.x) of frame b (blockIdx.y), a block of 32
+// x 32 threads: warp w sums groups w, w + 32, ... of each row, then the
+// warps' sums are added in order; written at the row's neuron index,
+// order[b * order_stride + row].
+__global__ void __launch_bounds__(1024)
+c1_finish(const float* __restrict__ partial,
+          const long long* __restrict__ order,
+          int order_stride, float* __restrict__ c1, int n_groups, int k) {
+  __shared__ float s_part[32][33];
+  const int b = blockIdx.y, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  float s = 0.0f;
+  if (i < k)
+    for (int gi = w; gi < n_groups; gi += 32)
+      s += partial[((size_t)b * n_groups + gi) * k + i];
+  s_part[w][lane] = s;
+  __syncthreads();
+  if (w != 0 || i >= k) return;
+  float t = 0.0f;
+  for (int r = 0; r < 32; ++r) t += s_part[r][lane];
+  c1[(size_t)b * k + order[(size_t)b * order_stride + i]] = t;
 }
 
 }  // namespace dnmf
 
-// c1_out [B][nkb * KB] in sorted neuron order; partial is scratch of
-// B * nkb * n_chunks * KB floats; params [k_pad][8], or [B][k_pad][8]
-// with prm_stride = k_pad * 8.
-extern "C" int dnmf_c1(const float* betas, const float* params,
-                       const float* blocks, const float* y, float* partial,
-                       float* c1_out, int B, int M, int N, int Z,
-                       int normalized, int nkb, int n_chunks, int prm_stride,
-                       void* stream) {
+// betas [B][10][3]; table [k][TROW] and order [k] (tracked 0) or one per
+// frame, [B][k][TROW] and [B][k] (tracked 1; table.cu, order int64), and
+// rmax (1 float) their largest m reach; y
+// [B][P]; c1 [B][k] in the caller's neuron order.  Bricks of bm x bn x bz
+// voxels, bricks_per_group per thread block; partial: [B][n_groups][k]
+// floats of scratch; counts (or null): [B][n_bricks] candidates per brick.
+extern "C" int dnmf_c1(const float* betas, const float* table,
+                       const long long* order, const float* rmax,
+                       const float* y,
+                       float* partial,
+                       float* c1, int* counts, int B, int M, int N, int Z,
+                       int normalized, int k, int tracked, int bm, int bn,
+                       int bz, int bricks_per_group, void* stream) {
   using namespace dnmf;
   const Geom g = make_geom(M, N, Z, normalized);
+  const Bricks bk = make_bricks(g, bm, bn, bz);
+  if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS)
+    return (int)cudaErrorInvalidValue;
+  const int n_bricks = bk.nbm * bk.nbn * bk.nbz;
+  const int n_groups = (n_bricks + bricks_per_group - 1) / bricks_per_group;
   cudaStream_t s = (cudaStream_t)stream;
-  c1_kernel<<<dim3(n_chunks, nkb, B), THREADS, 0, s>>>(
-      betas, params, blocks, y, partial, g, nkb, prm_stride);
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e = with_slots(bm * bn * bz, [&](auto np) {
+    constexpr int NP = decltype(np)::value;
+    c1_bricks<NP><<<dim3(n_groups, B), THREADS, 0, s>>>(
+        betas, table, tracked ? k * TROW : 0, rmax, y, partial, counts, g,
+        bk, n_bricks, bricks_per_group, k);
+    return cudaGetLastError();
+  });
   if (e != cudaSuccess) return (int)e;
-  sum_chunks<<<B * nkb, KB, 0, s>>>(partial, c1_out, n_chunks, KB);
+  c1_finish<<<dim3((k + 31) / 32, B), 1024, 0, s>>>(
+      partial, order, tracked ? k : 0, c1, n_groups, k);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Spatial-brick culling of warped Gaussian footprints (refine.cu; meant
-// for the other footprint kernels too).
+// Spatial-brick culling of warped Gaussian footprints, shared by the
+// motion (motion.cu), c1 (c1.cu) and refine (refine.cu) kernels.
 //
 // A thread block owns a brick of pixels: bm x bn x bz voxels of the
 // (m, n, z) grid, pixel index p = (m * N + n) * Z + z as in footprint.cuh.
@@ -8,15 +8,25 @@
 // neurons whose per-axis reach box [p_d - r_d, p_d + r_d] (r_d = 6 sigma_d)
 // meets that range on all three axes.  Any other neuron's footprint is
 // below exp(-36) at every pixel of the brick: under float32 resolution.
-// The neuron table is sorted by the frame's own m coordinate, so the m
-// test is a binary search (window widened by the largest m reach) and
-// only that window is tested on all three axes.  The list keeps table
-// order, so everything summed over it repeats exactly.
+// The neuron table is sorted by m (each frame's own m for per-frame
+// positions; table.cu builds it on the card), so the m test is a search
+// of the sorted column (window widened by the largest m reach) and only
+// that window is tested on all three axes.  The list keeps table order,
+// so everything summed over it repeats exactly.  The table stays in
+// global memory (L1/L2-resident: 64 bytes per neuron), and a kernel gets
+// the listed rows in chunks of at most its shared-memory capacity, so the
+// motion and c1 kernels take any K.
 #pragma once
+
+#include <type_traits>
 
 #include "footprint.cuh"
 
 namespace dnmf {
+
+constexpr int TROW = 16;  // neuron table row: p (3), log2e / sigma^2 (3), 0,
+                          // 0, reach 6 sigma (3), 0, 1 / sigma^2 (3), 0
+constexpr float LOG2E_F = 1.44269504088896341f;
 
 // Brick layout: bricks numbered ((im * nbn) + in) * nbz + iz.
 struct Bricks {
@@ -26,18 +36,32 @@ struct Bricks {
 
 constexpr int PPT = 8;  // pixels per thread of a brick, at most
 
+// Calls launch(std::integral_constant<int, NP>()) with the fewest pixel
+// slots per thread NP, of 3, 5 and PPT, that hold a brick of n pixels:
+// registers go to the slots a volume's bricks use (3 for the ROI's 8 x 8 x
+// 10 bricks, 5 for the whole brain's 8 x 8 x 20).
+template <class F>
+cudaError_t with_slots(int n, F launch) {
+  const int need = (n + THREADS - 1) / THREADS;
+  if (need <= 3) return launch(std::integral_constant<int, 3>());
+  if (need <= 5) return launch(std::integral_constant<int, 5>());
+  return launch(std::integral_constant<int, PPT>());
+}
+
 // The brick's pixel origin and (edge-clipped) extent.
 struct Brick {
   int m0, n0, z0, wm, wn, wz;
   __device__ int count() const { return wm * wn * wz; }
-  // Voxel (mi, ni, zi) of the brick's l-th pixel (z fastest).
-  __device__ void voxel(int l, int& mi, int& ni, int& zi) const {
-    const int rest = l / wz;
-    zi = z0 + l % wz;
-    ni = n0 + rest % wn;
-    mi = m0 + rest / wn;
-  }
 };
+
+inline Bricks make_bricks(const Geom& g, int bm, int bn, int bz) {
+  Bricks bk;
+  bk.bm = bm; bk.bn = bn; bk.bz = bz;
+  bk.nbm = (g.M + bm - 1) / bm;
+  bk.nbn = (g.N + bn - 1) / bn;
+  bk.nbz = (g.Z + bz - 1) / bz;
+  return bk;
+}
 
 __device__ __forceinline__ Brick brick_at(int id, const Bricks& bk,
                                           const Geom& g) {
@@ -53,10 +77,11 @@ __device__ __forceinline__ Brick brick_at(int id, const Bricks& bk,
   return b;
 }
 
-// Block-wide min (box[d]) and max (box[3 + d]) of per-thread psi ranges.
-// red: shared scratch of NWARPS * 6 floats; box: shared, 6 floats.
-__device__ __forceinline__ void block_box(const float lo[3], const float hi[3],
-                                          float* red, float* box) {
+// Per-warp min (red[w * 6 + d]) and max (red[w * 6 + 3 + d]) of the
+// threads' psi ranges, then a barrier; list_candidates finishes the box.
+// red: shared scratch of NWARPS * 6 floats.
+__device__ __forceinline__ void box_partials(const float lo[3],
+                                             const float hi[3], float* red) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -67,40 +92,37 @@ __device__ __forceinline__ void block_box(const float lo[3], const float hi[3],
     }
   }
   __syncthreads();
-  if (threadIdx.x < 6) {
-    const bool is_min = threadIdx.x < 3;
-    float v = red[threadIdx.x];
-    for (int w = 1; w < NWARPS; ++w) {
-      const float u = red[w * 6 + threadIdx.x];
-      v = is_min ? fminf(v, u) : fmaxf(v, u);
-    }
-    box[threadIdx.x] = v;
-  }
-  __syncthreads();
 }
 
-// First index i in [0, k) with table[i * stride] >= v (k if none).
-__device__ __forceinline__ int lower_bound(const float* table, int stride,
-                                           int k, float v) {
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (table[(size_t)mid * stride] < v) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
+// Entry j of the brick's psi box from the warps' partials: the min over
+// warps for j < 3, the max for j >= 3.
+__device__ __forceinline__ float box_entry(const float* red, int j) {
+  float v = red[j];
+  for (int w = 1; w < NWARPS; ++w)
+    v = j < 3 ? fminf(v, red[w * 6 + j]) : fmaxf(v, red[w * 6 + j]);
+  return v;
 }
 
-// First index i in [0, k) with table[i * stride] > v (k if none).
-__device__ __forceinline__ int upper_bound(const float* table, int stride,
-                                           int k, float v) {
-  int lo = 0, hi = k;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (table[(size_t)mid * stride] <= v) lo = mid + 1;
-    else hi = mid;
+// First index i in [0, k) with table[i * stride] >= v (strict: > v), k if
+// none, by a whole warp: 32 probes per round narrow the range 32-fold.
+template <bool STRICT>
+__device__ __forceinline__ int warp_bound(const float* table, int stride,
+                                          int k, float v) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = k;  // the answer lies in [lo, hi]
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int idx = lo + lane * step;
+    const float t = idx < hi ? table[(size_t)idx * stride] : 0.0f;
+    const bool before = idx < hi && (STRICT ? t <= v : t < v);
+    const int n = __popc(__ballot_sync(FULL, before));
+    hi = min(hi, lo + n * step);
+    lo = n == 0 ? lo : lo + (n - 1) * step + 1;
   }
-  return lo;
+  const int idx = lo + lane;
+  const float t = idx < hi ? table[(size_t)idx * stride] : 0.0f;
+  const bool before = idx < hi && (STRICT ? t <= v : t < v);
+  return lo + __popc(__ballot_sync(FULL, before));
 }
 
 // Does the reach box of a neuron at p with per-axis reach r meet the
@@ -134,6 +156,168 @@ __device__ __forceinline__ int block_compact(bool keep, int base, int* warp_n,
   *total = all;
   if (!keep) return -1;
   return base + before + __popc(mask & ((1u << lane) - 1u));
+}
+
+constexpr int COORDS = 64;  // brick coordinate table: bm + bn + bz values
+
+// Each thread's NP pixel slots in a full brick (pixel l = threadIdx.x +
+// i * THREADS, z fastest): s_off[l] = (dm << 16) | (dn << 8) | dz, -1
+// past the brick.  A thread writes and reads only its own slots: no
+// barrier.
+template <int NP = PPT>
+__device__ __forceinline__ void brick_slots(const Bricks& bk, int* s_off) {
+  const int n = bk.bm * bk.bn * bk.bz;
+  for (int l = threadIdx.x; l < NP * THREADS; l += THREADS) {
+    const int rest = l / bk.bz;
+    s_off[l] = l < n ? ((rest / bk.bn) << 16) | ((rest % bk.bn) << 8) |
+                           (l % bk.bz)
+                     : -1;
+  }
+}
+
+// The brick-local voxel (dm, dn, dz) of this thread's slot i; false past
+// the brick.  A full brick reads the slot table; a brick clipped at the
+// volume's far faces numbers its own pixels, z fastest.
+__device__ __forceinline__ bool slot_voxel(const Brick& br, bool full,
+                                           const int* s_off, int i, int& dm,
+                                           int& dn, int& dz) {
+  const int l = threadIdx.x + i * THREADS;
+  if (full) {
+    const int code = s_off[l];
+    dm = code >> 16;
+    dn = (code >> 8) & 0xff;
+    dz = code & 0xff;
+    return code >= 0;
+  }
+  const int rest = l / br.wz;
+  dz = l % br.wz;
+  dn = rest % br.wn;
+  dm = rest / br.wn;
+  return l < br.count();
+}
+
+// The basis at a brick-local voxel from the brick's coordinate table.
+__device__ __forceinline__ void slot_basis(const float* coord,
+                                           const Bricks& bk, int dm, int dn,
+                                           int dz, float phi[10]) {
+  basis_xyz(coord[dm], coord[bk.bm + dn], coord[bk.bm + bk.bn + dz], phi);
+}
+
+// The warp of this thread's pixels of brick br, their video values yv
+// with LOAD_Y (0 outside the brick; the loads are issued here, to arrive
+// while the candidates are listed), and the per-warp partials of the
+// brick's psi box in red (box_partials).  The brick's
+// basis coordinates (basis_coord of its m, n and z values: the bits
+// basis_at gives) go to coord first, so each pixel multiplies instead of
+// dividing.  Slots past the brick get psi = 0.  red: shared scratch of
+// NWARPS * 6 floats; coord: COORDS shared floats that no thread reads
+// until the next barrier (alternate two tables between bricks).
+template <bool LOAD_Y, int NP = PPT>
+__device__ __forceinline__ void brick_pixels(const Brick& br,
+                                             const Bricks& bk, const Geom& g,
+                                             const int* s_off, float* coord,
+                                             const float* beta,
+                                             const float* __restrict__ yb,
+                                             float psi[NP][3], float yv[NP],
+                                             float* red) {
+  const int t = threadIdx.x;
+  if (t < bk.bm + bk.bn + bk.bz) {
+    const int d = t < bk.bm ? 0 : (t < bk.bm + bk.bn ? 1 : 2);
+    const int v = d == 0 ? br.m0 + t
+                         : (d == 1 ? br.n0 + t - bk.bm
+                                   : br.z0 + t - bk.bm - bk.bn);
+    coord[t] = basis_coord(v, d, g);
+  }
+  __syncthreads();
+  const bool full = br.wm == bk.bm && br.wn == bk.bn && br.wz == bk.bz;
+  float lo[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
+  float hi[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    psi[i][0] = psi[i][1] = psi[i][2] = 0.0f;
+    yv[i] = 0.0f;
+    int dm, dn, dz;
+    if (slot_voxel(br, full, s_off, i, dm, dn, dz)) {
+      float phi[10];
+      if (LOAD_Y)
+        yv[i] = yb[((br.m0 + dm) * g.N + br.n0 + dn) * g.Z + br.z0 + dz];
+      slot_basis(coord, bk, dm, dn, dz, phi);
+      warp_psi(beta, phi, g, psi[i]);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        lo[d] = fminf(lo[d], psi[i][d]);
+        hi[d] = fmaxf(hi[d], psi[i][d]);
+      }
+    }
+  }
+  box_partials(lo, hi, red);
+}
+
+// The candidates of a brick: the rows of an m-sorted table tab (k rows of
+// TROW floats; its m column at pm, every pm_stride floats, in global or
+// shared memory; rm its largest m reach, from table.cu) whose reach box
+// meets the brick's psi box, in table order.  The box comes from the
+// warps' partials in red (brick_pixels) into box (6 shared floats); warps
+// 0 and 1 bound the m window by warp searches, then every thread tests its
+// rows on all three axes.  Each kept row's index goes to s_cand[slot] and emit(slot, index,
+// row) copies what the kernel needs of it into the kernel's own slots.
+// The list is handed over in chunks of at most cap rows (cap >= THREADS):
+// after a barrier, body(n, first, last) uses slots [0, n), then a barrier
+// frees them; the last chunk, perhaps with n = 0, is always handed over.
+// With cap = k the list comes in one chunk and stays in the slots after
+// the return, until the next listing.  Returns the count, in
+// every thread.  s_warp_n: NWARPS ints, s_range: 2 ints, of shared memory.
+template <class Emit, class Body>
+__device__ __forceinline__ int list_candidates(const float* tab,
+                                               const float* pm, int pm_stride,
+                                               int k, float rm, int cap,
+                                               const float* red, float* box,
+                                               int* s_cand, int* s_warp_n,
+                                               int* s_range, Emit emit,
+                                               Body body) {
+  const int tid = threadIdx.x, wid = tid >> 5;
+  if (tid < 6) box[tid] = box_entry(red, tid);
+  if (wid < 2) {
+    const float v = wid == 0 ? box_entry(red, 0) - rm : box_entry(red, 3) + rm;
+    const int i = wid == 0 ? warp_bound<false>(pm, pm_stride, k, v)
+                           : warp_bound<true>(pm, pm_stride, k, v);
+    if ((tid & 31) == 0) s_range[wid] = i;
+  }
+  __syncthreads();
+  const int i0 = s_range[0], i1 = s_range[1];
+  int nc = 0, done = 0;
+  // One call site of body, so that it is inlined once.
+  for (int c0 = i0;; c0 += THREADS) {
+    if (c0 < i1) {
+      const int kk = c0 + tid;
+      bool keep = false;
+      if (kk < i1) {
+        const float* row = tab + (size_t)kk * TROW;
+        const float p[3] = {row[0], row[1], row[2]};
+        const float r[3] = {row[8], row[9], row[10]};
+        keep = box_meets(p, r, box);
+      }
+      int total;
+      const int slot = block_compact(keep, nc, s_warp_n, &total);
+      if (slot >= 0) {
+        s_cand[slot] = kk;
+        emit(slot, kk, tab + (size_t)kk * TROW);
+      }
+      nc += total;
+    }
+    // Hand the chunk over at the end, or if the next round of rows could
+    // overflow it.
+    const int next = i1 - c0 - THREADS;
+    const bool last = next <= 0;
+    if (last || nc + min(THREADS, next) > cap) {
+      __syncthreads();
+      body(nc, done == 0, last);
+      __syncthreads();
+      done += nc;
+      nc = 0;
+      if (last) return done;
+    }
+  }
 }
 
 }  // namespace dnmf

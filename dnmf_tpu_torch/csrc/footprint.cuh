@@ -1,5 +1,5 @@
 // Shared device code of the demixing kernels (motion.cu, c1.cu, gram.cu,
-// refine.cu; refine.cu culls by spatial bricks, cull.cuh).
+// refine.cu).
 //
 // Every kernel evaluates warped Gaussian footprints on the fly from flat
 // voxel indices: pixel index -> (m, n, z) by integer divmod, the 10
@@ -9,14 +9,16 @@
 // Gaussian in direct (psi - p)^2 form with exp2f.  A matmul-form exponent
 // would sum cancelling O(coord^2) terms, so it is never used.
 //
-// Neuron parameters arrive sorted by their m coordinate, in blocks of KB
-// neurons; each block carries an m-interval [lo, hi] widened by 6 sigma.
-// A warp (32 consecutive pixels) skips a block whose interval misses the
-// warp's deformed-m range: exp(-36) ~ 2e-16 is below float32 resolution.
-// With per-frame (tracked) positions the table holds one row set per
-// frame, prm_stride floats apart (0 for shared anchors), sorted by each
-// neuron's mean m; a block's interval spans its members' m over all
-// frames, so the same culling holds in every frame.
+// The motion, c1 and refine kernels cull by spatial bricks (cull.cuh).
+// The Gram kernel (gram.cu) culls by m alone: neuron parameters arrive
+// sorted by their m coordinate, in blocks of KB neurons; each block
+// carries an m-interval [lo, hi] widened by 6 sigma, and a warp (32
+// consecutive pixels) skips a block whose interval misses the warp's
+// deformed-m range: exp(-36) ~ 2e-16 is below float32 resolution.  With
+// per-frame (tracked) positions the table holds one row set per frame,
+// prm_stride floats apart (0 for shared anchors), sorted by each neuron's
+// mean m; a block's interval spans its members' m over all frames, so the
+// same culling holds in every frame.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,18 +40,26 @@ struct Geom {
   float den[3];     // max(size_d - 1, 1) (normalization scale)
 };
 
-// The 10 quadratic basis values at voxel (mi, ni, zi).
-__device__ __forceinline__ void basis_at(int mi, int ni, int zi,
-                                         const Geom& g, float phi[10]) {
-  float x = (float)mi, y = (float)ni, z = (float)zi;
-  if (g.normalized) {
-    x = 2.0f * x / g.den[0] - 1.0f;
-    y = 2.0f * y / g.den[1] - 1.0f;
-    z = 2.0f * z / g.den[2] - 1.0f;
-  }
+// The basis coordinate of voxel index v on axis d: v itself, or its
+// [-1, 1] normalization.
+__device__ __forceinline__ float basis_coord(int v, int d, const Geom& g) {
+  const float x = (float)v;
+  return g.normalized ? 2.0f * x / g.den[d] - 1.0f : x;
+}
+
+// The 10 quadratic basis values at basis coordinates (x, y, z).
+__device__ __forceinline__ void basis_xyz(float x, float y, float z,
+                                          float phi[10]) {
   phi[0] = 1.0f; phi[1] = x; phi[2] = y; phi[3] = z;
   phi[4] = x * x; phi[5] = y * y; phi[6] = z * z;
   phi[7] = x * y; phi[8] = x * z; phi[9] = y * z;
+}
+
+// The 10 quadratic basis values at voxel (mi, ni, zi).
+__device__ __forceinline__ void basis_at(int mi, int ni, int zi,
+                                         const Geom& g, float phi[10]) {
+  basis_xyz(basis_coord(mi, 0, g), basis_coord(ni, 1, g),
+            basis_coord(zi, 2, g), phi);
 }
 
 // The basis at flat voxel index p = (mi * N + ni) * Z + zi.
@@ -139,17 +149,6 @@ inline Geom make_geom(int M, int N, int Z, int normalized) {
     g.den[d] = s[d] > 1 ? (float)s[d] - 1.0f : 1.0f;
   }
   return g;
-}
-
-// Fixed-order cross-chunk sum: out[r][c] = sum_k part[r][k][c].
-static __global__ void sum_chunks(const float* __restrict__ part, float* __restrict__ out,
-                           int n_chunks, int width) {
-  const size_t r = blockIdx.x;
-  for (int c = threadIdx.x; c < width; c += blockDim.x) {
-    float s = 0.0f;
-    for (int k = 0; k < n_chunks; ++k) s += part[(r * n_chunks + k) * width + c];
-    out[r * width + c] = s;
-  }
 }
 
 }  // namespace dnmf

@@ -27,9 +27,11 @@
 //    group's bricks (cull.cuh: 8 m x 8 n x up to 32 z), keeping each
 //    pixel's warp and fade in registers: one warp evaluation per pixel.
 //  * the brick's exact psi box (block min/max) against each neuron's
-//    per-axis 6 sigma box, on the frame's own m-sorted table (binary
-//    search for the m window, then all three axes): the candidate list,
-//    in table order, in shared memory; its length goes to `counts`.
+//    per-axis 6 sigma box, on the frame's own m-sorted table (table.cu; a
+//    search for the m window, then all three axes; list_candidates, shared
+//    with motion.cu and c1.cu): the candidate list, in table order, in
+//    shared memory, with each neuron's trace (c_rows: the traces in table
+//    order); its length goes to `counts`.
 //  * residual phase: S over the candidates only, r w kept in registers,
 //    the squared residual summed per thread;
 //  * moments phase: per chunk of candidates, NMOM sums per thread,
@@ -45,14 +47,16 @@
 
 namespace dnmf {
 
-constexpr int RPARAM = 16;  // table row: p (3), log2e / sigma^2 (3), c, 0,
-                            // reach 6 sigma (3), 0, 1 / sigma^2 (3), 0
 constexpr int CPARAM = 8;   // candidate row in shared memory: p, s, c, 0
+constexpr int SHARED_TOO_SMALL = -1;  // dnmf_refine: K's rows do not fit
 
+// Three blocks per SM (80 registers): the dsigma variant otherwise takes
+// 105 and runs at two, ~15% slower at 16 frames.
 template <int NMOM>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
 refine_bricks(const float* __restrict__ betas, const float* __restrict__ table,
-              const float* __restrict__ rmax_m, const float* __restrict__ y,
+              const float* __restrict__ rmax,
+              const float* __restrict__ c_rows, const float* __restrict__ y,
               float* __restrict__ sse_part, float* __restrict__ mom_part,
               int* __restrict__ counts, Geom g, Bricks bk, int n_bricks,
               int bricks_per_group, int k) {
@@ -67,16 +71,20 @@ refine_bricks(const float* __restrict__ betas, const float* __restrict__ table,
   __shared__ float s_beta[30];
   __shared__ float s_red[NWARPS * NACC];
   __shared__ float s_box[6];
+  __shared__ int s_off[PPT * THREADS];
+  __shared__ float s_coord[2][COORDS];
   __shared__ float s_sum[NACC];
   __shared__ int s_warp_n[NWARPS];
   __shared__ int s_range[2];
   const int tid = threadIdx.x;
   if (tid < 30) s_beta[tid] = betas[b * 30 + tid];
+  brick_slots(bk, s_off);
   for (int i = tid; i < k * NMOM; i += THREADS) s_acc[i] = 0.0f;
-  const float* tab = table + (size_t)b * k * RPARAM;
-  for (int i = tid; i < k; i += THREADS) s_pm[i] = tab[(size_t)i * RPARAM];
+  const float* tab = table + (size_t)b * k * TROW;
+  const float* cr = c_rows + (size_t)b * k;
+  for (int i = tid; i < k; i += THREADS) s_pm[i] = tab[(size_t)i * TROW];
   const float* yb = y + (size_t)b * g.P;
-  const float rm = *rmax_m;
+  const float rm = *rmax;
   __syncthreads();
 
   float sse = 0.0f;
@@ -84,66 +92,29 @@ refine_bricks(const float* __restrict__ betas, const float* __restrict__ table,
   const int last = min(first + bricks_per_group, n_bricks);
   for (int id = first; id < last; ++id) {
     const Brick br = brick_at(id, bk, g);
+    float* coord = s_coord[(id - first) & 1];
     const int npix = br.count();
-    // The warp of this thread's pixels, once; their video values are
-    // loaded here, to arrive while the candidates are listed.
+    // The warp of this thread's pixels, once, and the candidates.
     float psi[PPT][3], rw[PPT], yv[PPT];
-    float lo[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
-    float hi[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+    brick_pixels<true>(br, bk, g, s_off, coord, s_beta, yb, psi, yv, s_red);
+    // The whole list at once (cap k): it stays in the slots after the
+    // listing returns.
+    const int nc = list_candidates(
+        tab, s_pm, 1, k, rm, k, s_red, s_box, s_cand, s_warp_n, s_range,
+        [&](int slot, int kk, const float* row) {
 #pragma unroll
-    for (int i = 0; i < PPT; ++i) {
-      const int l = tid + i * THREADS;
-      psi[i][0] = psi[i][1] = psi[i][2] = 0.0f;
-      rw[i] = yv[i] = 0.0f;
-      if (l < npix) {
-        float phi[10];
-        int mi, ni, zi;
-        br.voxel(l, mi, ni, zi);
-        yv[i] = yb[(mi * g.N + ni) * g.Z + zi];
-        basis_at(mi, ni, zi, g, phi);
-        warp_psi(s_beta, phi, g, psi[i]);
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          lo[d] = fminf(lo[d], psi[i][d]);
-          hi[d] = fmaxf(hi[d], psi[i][d]);
-        }
-      }
-    }
-    block_box(lo, hi, s_red, s_box);
-
-    // Candidates: the m window by binary search, then all three axes.
-    if (tid == 0) s_range[0] = lower_bound(s_pm, 1, k, s_box[0] - rm);
-    if (tid == 32) s_range[1] = upper_bound(s_pm, 1, k, s_box[3] + rm);
-    __syncthreads();
-    const int i0 = s_range[0], i1 = s_range[1];
-    int nc = 0;
-    for (int c0 = i0; c0 < i1; c0 += THREADS) {
-      const int kk = c0 + tid;
-      bool keep = false;
-      if (kk < i1) {
-        const float* row = tab + (size_t)kk * RPARAM;
-        const float p[3] = {row[0], row[1], row[2]};
-        const float r[3] = {row[8], row[9], row[10]};
-        keep = box_meets(p, r, s_box);
-      }
-      int total;
-      const int slot = block_compact(keep, nc, s_warp_n, &total);
-      if (slot >= 0) {
-        s_cand[slot] = kk;
-        const float* row = tab + (size_t)kk * RPARAM;
-#pragma unroll
-        for (int j = 0; j < CPARAM; ++j) s_cprm[slot * CPARAM + j] = row[j];
-      }
-      nc += total;
-    }
+          for (int j = 0; j < 6; ++j) s_cprm[slot * CPARAM + j] = row[j];
+          s_cprm[slot * CPARAM + 6] = cr[kk];
+          s_cprm[slot * CPARAM + 7] = 0.0f;
+        },
+        [](int, bool, bool) {});
     if (tid == 0) counts[(size_t)b * n_bricks + id] = nc;
-    __syncthreads();
 
     // Residual phase: S over the candidates.
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
-      const int l = tid + i * THREADS;
-      if (l >= npix) continue;
+      rw[i] = 0.0f;
+      if (tid + i * THREADS >= npix) continue;
       float S = 0.0f;
       for (int c = 0; c < nc; ++c) {
         const float* pk = &s_cprm[c * CPARAM];
@@ -199,6 +170,7 @@ template <int NMOM>
 __global__ void __launch_bounds__(THREADS)
 refine_finish(const float* __restrict__ table,
               const long long* __restrict__ order,
+              const float* __restrict__ c_rows,
               const float* __restrict__ sse_part,
               const float* __restrict__ mom_part, float* __restrict__ mse,
               float* __restrict__ dpos, float* __restrict__ dsig,
@@ -224,8 +196,8 @@ refine_finish(const float* __restrict__ table,
 #pragma unroll
   for (int j = 0; j < NMOM; ++j) m[j] = warp_sum(m[j]);
   if (lane != 0) return;
-  const float* row = table + ((size_t)b * k + i) * RPARAM;
-  const float cf = (4.0f / (float)P) * row[6];
+  const float* row = table + ((size_t)b * k + i) * TROW;
+  const float cf = (4.0f / (float)P) * c_rows[(size_t)b * k + i];
   const size_t o = (size_t)b * k + (size_t)order[(size_t)b * k + i];
   float ds = 0.0f;
 #pragma unroll
@@ -241,63 +213,80 @@ refine_finish(const float* __restrict__ table,
   if (NMOM == 6 && !aniso) dsig[o] = ds;
 }
 
+// Sets kernel's dynamic shared memory to `bytes`; SHARED_TOO_SMALL where
+// those and its static arrays exceed what a block may have on this card.
+template <class Kernel>
+int reserve_shared(Kernel kernel, size_t bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int dev, limit;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return (int)e;
+  if (attr.sharedSizeBytes + bytes > (size_t)limit) return SHARED_TOO_SMALL;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int NMOM>
+int refine_launch(const float* betas, const float* table,
+                  const long long* order, const float* rmax,
+                  const float* c_rows, const float* y,
+                  float* sse_part, float* mom_part, float* mse, float* dpos,
+                  float* dsig, int* counts, int B, const Geom& g,
+                  const Bricks& bk, int k, int bricks_per_group, int aniso,
+                  cudaStream_t s) {
+  const int n_bricks = bk.nbm * bk.nbn * bk.nbz;
+  const int n_groups = (n_bricks + bricks_per_group - 1) / bricks_per_group;
+  const size_t smem = (size_t)k * (NMOM + CPARAM + 2) * sizeof(float);
+  const int e = reserve_shared(refine_bricks<NMOM>, smem);
+  if (e != 0) return e;
+  refine_bricks<NMOM><<<dim3(n_groups, B), THREADS, smem, s>>>(
+      betas, table, rmax, c_rows, y, sse_part, mom_part, counts, g, bk,
+      n_bricks, bricks_per_group, k);
+  const cudaError_t le = cudaGetLastError();
+  if (le != cudaSuccess) return (int)le;
+  refine_finish<NMOM><<<dim3((k + NWARPS - 1) / NWARPS, B), THREADS, 0, s>>>(
+      table, order, c_rows, sse_part, mom_part, mse, dpos, dsig, n_groups, k,
+      g.P, aniso);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace dnmf
 
 // table [B][k][16] per-frame neuron rows sorted by the frame's m
-// coordinate, order [B][k] (int64) each row's neuron in the caller's
-// order; rmax_m (device, 1 float): the largest m reach.  Bricks of bm x bn
-// x bz voxels (nbm x nbn x nbz of them), bricks_per_group per thread
-// block.  Outputs, in the caller's neuron order: mse [B], dpos [B][k][3],
-// with want_dsigma dsig ([B][k][3] if aniso, else [B][k]); counts
-// [B][n_bricks] candidates per brick.  Scratch: sse_part [B][n_groups],
-// mom_part [B][n_groups][k][nmom], nmom = 3 (M1) or 6 (M1, M2).
+// coordinate, order [B][k] (int64) each row's neuron in the caller's order
+// and rmax (1 float) their largest m reach (table.cu); c_rows [B][k] the
+// traces in table order.
+// Bricks of bm x bn x bz voxels (nbm x nbn x nbz of them),
+// bricks_per_group per thread block.  Outputs,
+// in the caller's neuron order: mse [B], dpos [B][k][3], with want_dsigma
+// dsig ([B][k][3] if aniso, else [B][k]); counts [B][n_bricks] candidates
+// per brick.  Scratch: sse_part [B][n_groups], mom_part
+// [B][n_groups][k][nmom], nmom = 3 (M1) or 6 (M1, M2).  Returns -1
+// (SHARED_TOO_SMALL), launching nothing, where K's rows do not fit a
+// block's shared memory.
 extern "C" int dnmf_refine(const float* betas, const float* table,
-                           const void* order, const float* rmax_m,
-                           const float* y, float* sse_part, float* mom_part,
-                           float* mse, float* dpos, float* dsig, int* counts,
+                           const long long* order, const float* rmax,
+                           const float* c_rows, const float* y,
+                           float* sse_part, float* mom_part, float* mse,
+                           float* dpos, float* dsig, int* counts,
                            int B, int M, int N, int Z, int normalized, int k,
                            int bm, int bn, int bz, int bricks_per_group,
                            int want_dsigma, int aniso, void* stream) {
   using namespace dnmf;
   const Geom g = make_geom(M, N, Z, normalized);
-  Bricks bk;
-  bk.bm = bm; bk.bn = bn; bk.bz = bz;
-  bk.nbm = (M + bm - 1) / bm;
-  bk.nbn = (N + bn - 1) / bn;
-  bk.nbz = (Z + bz - 1) / bz;
-  if (bm * bn * bz > THREADS * PPT) return (int)cudaErrorInvalidValue;
-  const int n_bricks = bk.nbm * bk.nbn * bk.nbz;
-  const int n_groups = (n_bricks + bricks_per_group - 1) / bricks_per_group;
-  const int nmom = want_dsigma ? 6 : 3;
+  const Bricks bk = make_bricks(g, bm, bn, bz);
+  if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)k * (nmom + CPARAM + 2) * sizeof(float);
-  const dim3 grid(n_groups, B), fgrid((k + NWARPS - 1) / NWARPS, B);
-  const long long* ord = (const long long*)order;
-  cudaError_t e;
-  if (want_dsigma) {
-    e = cudaFuncSetAttribute(refine_bricks<6>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    refine_bricks<6><<<grid, THREADS, smem, s>>>(
-        betas, table, rmax_m, y, sse_part, mom_part, counts, g, bk, n_bricks,
-        bricks_per_group, k);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    refine_finish<6><<<fgrid, THREADS, 0, s>>>(table, ord, sse_part,
-                                               mom_part, mse, dpos, dsig,
-                                               n_groups, k, g.P, aniso);
-  } else {
-    e = cudaFuncSetAttribute(refine_bricks<3>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    refine_bricks<3><<<grid, THREADS, smem, s>>>(
-        betas, table, rmax_m, y, sse_part, mom_part, counts, g, bk, n_bricks,
-        bricks_per_group, k);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    refine_finish<3><<<fgrid, THREADS, 0, s>>>(table, ord, sse_part,
-                                               mom_part, mse, dpos, dsig,
-                                               n_groups, k, g.P, aniso);
-  }
-  return (int)cudaGetLastError();
+  return want_dsigma
+             ? refine_launch<6>(betas, table, order, rmax, c_rows, y,
+                                sse_part, mom_part, mse, dpos, dsig, counts,
+                                B, g, bk, k, bricks_per_group, aniso, s)
+             : refine_launch<3>(betas, table, order, rmax, c_rows, y,
+                                sse_part, mom_part, mse, dpos, dsig, counts,
+                                B, g, bk, k, bricks_per_group, aniso, s);
 }

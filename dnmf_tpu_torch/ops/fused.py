@@ -43,13 +43,16 @@ from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import footprints as fp_ops
 from dnmf_tpu_torch.ops import phasecorr, warp
 
-KB = 32  # neurons per culling block (csrc/footprint.cuh)
-REFINE_BRICK_MN = 8  # refine kernel: brick extent in m and in n
-REFINE_ROW = 16  # floats per neuron row of the refine kernel's table
+KB = 32  # neurons per culling block of the Gram kernel (csrc/footprint.cuh)
+REFINE_BRICK_MN = 8  # brick kernels: brick extent in m and in n
+REFINE_ROW = 16  # floats per neuron row of the brick kernels' tables
 REFINE_PART_FLOATS = 1 << 20  # refine kernel: partial sums per frame
+# Motion and c1 kernels: at most this many brick groups per frame, and
+# their partial sums within 1/PART_SHARE of the frame's video.
+BRICK_GROUPS = 512
+PART_SHARE = 16
 REACH_SIGMAS = 6.0  # exp(-36) ~ 2e-16: below float32 resolution
 LOG2E = 1.4426950408889634
-THREADS = 256  # pixels per step of the motion, c1 and refine kernels
 GRAM_TILE = 64  # pixels per step of the Gram kernel
 TARGET_BLOCKS = 1056  # 8 thread blocks per SM of an H100
 # Gram grids hold many pair-culled blocks that exit at once: ask for more.
@@ -209,8 +212,8 @@ def per_axis_inv_s2(sigma: torch.Tensor) -> torch.Tensor:
 
 def sorted_params_tracked(pos_t: torch.Tensor, sigma: torch.Tensor,
                           kb: int = KB):
-    """Sort neurons by their mean m over frames and build the kernels'
-    per-frame neuron tables.
+    """Sort neurons by their mean m over frames and build the Gram
+    kernel's per-frame neuron tables.
 
     ``pos_t [B, K, 3]`` holds each frame's own positions.  Returns
     ``(perm, params [B, K_pad, 8], blocks [nkb, 2])``: params rows
@@ -251,7 +254,9 @@ def sorted_params(pos: torch.Tensor, sigma: torch.Tensor, kb: int = KB):
 
 def motion_weights(pos, sigma, c_block, perm, k_pad):
     """``[B, K_pad, 8]`` per-frame trace weights in sorted order:
-    ``c, 2 c p_d / s_d^2 (3), 2 c / s_d^2 (3), 0``."""
+    ``c, 2 c p_d / s_d^2 (3), 2 c / s_d^2 (3), 0``: the Pallas motion
+    kernels' weight rows.  The motion kernel forms its own from the table
+    (``2 c / s_d^2``, centred on each neuron)."""
     k = pos.shape[0]
     inv_s2 = per_axis_inv_s2(sigma[perm])
     c_s = c_block[:, perm].to(torch.float32)
@@ -265,9 +270,10 @@ def motion_weights(pos, sigma, c_block, perm, k_pad):
 
 def _n_chunks(p: int, tile: int, blocks_per_chunk: int,
               target: int = TARGET_BLOCKS) -> int:
-    """Pixel chunks per (frame, neuron block or pair): about ``target``
-    thread blocks in all, at most one chunk per tile of ``tile`` pixels.
-    The kernels deal the tiles to the chunks round-robin."""
+    """Pixel chunks per (frame, neuron-block pair) of the Gram kernel:
+    about ``target`` thread blocks in all, at most one chunk per tile of
+    ``tile`` pixels.  The kernel deals the tiles to the chunks
+    round-robin."""
     n_tiles = -(-p // tile)
     return min(n_tiles, max(1, -(-target // max(blocks_per_chunk, 1))))
 
@@ -308,88 +314,127 @@ def _stream() -> int:
 
 
 # -------------------------------------------------------------- wrappers
+def brick_groups(size, floats_per_group: int) -> Tuple[int, int]:
+    """``(bricks per group, groups)`` of the motion and c1 kernels for a
+    volume ``size``: at most ``BRICK_GROUPS`` groups per frame, and at most
+    ``P / PART_SHARE`` partial floats per frame for groups that write
+    ``floats_per_group`` each (32 for the motion kernel, K for c1).  The
+    count depends on the volume and K only, so a frame's result does not
+    depend on the other frames of the call."""
+    m, n, z = (int(s) for s in size)
+    n_bricks = brick_count(size)
+    cap = max(1, min(BRICK_GROUPS, m * n * z // (PART_SHARE
+                                                 * floats_per_group)))
+    per_group = -(-n_bricks // cap)
+    return per_group, -(-n_bricks // per_group)
+
+
+def _plain_counts(out, betas, pos, sigma, size, scaling):
+    """``out`` with the plain rule's candidate count per brick appended:
+    what ``brick_counts=True`` gives on CPU tensors."""
+    counts = brick_candidates_plain(betas, pos, sigma, size, scaling)
+    out = out if isinstance(out, tuple) else (out,)
+    return out + (counts.sum(-1).to(torch.int32),)
+
+
+def _counts_out(bsz, size, device, wanted):
+    """``(counts [B, n_bricks] int32 or None, its pointer or None)``."""
+    if not wanted:
+        return None, None
+    counts = torch.empty((bsz, brick_count(size)), dtype=torch.int32,
+                         device=device)
+    return counts, counts.data_ptr()
+
+
 def motion_block(betas, pos, sigma, c_block, y, size,
-                 scaling: str = "normalized"
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 scaling: str = "normalized", brick_counts: bool = False):
     """Per-frame ``mse [B]`` and analytic ``dbeta [B, 10, 3]`` for
-    ``betas [B, 10, 3]``, ``c_block [B, K]`` and ``y [B, P]``."""
+    ``betas [B, 10, 3]``, ``c_block [B, K]`` and ``y [B, P]``.
+
+    ``brick_counts`` appends the kernel's candidate count of every brick,
+    ``[B, n_bricks]`` int32 (on CPU tensors: from
+    :func:`brick_candidates_plain`)."""
     if y.device.type == "cpu":
-        return motion_block_plain(betas, pos, sigma, c_block, y, size, scaling)
+        out = motion_block_plain(betas, pos, sigma, c_block, y, size, scaling)
+        return (_plain_counts(out, betas, pos, sigma, size, scaling)
+                if brick_counts else out)
     _check("motion_block", size, scaling, y, betas, pos, sigma, c_block)
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
     bsz = y.shape[0]
-    perm, params, blocks = sorted_params(pos, sigma)
-    nkb = blocks.shape[0]
-    wts = motion_weights(pos, sigma, c_block, perm, nkb * KB)
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
-    n_chunks = _n_chunks(y.shape[1], THREADS, bsz)
-    partial = torch.empty((bsz, n_chunks, 32), dtype=torch.float32,
+    table, order, rmax = neuron_table(pos[None], sigma)
+    c_rows = c_block.index_select(1, order[0])  # the traces in table order
+    per_group, n_groups = brick_groups(size, 32)
+    partial = torch.empty(bsz * n_groups * 32, dtype=torch.float32,
                           device=y.device)
-    mse = torch.empty(bsz, dtype=torch.float32, device=y.device)
-    dbeta = torch.empty((bsz, 10, 3), dtype=torch.float32, device=y.device)
+    out = torch.empty(bsz * 31, dtype=torch.float32, device=y.device)
+    counts, counts_ptr = _counts_out(bsz, size, y.device, brick_counts)
     err = lib.dnmf_motion(
-        beta_rows.data_ptr(), params.data_ptr(), wts.data_ptr(),
-        blocks.data_ptr(), y.data_ptr(), partial.data_ptr(), mse.data_ptr(),
-        dbeta.data_ptr(), bsz, m, n, z, norm, nkb, n_chunks, _stream())
-    motion_block.launches += 1
+        beta_rows.data_ptr(), table.data_ptr(), rmax.data_ptr(),
+        c_rows.data_ptr(), y.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        counts_ptr, bsz, m, n, z, norm, pos.shape[0],
+        *refine_bricks(size), per_group, _stream())
     _build.check(err, "dnmf_motion")
-    return mse, dbeta
+    motion_block.launches += 1
+    res = (out[:bsz], out[bsz:].view(bsz, 10, 3))
+    return res + (counts,) if brick_counts else res
 
 
-def _c1_launch(betas, params, blocks, y, size, scaling):
-    """Run csrc/c1.cu on a neuron table ``params [K_pad, 8]`` (shared) or
-    ``[B, K_pad, 8]`` (per frame); ``c1 [B, K_pad]`` in sorted order."""
+def _c1_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts):
+    """Run csrc/c1.cu for the wrapper ``fn`` on shared anchors ``pos [K,
+    3]`` or per-frame positions ``[B, K, 3]``: ``c1 [B, K]`` (and the
+    candidate count per brick)."""
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
-    bsz = y.shape[0]
-    nkb = blocks.shape[0]
-    stride = nkb * KB * 8 if params.ndim == 3 else 0
+    bsz, k = y.shape[0], pos.shape[-2]
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
-    n_chunks = _n_chunks(y.shape[1], THREADS, bsz * nkb)
-    partial = torch.empty((bsz, nkb, n_chunks, KB), dtype=torch.float32,
+    tracked = pos.ndim == 3
+    table, order, rmax = neuron_table(pos if tracked else pos[None], sigma)
+    per_group, n_groups = brick_groups(size, k)
+    partial = torch.empty(bsz * n_groups * k, dtype=torch.float32,
                           device=y.device)
-    c1 = torch.empty((bsz, nkb * KB), dtype=torch.float32, device=y.device)
+    c1 = torch.empty((bsz, k), dtype=torch.float32, device=y.device)
+    counts, counts_ptr = _counts_out(bsz, size, y.device, brick_counts)
     err = lib.dnmf_c1(
-        beta_rows.data_ptr(), params.data_ptr(), blocks.data_ptr(),
-        y.data_ptr(), partial.data_ptr(), c1.data_ptr(), bsz, m, n, z, norm,
-        nkb, n_chunks, stride, _stream())
-    return err, c1
-
-
-def c1_block(betas, pos, sigma, y, size,
-             scaling: str = "normalized") -> torch.Tensor:
-    """``c1 [B, K] = sum_p w A y`` for ``betas [B, 10, 3]``, ``y [B, P]``;
-    ``pos [B, K, 3]`` goes to :func:`c1_block_tracked`."""
-    if pos.ndim == 3:
-        return c1_block_tracked(betas, pos, sigma, y, size, scaling)
-    if y.device.type == "cpu":
-        return c1_block_plain(betas, pos, sigma, y, size, scaling)
-    _check("c1_block", size, scaling, y, betas, pos, sigma)
-    from dnmf_tpu_torch.ops import _build
-
-    perm, params, blocks = sorted_params(pos, sigma)
-    err, c1 = _c1_launch(betas, params, blocks, y, size, scaling)
-    c1_block.launches += 1
+        beta_rows.data_ptr(), table.data_ptr(), order.data_ptr(),
+        rmax.data_ptr(), y.data_ptr(), partial.data_ptr(), c1.data_ptr(),
+        counts_ptr, bsz, m, n, z, norm, k, int(tracked), *refine_bricks(size),
+        per_group, _stream())
     _build.check(err, "dnmf_c1")
-    return c1[:, :pos.shape[0]][:, torch.argsort(perm)]
+    fn.launches += 1
+    return (c1, counts) if brick_counts else c1
+
+
+def c1_block(betas, pos, sigma, y, size, scaling: str = "normalized",
+             brick_counts: bool = False):
+    """``c1 [B, K] = sum_p w A y`` for ``betas [B, 10, 3]``, ``y [B, P]``;
+    ``pos [B, K, 3]`` goes to :func:`c1_block_tracked`.  ``brick_counts``
+    as in :func:`motion_block`."""
+    if pos.ndim == 3:
+        return c1_block_tracked(betas, pos, sigma, y, size, scaling,
+                                brick_counts)
+    if y.device.type == "cpu":
+        out = c1_block_plain(betas, pos, sigma, y, size, scaling)
+        return (_plain_counts(out, betas, pos, sigma, size, scaling)
+                if brick_counts else out)
+    _check("c1_block", size, scaling, y, betas, pos, sigma)
+    return _c1_launch(c1_block, betas, pos, sigma, y, size, scaling,
+                      brick_counts)
 
 
 def c1_block_tracked(betas, pos_t, sigma, y, size,
-                     scaling: str = "normalized") -> torch.Tensor:
+                     scaling: str = "normalized", brick_counts: bool = False):
     """:func:`c1_block` with per-frame positions ``pos_t [B, K, 3]``."""
     if y.device.type == "cpu":
-        return c1_block_plain(betas, pos_t, sigma, y, size, scaling)
+        out = c1_block_plain(betas, pos_t, sigma, y, size, scaling)
+        return (_plain_counts(out, betas, pos_t, sigma, size, scaling)
+                if brick_counts else out)
     _check("c1_block_tracked", size, scaling, y, betas, pos_t, sigma)
-    from dnmf_tpu_torch.ops import _build
-
-    perm, params, blocks = sorted_params_tracked(pos_t, sigma)
-    err, c1 = _c1_launch(betas, params, blocks, y, size, scaling)
-    c1_block_tracked.launches += 1
-    _build.check(err, "dnmf_c1")
-    return c1[:, :pos_t.shape[1]][:, torch.argsort(perm)]
+    return _c1_launch(c1_block_tracked, betas, pos_t, sigma, y, size,
+                      scaling, brick_counts)
 
 
 def _gram_outputs(bsz, p, nkb, device):
@@ -512,12 +557,19 @@ def gram_block_tracked(betas, pos_t, sigma, y, size,
 
 
 def refine_bricks(size):
-    """``(bm, bn, bz)``: the refine kernel's brick for a volume ``size =
-    (M, N, Z)`` (csrc/cull.cuh): 8 x 8 voxels in (m, n) by the z extent
-    cut into equal runs of at most 32; bricks at the far faces are
-    clipped."""
+    """``(bm, bn, bz)``: the brick of the motion, c1 and refine kernels
+    for a volume ``size = (M, N, Z)`` (csrc/cull.cuh): 8 x 8 voxels in
+    (m, n) by the z extent cut into equal runs of at most 32; bricks at
+    the far faces are clipped."""
     z = int(size[2])
     return REFINE_BRICK_MN, REFINE_BRICK_MN, -(-z // -(-z // 32))
+
+
+def brick_count(size) -> int:
+    """The number of bricks of a volume ``size``."""
+    m, n, z = (int(s) for s in size)
+    bm, bn, bz = refine_bricks(size)
+    return -(-m // bm) * -(-n // bn) * -(-z // bz)
 
 
 def brick_ids(size, device=None) -> Tuple[torch.Tensor, int]:
@@ -529,16 +581,17 @@ def brick_ids(size, device=None) -> Tuple[torch.Tensor, int]:
     idx = torch.arange(m * n * z, device=device)
     ids = (((idx // (n * z)) // bm) * nbn + ((idx // z) % n) // bn) * nbz \
         + (idx % z) // bz
-    return ids, -(-m // bm) * nbn * nbz
+    return ids, brick_count(size)
 
 
-def brick_candidates_plain(betas, pos_t, sigma, size,
+def brick_candidates_plain(betas, pos, sigma, size,
                            scaling: str = "normalized") -> torch.Tensor:
-    """The refine kernel's culling rule in plain torch: ``[B, n_bricks,
-    K]``, True where neuron k's per-axis box ``pos_t[b, k] +- 6 sigma_k``
-    meets the exact per-axis range of frame b's deformed coordinates over
-    the brick (on all three axes).  Any other neuron's footprint is below
-    ``exp(-36)`` at every voxel of the brick."""
+    """The brick kernels' culling rule in plain torch: ``[B, n_bricks,
+    K]``, True where neuron k's per-axis box ``pos[k] +- 6 sigma_k`` meets
+    the exact per-axis range of frame b's deformed coordinates over the
+    brick (on all three axes), for shared anchors ``pos [K, 3]`` or
+    per-frame positions ``pos [B, K, 3]``.  Any other neuron's footprint
+    is below ``exp(-36)`` at every voxel of the brick."""
     bsz = betas.shape[0]
     ids, nb = brick_ids(size, betas.device)
     psi = _warped(betas, size, scaling, 0, ids.numel())  # [B, P, 3]
@@ -549,18 +602,13 @@ def brick_candidates_plain(betas, pos_t, sigma, size,
                     device=psi.device).scatter_reduce(1, idx, psi, "amax")
     sig3 = sigma if sigma.ndim == 2 else sigma[:, None].expand(-1, 3)
     reach = REACH_SIGMAS * sig3
-    pt = pos_t[:, None]  # [B, 1, K, 3]
+    pt = pos[None] if pos.ndim == 2 else pos[:, None]  # [B|1, 1, K, 3]
     meets = (pt + reach >= lo[:, :, None]) & (pt - reach <= hi[:, :, None])
     return meets.all(dim=-1)
 
 
-def refine_table(pos_t, sigma, c_block):
-    """The refine kernel's per-frame neuron tables, each sorted by the
-    frame's own m coordinate: ``(table [B, K, 16], order [B, K], rmax
-    [1])``; rows ``(p_m, p_n, p_z, log2e/s_m^2, log2e/s_n^2, log2e/s_z^2,
-    c, 0, 6 s_m, 6 s_n, 6 s_z, 0, 1/s_m^2, 1/s_n^2, 1/s_z^2, 0)``;
-    ``order[b, i]`` is row i's neuron; ``rmax`` the largest m reach (on
-    the device: no sync)."""
+def neuron_table_plain(pos_t, sigma):
+    """Plain version of :func:`neuron_table`."""
     order = torch.argsort(pos_t[:, :, 0], dim=1, stable=True)
     sig = sigma.to(torch.float32)
     reach = REACH_SIGMAS * (sig if sig.ndim == 2
@@ -568,10 +616,42 @@ def refine_table(pos_t, sigma, c_block):
     inv_s2 = per_axis_inv_s2(sigma)
     zero = torch.zeros_like(reach[:, :1])
     rows = torch.cat([zero, zero, zero, inv_s2 * LOG2E, zero, zero, reach,
-                      zero, inv_s2, zero], dim=1)[order]  # [B, K, 16]
+                      zero, inv_s2, zero], dim=1)[order]  # [F, K, 16]
     rows[..., :3] = torch.take_along_dim(pos_t, order[..., None], dim=1)
-    rows[..., 6] = torch.take_along_dim(c_block, order, dim=1)
-    return rows, order, reach[:, 0].amax().reshape(1)
+    rmax = reach[:, 0].amax().clamp(min=0.0).reshape(1)
+    return rows, order, rmax
+
+
+def neuron_table(pos_t, sigma):
+    """The brick kernels' neuron tables, one per frame of positions
+    ``pos_t [F, K, 3]`` (shared anchors: ``F = 1``), each sorted by the
+    frame's own m coordinate (stable): ``(table [F, K, 16], order [F, K]
+    int64, rmax [1])``; rows ``(p_m, p_n, p_z, log2e/s_m^2, log2e/s_n^2,
+    log2e/s_z^2, 0, 0, 6 s_m, 6 s_n, 6 s_z, 0, 1/s_m^2, 1/s_n^2, 1/s_z^2,
+    0)`` for ``sigma [K]`` or ``[K, 3]``; ``order[f, i]`` is row i's
+    neuron; ``rmax`` the largest m reach ``6 s_m`` (on the device: no
+    sync).  CUDA tensors: ``build_table`` (csrc/table.cu), which the
+    motion, c1 and refine wrappers launch before their kernel."""
+    if pos_t.device.type == "cpu":
+        return neuron_table_plain(pos_t, sigma)
+    for t in (pos_t, sigma):
+        if t.device != pos_t.device or t.dtype != torch.float32:
+            raise TypeError("neuron_table: the kernel takes float32 tensors "
+                            f"on one device, got {t.dtype} on {t.device}")
+    from dnmf_tpu_torch.ops import _build
+
+    f, k = pos_t.shape[0], pos_t.shape[1]
+    pos_t, sigma = pos_t.contiguous(), sigma.contiguous()
+    buf = torch.empty(f * k * REFINE_ROW + 1, dtype=torch.float32,
+                      device=pos_t.device)
+    table = buf[:-1].view(f, k, REFINE_ROW)
+    order = torch.empty((f, k), dtype=torch.int64, device=pos_t.device)
+    err = _build.load().dnmf_table(
+        pos_t.data_ptr(), sigma.data_ptr(), table.data_ptr(),
+        order.data_ptr(), buf[-1:].data_ptr(), f, k, int(sigma.ndim == 2),
+        _stream())
+    _build.check(err, "dnmf_table")
+    return table, order, buf[-1:]
 
 
 def refine_block(betas, pos_t, sigma, c_block, y, size,
@@ -590,24 +670,20 @@ def refine_block(betas, pos_t, sigma, c_block, y, size,
     if y.device.type == "cpu":
         out = refine_block_plain(betas, pos_t, sigma, c_block, y, size,
                                  scaling, want_dsigma)
-        if brick_counts:
-            out = out + (brick_candidates_plain(
-                betas, pos_t, sigma, size, scaling).sum(-1).to(torch.int32),)
-        return out
+        return (_plain_counts(out, betas, pos_t, sigma, size, scaling)
+                if brick_counts else out)
     _check("refine_block", size, scaling, y, betas, pos_t, sigma, c_block)
     from dnmf_tpu_torch.ops import _build
 
     bsz, p = y.shape
     k = pos_t.shape[1]
     nmom = 6 if want_dsigma else 3
-    if k * (nmom + 10) * 4 > phasecorr.SMEM_BYTES - 4096:
-        raise ValueError(f"refine_block: K={k} neurons do not fit the "
-                         "kernel's shared memory")
     lib = _build.load()
-    table, order, rmax = refine_table(pos_t, sigma, c_block)
+    table, order, rmax = neuron_table(pos_t, sigma)
+    c_rows = torch.take_along_dim(c_block, order, dim=1)  # in table order
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
     bm, bn, bz = refine_bricks(size)
-    n_bricks = -(-m // bm) * -(-n // bn) * -(-z // bz)
+    n_bricks = brick_count(size)
     # Groups of bricks per thread block: the partial sums stay within
     # REFINE_PART_FLOATS per frame; the count depends on the volume and K
     # only, so a frame's result does not depend on the call's other frames.
@@ -623,12 +699,14 @@ def refine_block(betas, pos_t, sigma, c_block, y, size,
     counts = torch.empty((bsz, n_bricks), dtype=torch.int32, device=y.device)
     err = lib.dnmf_refine(
         beta_rows.data_ptr(), table.data_ptr(), order.data_ptr(),
-        rmax.data_ptr(), y.data_ptr(), sse_part.data_ptr(),
-        mom_part.data_ptr(), mse.data_ptr(), dpos.data_ptr(),
-        dsig.data_ptr(), counts.data_ptr(), bsz, m, n, z, norm, k, bm, bn,
+        rmax.data_ptr(), c_rows.data_ptr(), y.data_ptr(),
+        sse_part.data_ptr(), mom_part.data_ptr(), mse.data_ptr(),
+        dpos.data_ptr(), dsig.data_ptr(), counts.data_ptr(), bsz, m, n, z, norm, k, bm, bn,
         bz, per_group, int(want_dsigma), int(sigma.ndim == 2), _stream())
-    refine_block.launches += 1
+    # Raises ValueError, with nothing launched, where K's rows do not fit
+    # the kernel's shared memory.
     _build.check(err, "dnmf_refine")
+    refine_block.launches += 1
     out = (mse, dpos, dsig) if want_dsigma else (mse, dpos)
     return out + (counts,) if brick_counts else out
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels (motion, c1, Gram, refine; c1 and Gram also at
 per-frame positions; the Gram from precomputed coordinate rows, C4;
 phase correlation F and the fused warp G) against their plain PyTorch
-versions on the card, and the streamed pipeline on the card.  Marked ``cuda``; every test
-skips where no CUDA device exists.
+versions on the card, and the streamed pipeline on the card.  The brick
+kernels (motion, c1, refine) also at odd shapes, repeated bit for bit,
+and frame for frame alone or inside a 16-frame call.  Marked ``cuda``;
+every test skips where no CUDA device exists.
 
 Run on a machine with an H100:
 ``python -m pytest tests/test_torch_port_cuda.py -q -m cuda``.
@@ -205,6 +207,196 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fused.gram_block(betas, pos, sigma, y.t().contiguous().t(), size)
     with pytest.raises(ValueError):
         fused.refine_block(betas, _tracked(pos, 2), sigma, c, y, size)
+
+
+# ---------------------------------- brick kernels: motion (A) and c1 (B)
+BRICK_SHAPES = {  # name: (size, K)
+    "odd": ((21, 13, 5), 30),  # M and N not multiples of 8
+    "flat": ((19, 23, 1), 25),  # Z = 1: face voxels on fade ties
+    "deep": ((12, 17, 41), 40),  # Z > 32: two z runs per column
+    "few": ((40, 36, 6), 3),  # K below one brick's reach
+}
+
+
+def _brick_inputs(size, k, dev, scaling, aniso, b=5, seed=3):
+    """Neurons on brick edges, on the volume's faces and outside it;
+    frame 0 at the identity warp, the others strongly quadratic;
+    per-frame positions ~1 px around the anchors."""
+    rng = np.random.default_rng(seed)
+    hi = np.asarray(size, np.float64) - 1
+    pos = rng.uniform(-1.0, 1.0, (k, 3)) * 0.55 * hi + 0.5 * hi
+    pos[0] = [-2.0, -1.0, -0.5]  # outside, within reach
+    if k > 2:
+        pos[1] = hi + [1.5, 2.0, 0.5]
+        pos[2, :2] = np.round(pos[2, :2] / 8) * 8  # on brick edges
+    sigma = rng.uniform(0.8, 2.0, (k, 3) if aniso else (k,))
+    betas = np.zeros((b, 10, 3))
+    betas[:, 1, 0] = betas[:, 2, 1] = betas[:, 3, 2] = 1.0
+    quad = 0.15 if scaling == "normalized" else 0.02
+    betas[1:, 4:] = quad * rng.uniform(-1, 1, (b - 1, 6, 3))
+    betas[1:, 0] = 0.05 * rng.normal(size=(b - 1, 3))
+    y = rng.uniform(0, 1, (b, size[0] * size[1] * size[2]))
+    c = rng.uniform(0.2, 1, (b, k))
+    pos_t = pos[None] + rng.normal(size=(b, k, 3))
+    return [torch.tensor(x, dtype=torch.float32, device=dev)
+            for x in (betas, pos, pos_t, sigma, c, y)]
+
+
+@pytest.mark.parametrize("shape", sorted(BRICK_SHAPES))
+@pytest.mark.parametrize("scaling", ["normalized", "pixel"])
+@pytest.mark.parametrize("aniso", [False, True])
+def test_brick_motion_and_c1_match_float64(dev, shape, scaling, aniso):
+    """A, B at shared anchors and B at per-frame positions against
+    float64; a second launch gives bit-equal outputs."""
+    size, k = BRICK_SHAPES[shape]
+    betas, pos, pos_t, sigma, c, y = _brick_inputs(size, k, dev, scaling,
+                                                   aniso)
+    d = [t.double() for t in (betas, pos, pos_t, sigma, c, y)]
+    fused.reset_launch_counts()
+
+    def run():
+        return (*fused.motion_block(betas, pos, sigma, c, y, size, scaling),
+                fused.c1_block(betas, pos, sigma, y, size, scaling),
+                fused.c1_block(betas, pos_t, sigma, y, size, scaling))
+
+    got, again = run(), run()
+    ref = (*fused.motion_block_plain(d[0], d[1], d[3], d[4], d[5], size,
+                                     scaling),
+           fused.c1_block_plain(d[0], d[1], d[3], d[5], size, scaling),
+           fused.c1_block_plain(d[0], d[2], d[3], d[5], size, scaling))
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, ref):
+        assert g.shape == r.shape
+        assert rel_err(g, r) <= 1e-4
+        assert torch.equal(g, a)
+    counts = fused.launch_counts()
+    assert counts["motion_block"] == counts["c1_block"] == 2
+    assert counts["c1_block_tracked"] == 2
+
+
+@pytest.mark.parametrize("aniso", [False, True])
+def test_brick_kernels_give_a_frame_the_same_bits_in_any_call(dev, aniso):
+    """A frame's mse, dbeta and c1 (shared and tracked) are bit-equal
+    alone and inside a 16-frame call: the group count depends only on
+    the volume and K."""
+    size, k = (96, 64, 20), 100
+    betas, pos, pos_t, sigma, c, y = _brick_inputs(size, k, dev,
+                                                   "normalized", aniso, b=16)
+
+    def outputs(sl):
+        return (*fused.motion_block(betas[sl], pos, sigma, c[sl], y[sl],
+                                    size),
+                fused.c1_block(betas[sl], pos, sigma, y[sl], size),
+                fused.c1_block(betas[sl], pos_t[sl], sigma, y[sl], size))
+
+    full = outputs(slice(None))
+    for b in (0, 7, 15):
+        alone = outputs(slice(b, b + 1))
+        torch.cuda.synchronize()
+        for f, a in zip(full, alone):
+            assert torch.equal(f[b:b + 1], a)
+
+
+@pytest.mark.parametrize("shape", sorted(BRICK_SHAPES) + ["crowded"])
+def test_brick_motion_and_c1_counts_match_the_plain_rule(dev, shape):
+    """The candidate count per brick of A, B and B at per-frame positions,
+    returned by the launch, equals ``brick_candidates_plain``'s; "crowded"
+    lists more than one shared-memory chunk per brick."""
+    size, k = BRICK_SHAPES.get(shape, ((20, 16, 6), 1500))
+    betas, pos, pos_t, sigma, c, y = _brick_inputs(size, k, dev,
+                                                   "normalized", True)
+    for where, out in (
+            (pos, fused.motion_block(betas, pos, sigma, c, y, size,
+                                     brick_counts=True)),
+            (pos, fused.c1_block(betas, pos, sigma, y, size,
+                                 brick_counts=True)),
+            (pos_t, fused.c1_block(betas, pos_t, sigma, y, size,
+                                   brick_counts=True))):
+        mask = fused.brick_candidates_plain(betas, where, sigma, size)
+        torch.cuda.synchronize()
+        assert out[-1].dtype == torch.int32
+        assert torch.equal(out[-1], mask.sum(-1).to(torch.int32))
+
+
+def test_brick_kernels_take_any_k(dev):
+    """K = 6000 neurons crowd a small volume: every brick lists thousands of
+    candidates, handed to A and B in several shared-memory chunks; both
+    still match float64 (the kernel before the chunks raised past ~3,100
+    neurons)."""
+    size, k = (24, 16, 6), 6000
+    betas, pos, pos_t, sigma, c, y = _brick_inputs(size, k, dev,
+                                                   "normalized", False, b=2)
+    d = [t.double() for t in (betas, pos, pos_t, sigma, c, y)]
+    fused.reset_launch_counts()
+    got = (*fused.motion_block(betas, pos, sigma, c, y, size),
+           fused.c1_block(betas, pos, sigma, y, size),
+           fused.c1_block(betas, pos_t, sigma, y, size))
+    ref = (*fused.motion_block_plain(d[0], d[1], d[3], d[4], d[5], size),
+           fused.c1_block_plain(d[0], d[1], d[3], d[5], size),
+           fused.c1_block_plain(d[0], d[2], d[3], d[5], size))
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert rel_err(g, r) <= 1e-4
+    counts = fused.launch_counts()
+    assert counts["motion_block"] == counts["c1_block"] == 1
+    assert counts["c1_block_tracked"] == 1
+
+
+def test_refine_raises_where_k_outgrows_shared_memory(dev):
+    """D keeps K rows in shared memory; its entry point asks the card for
+    the kernel's static arrays and the block limit, so every K either runs
+    or raises ValueError with nothing launched.  The largest K that runs
+    is found by bisection; one more raises."""
+    size = (16, 16, 4)
+
+    def runs(k):
+        betas, _, pos_t, sigma, c, y = _brick_inputs(size, k, dev,
+                                                     "normalized", False, b=1)
+        fused.reset_launch_counts()
+        try:
+            fused.refine_block(betas, pos_t, sigma, c, y, size,
+                               want_dsigma=True)
+        except ValueError as err:
+            assert "shared memory" in str(err)
+            assert fused.launch_counts()["refine_block"] == 0
+            return False
+        torch.cuda.synchronize()
+        assert fused.launch_counts()["refine_block"] == 1
+        return True
+
+    lo, hi = 1000, 20000
+    assert runs(lo) and not runs(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if runs(mid) else (lo, mid)
+    # 16 floats of rows per neuron with dsigma, in 227 KB less the
+    # kernel's static arrays.
+    assert 3000 < lo < 227 * 1024 // 64
+    assert runs(lo) and not runs(lo + 1)
+
+
+@pytest.mark.parametrize("aniso", [False, True])
+def test_neuron_table_on_the_card_is_the_plain_table(dev, aniso):
+    """``build_table`` (csrc/table.cu) against ``neuron_table_plain``: the
+    same order (stable among ties in m) and rows, with K over several of
+    the kernel's shared tiles and thread blocks."""
+    size, k = (40, 36, 6), 2500
+    _, pos, pos_t, sigma, _, _ = _brick_inputs(size, k, dev, "normalized",
+                                               aniso)
+    pos_t[:, 7, 0] = pos_t[:, 8, 0]
+    pos_t[:, 100:140, 0] = 5.0
+    for where in (pos[None], pos_t):
+        table, order, rmax = fused.neuron_table(where, sigma)
+        t_ref, o_ref, r_ref = fused.neuron_table_plain(where.cpu(),
+                                                       sigma.cpu())
+        torch.cuda.synchronize()
+        assert torch.equal(rmax.cpu(), r_ref)
+        assert order.dtype == torch.int64
+        assert torch.equal(order.cpu(), o_ref)
+        assert torch.equal(table.cpu()[..., :3], t_ref[..., :3])
+        assert torch.equal(table.cpu()[..., 8:11], t_ref[..., 8:11])
+        torch.testing.assert_close(table.cpu(), t_ref, rtol=1e-6, atol=0.0)
 
 
 # ------------------------------------------------ registration: F and G

@@ -153,18 +153,22 @@ def test_refine_block_counts_on_cpu(rng):
 
 
 def test_refine_table_sorts_each_frame(rng):
+    """The refine kernel's per-frame tables (``neuron_table``; its plain
+    version on CPU tensors): rows sorted by each frame's own m, the trace
+    kept out of the table (the kernel reads it through ``order``)."""
     size, k, scaling = CASES["deep_z"]
     betas, pos_t, sigma, c, _ = _inputs(rng, size, k, scaling, aniso=True)
-    table, order, rmax = fused.refine_table(pos_t, sigma, c)
+    table, order, rmax = fused.neuron_table(pos_t, sigma)
     assert tuple(table.shape) == (pos_t.shape[0], k, fused.REFINE_ROW)
+    assert order.dtype == torch.int64
     assert bool((table[:, 1:, 0] >= table[:, :-1, 0]).all())
     for b in range(pos_t.shape[0]):
+        ob = order[b]
         np.testing.assert_array_equal(table[b, :, :3].numpy(),
-                                      pos_t[b, order[b]].numpy())
-        np.testing.assert_array_equal(table[b, :, 6].numpy(),
-                                      c[b, order[b]].numpy())
+                                      pos_t[b, ob].numpy())
         np.testing.assert_array_equal(table[b, :, 8:11].numpy(),
-                                      (6.0 * sigma[order[b]]).numpy())
+                                      (6.0 * sigma[ob]).numpy())
+    assert not bool(table[..., 6].any())
     assert float(rmax) == float(6.0 * sigma[:, 0].max())
 
 
