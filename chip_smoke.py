@@ -4,11 +4,13 @@
     python3 chip_smoke.py --profile   # only the kernel breakdowns
 
 ``--profile`` prints the ``torch.profiler`` device time, launch by
-launch, of the phase-correlation kernel F at the pipeline's patch grid
-and of the motion kernel A, the c1 kernel B (shared anchors and
-per-frame positions) and the refine kernel D (with and without dsigma)
-at the whole-brain shape with 2 and 16 frames, each beside its time per
-call and the host's share of it, and stops.
+launch, of the phase-correlation kernel F at the pipeline's patch grid,
+of the fused warp G at ``bench.py``'s whole-brain patch grid (16
+frames), and of the Gram kernel (C at shared anchors, E at per-frame
+positions, C4 from rows), the motion kernel A, the c1 kernel B (shared
+anchors and per-frame positions) and the refine kernel D (with and
+without dsigma) at the whole-brain shape with 2 and 16 frames, each
+beside its time per call and the host's share of it, and stops.
 
 Phases, each of which exits non-zero on failure:
 
@@ -26,8 +28,9 @@ Phases, each of which exits non-zero on failure:
    brick kernels (motion, c1 at shared anchors and per-frame positions,
    refine) also report the (frame, voxel, neuron) triples their brick
    culling evaluates (each kernel's own count per brick) beside the
-   active ones the bounds count, and their neuron table (csrc/table.cu)
-   is held against its plain version;
+   active ones the bounds count, the Gram kernels (C, E, C4) the neuron
+   pairs they sum beside the active pairs, and their neuron table
+   (csrc/table.cu) is held against its plain version;
 5. main path: ``DeformableNMF.fit`` on a seeded synthetic ground-truth
    video at the ROI shapes with T=256 (2 rounds, gram_mode="auto", so the
    closed-form Grams, the c1 pass and the exact-Gram audit all run; then
@@ -196,7 +199,15 @@ EARLIER_MS = {("refine_block", "roi"): 1.3885,
               ("c1_block", "roi"): 0.9059,
               ("c1_block", "whole_brain"): 1.9410,
               ("c1_block_tracked", "roi"): 0.9004,
-              ("c1_block_tracked", "whole_brain"): 1.9809}
+              ("c1_block_tracked", "whole_brain"): 1.9809,
+              ("gram_block", "roi"): 3.5434,
+              ("gram_block", "whole_brain"): 11.4524,
+              ("gram_block_tracked", "roi"): 3.5782,
+              ("gram_block_tracked", "whole_brain"): 11.1116,
+              ("gram_block_rows", "roi"): 3.4963,
+              ("gram_block_rows", "whole_brain"): 9.7140,
+              ("fused_separable_warp", "roi"): 0.9263,
+              ("fused_separable_warp", "whole_brain"): 10.8616}
 # The whole-brain pipeline, streamed from a raw file on disk.
 PIPE_T = 64  # frames
 PIPE_BLOCK = 16  # frames per streamed block
@@ -393,6 +404,8 @@ def kernel_phase(dev, name, size, k, frames, margin):
             ("c1_block", fused.c1_block(betas, pos, sigma, y, size,
                                         brick_counts=True)[1])):
         say_candidates(kname, name, counts, size, n1)
+    say_pairs("gram_block", name, fused.gram_block(
+        betas, pos, sigma, y, size, brick_counts=True)[2], size, n1, n2)
     return out
 
 
@@ -420,6 +433,21 @@ def say_candidates(kname, name, counts, size, n1):
         f"{float(counts.double().mean()):.3f} neurons per brick of "
         f"{fused.refine_bricks(size)}), active pairs n1 {n1:.4e} (ratio "
         f"{pairs / max(n1, 1.0):.3f})")
+
+
+def say_pairs(kname, name, counts, size, n1, n2):
+    """Print the (frame, voxel, neuron pair) triples that the Gram kernel
+    sums, from its own candidate counts per brick ``[B, n_bricks]`` (a
+    brick of ``n`` candidates sums their ``n (n + 1) / 2`` pairs at each
+    voxel), beside the active pairs, ``(n2 + n1) / 2``."""
+    ids, nb = fused.brick_ids(size, counts.device)
+    vox = torch.bincount(ids, minlength=nb).double()
+    n = counts.double()
+    pairs = float((n * (n + 1.0) / 2.0 * vox).sum())
+    active = (n2 + n1) / 2.0
+    say(f"kernel {kname} {name}: candidate pairs {pairs:.4e} (mean "
+        f"{float(n.mean()):.3f} candidates per brick), active pairs "
+        f"{active:.4e} (ratio {pairs / max(active, 1.0):.3f})")
 
 
 def tracked_kernel_phase(dev, name, size, k, frames, margin):
@@ -458,6 +486,8 @@ def tracked_kernel_phase(dev, name, size, k, frames, margin):
         betas, pos_t, sigma, c, y, size, brick_counts=True)[2], size, n1)
     say_candidates("c1_block_tracked", name, fused.c1_block_tracked(
         betas, pos_t, sigma, y, size, brick_counts=True)[1], size, n1)
+    say_pairs("gram_block_tracked", name, fused.gram_block_tracked(
+        betas, pos_t, sigma, y, size, brick_counts=True)[2], size, n1, n2)
     cases["c1_block_tracked"] = (
         functools.partial(fused.c1_block_tracked, size=size),
         functools.partial(fused.c1_block_plain, size=size),
@@ -484,7 +514,7 @@ def rows_kernel_phase(dev, name, size, k, frames, margin, c_ms):
     psi, w = fused.psi_rows(betas, size)
 
     def kern():
-        return fused.gram_block_rows(psi, w, pos, sigma, y)
+        return fused.gram_block_rows(psi, w, pos, sigma, y, size)
 
     def plain():
         return fused.gram_block_rows_plain(psi, w, pos, sigma, y)
@@ -516,13 +546,16 @@ def rows_kernel_phase(dev, name, size, k, frames, margin, c_ms):
                  f"{KERNEL_TOL}")
     del oracle, p32, in_kernel
     n1, n2 = active_pairs(betas, pos, sigma, size)
+    say_pairs("gram_block_rows", name, fused.gram_block_rows(
+        psi, w, pos, sigma, y, size, brick_counts=True)[2], size, n1, n2)
     ms, plain_ms = time_ms(kern), time_ms(plain)
     op_ms = time_ms(lambda: fused.gram_block(betas, pos, sigma, y, size,
                                              psi_source="stream"))
     bound_ms, bound_by = bound(
         nbytes(psi, w, pos, sigma, y, *got),
         footprint_flops("gram_block_rows", frames, y.shape[1], n1, n2))
-    say(f"time gram_block_rows {name}: kernel {ms:.4f} ms on given rows, "
+    say(f"time gram_block_rows {name}: kernel {ms:.4f} ms on given rows"
+        f"{earlier('gram_block_rows', name)}, "
         f"op entry with psi_rows {op_ms:.4f} ms, in-kernel-rows Gram "
         f"{c_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}) ({frames} frames)")
@@ -815,6 +848,21 @@ def registration_inputs(dev, size, strides, overlaps, max_shifts, max_dev):
                 tim=tim, t_pats=t_pats, bounds=bounds)
 
 
+def warp_shifts(inp, max_shifts, max_dev):
+    """G's inputs for a block of :func:`registration_inputs`: rigid shifts
+    ``rs [B, 3]`` within ``max_shifts`` and patch shifts ``ps [B, G, 3]``
+    spread ``max_dev + 3`` px around them, so that the field clip is
+    active."""
+    gen, dev = inp["gen"], inp["gen"].device
+    kw = dict(generator=gen, device=dev)
+    b = REG_BLOCK
+    rs = (torch.rand((b, 3), **kw) * 2.0 - 1.0) * torch.tensor(
+        [float(ms) for ms in max_shifts], device=dev)
+    ps = rs[:, None] + (torch.rand((b, len(inp["starts"]), 3), **kw) * 2.0
+                        - 1.0) * (max_dev + 3.0)
+    return rs, ps
+
+
 def device_breakdown(label, run, reps=5):
     """Print the device time of ``run()`` by kernel name under
     ``torch.profiler`` (launches and ms per call), its time per call by
@@ -859,11 +907,12 @@ def device_breakdown(label, run, reps=5):
 
 
 def profile_kernels(dev):
-    """Device breakdowns of kernel F (at the pipeline's patch grid) and of
-    kernels A (motion), B (c1 at shared anchors and at per-frame
-    positions) and D (refine, with and without dsigma) at the whole-brain
-    shape with 2 and 16 frames (16: the pipeline's frame block):
-    ``python3 chip_smoke.py --profile``."""
+    """Device breakdowns of kernel F (at the pipeline's patch grid), of G
+    (at ``bench.py``'s whole-brain patch grid, 16 frames) and of kernels C,
+    E and C4 (the Gram), A (motion), B (c1 at shared anchors and at
+    per-frame positions) and D (refine, with and without dsigma) at the
+    whole-brain shape with 2 and 16 frames (16: the pipeline's frame
+    block): ``python3 chip_smoke.py --profile``."""
     inp = registration_inputs(dev, *REG_SHAPES["pipeline"])
     z = inp["window"][2]
     cap = max(1, int(2 * REG_SHAPES["pipeline"][4]))
@@ -874,6 +923,16 @@ def profile_kernels(dev):
                                            inp["tim"], inp["bounds"], z=z,
                                            max_window=(cap, cap, cap)))
     del inp
+    size, strides, overlaps, max_shifts, max_dev = REG_SHAPES["whole_brain"]
+    inp = registration_inputs(dev, size, strides, overlaps, max_shifts,
+                              max_dev)
+    rs, ps = warp_shifts(inp, max_shifts, max_dev)
+    device_breakdown(
+        f"G whole-brain (grid {inp['grid_shape']}, {REG_BLOCK} frames)",
+        lambda: warp.fused_separable_warp(inp["frames"], ps, rs,
+                                          inp["grid_shape"], size,
+                                          max_shifts, max_dev))
+    del inp, rs, ps
     size, k, _, margin = SHAPES["whole_brain"]
     for frames in (2, 16):
         betas, pos, sigma, c, y = kernel_inputs(dev, size, k, frames, margin,
@@ -882,6 +941,14 @@ def profile_kernels(dev):
         pos_t = pos[None] + torch.randn((frames, k, 3), generator=gen,
                                         device=dev)
         wb = f"whole-brain {frames} frames"
+        device_breakdown(f"C {wb}", lambda: fused.gram_block(
+            betas, pos, sigma, y, size))
+        device_breakdown(f"E {wb}", lambda: fused.gram_block_tracked(
+            betas, pos_t, sigma, y, size))
+        psi, w = fused.psi_rows(betas, size)
+        device_breakdown(f"C4 {wb}", lambda: fused.gram_block(
+            betas, pos, sigma, y, size, psi_source="stream", rows=(psi, w)))
+        del psi, w
         device_breakdown(f"A {wb}", lambda: fused.motion_block(
             betas, pos, sigma, c, y, size))
         device_breakdown(f"B1 {wb}", lambda: fused.c1_block(
@@ -893,6 +960,13 @@ def profile_kernels(dev):
                 f"D {wb} dsigma={want}",
                 lambda: fused.refine_block(betas, pos_t, sigma, c, y, size,
                                            want_dsigma=want))
+    # The Gram where every brick lists thousands of neurons: K = 6000
+    # crowd a 24x16x6 volume (one call after a warm-up).
+    size, k = (24, 16, 6), 6000
+    betas, pos, sigma, _, y = kernel_inputs(dev, size, k, 2, 0.0, SEED)
+    ms = time_ms(lambda: fused.gram_block(betas, pos, sigma, y, size), 1)
+    say(f"profile C crowded ({size}, K={k}, 2 frames): {ms:.4f} ms per call "
+        "(CUDA events)")
 
 
 def registration_kernel_phase(dev, name, size, strides, overlaps,
@@ -913,7 +987,6 @@ def registration_kernel_phase(dev, name, size, strides, overlaps,
     tre64, tim64 = phasecorr.patch_spectra(inp["t_pats"].double())
     del inp
     b = REG_BLOCK
-    kw = dict(generator=gen, device=dev)
     z = window[2]
 
     # The registration path's call: ub - lb <= 2 max_dev bounds the
@@ -969,10 +1042,7 @@ def registration_kernel_phase(dev, name, size, strides, overlaps,
     if not with_warp:
         return time_kernels(name, b, timed)
 
-    rs = (torch.rand((b, 3), **kw) * 2.0 - 1.0) * torch.tensor(
-        [float(ms) for ms in max_shifts], device=dev)
-    ps = rs[:, None] + (torch.rand((b, len(starts), 3), **kw) * 2.0
-                        - 1.0) * (max_dev + 3.0)
+    rs, ps = warp_shifts(dict(gen=gen, starts=starts), max_shifts, max_dev)
     g_args = (grid_shape, size, max_shifts, max_dev)
 
     def g_kernel():

@@ -1,5 +1,6 @@
 // Spatial-brick culling of warped Gaussian footprints, shared by the
-// motion (motion.cu), c1 (c1.cu) and refine (refine.cu) kernels.
+// motion (motion.cu), c1 (c1.cu), Gram (gram.cu) and refine (refine.cu)
+// kernels.
 //
 // A thread block owns a brick of pixels: bm x bn x bz voxels of the
 // (m, n, z) grid, pixel index p = (m * N + n) * Z + z as in footprint.cuh.
@@ -14,8 +15,8 @@
 // that window is tested on all three axes.  The list keeps table order,
 // so everything summed over it repeats exactly.  The table stays in
 // global memory (L1/L2-resident: 64 bytes per neuron), and a kernel gets
-// the listed rows in chunks of at most its shared-memory capacity, so the
-// motion and c1 kernels take any K.
+// the listed rows in chunks of at most its shared-memory capacity, so
+// every brick kernel takes any K.
 #pragma once
 
 #include <type_traits>
@@ -208,7 +209,7 @@ __device__ __forceinline__ void slot_basis(const float* coord,
 // while the candidates are listed), and the per-warp partials of the
 // brick's psi box in red (box_partials).  The brick's
 // basis coordinates (basis_coord of its m, n and z values: the bits
-// basis_at gives) go to coord first, so each pixel multiplies instead of
+// basis_xyz takes) go to coord first, so each pixel multiplies instead of
 // dividing.  Slots past the brick get psi = 0.  red: shared scratch of
 // NWARPS * 6 floats; coord: COORDS shared floats that no thread reads
 // until the next barrier (alternate two tables between bricks).
@@ -253,28 +254,16 @@ __device__ __forceinline__ void brick_pixels(const Brick& br,
   box_partials(lo, hi, red);
 }
 
-// The candidates of a brick: the rows of an m-sorted table tab (k rows of
-// TROW floats; its m column at pm, every pm_stride floats, in global or
-// shared memory; rm its largest m reach, from table.cu) whose reach box
-// meets the brick's psi box, in table order.  The box comes from the
-// warps' partials in red (brick_pixels) into box (6 shared floats); warps
-// 0 and 1 bound the m window by warp searches, then every thread tests its
-// rows on all three axes.  Each kept row's index goes to s_cand[slot] and emit(slot, index,
-// row) copies what the kernel needs of it into the kernel's own slots.
-// The list is handed over in chunks of at most cap rows (cap >= THREADS):
-// after a barrier, body(n, first, last) uses slots [0, n), then a barrier
-// frees them; the last chunk, perhaps with n = 0, is always handed over.
-// With cap = k the list comes in one chunk and stays in the slots after
-// the return, until the next listing.  Returns the count, in
-// every thread.  s_warp_n: NWARPS ints, s_range: 2 ints, of shared memory.
-template <class Emit, class Body>
-__device__ __forceinline__ int list_candidates(const float* tab,
-                                               const float* pm, int pm_stride,
-                                               int k, float rm, int cap,
-                                               const float* red, float* box,
-                                               int* s_cand, int* s_warp_n,
-                                               int* s_range, Emit emit,
-                                               Body body) {
+// The brick's psi box and its m window of an m-sorted table (k rows; its
+// m column at pm, every pm_stride floats, in global or shared memory; rm
+// its largest m reach, from table.cu): the box comes from the warps'
+// partials in red (brick_pixels) into box (6 shared floats), then warps 0
+// and 1 bound the rows [s_range[0], s_range[1]) whose m reach can meet it
+// by warp searches.  Ends with a barrier.  s_range: 2 shared ints.
+__device__ __forceinline__ void candidate_window(const float* pm,
+                                                 int pm_stride, int k,
+                                                 float rm, const float* red,
+                                                 float* box, int* s_range) {
   const int tid = threadIdx.x, wid = tid >> 5;
   if (tid < 6) box[tid] = box_entry(red, tid);
   if (wid < 2) {
@@ -284,9 +273,63 @@ __device__ __forceinline__ int list_candidates(const float* tab,
     if ((tid & 31) == 0) s_range[wid] = i;
   }
   __syncthreads();
+}
+
+// One chunk of a listing: the rows from c0 up to i1 of table tab (rows of
+// TROW floats) whose reach box meets the psi box, tested THREADS rows a
+// round (every thread on all three axes) and kept in table order: each
+// kept row's index goes to s_cand[slot] and emit(slot, index, row) copies
+// what the kernel needs of it into the kernel's own slots, slots [0, n).
+// Stops before a round that could pass cap slots (cap >= THREADS); next
+// gets the first row not tested.  Returns n, in every thread.  Contains
+// barriers (block_compact); s_warp_n: NWARPS shared ints.
+template <class Emit>
+__device__ __forceinline__ int list_chunk(const float* tab, int c0, int i1,
+                                          int cap, const float* box,
+                                          int* s_cand, int* s_warp_n,
+                                          int& next, Emit emit) {
+  const int tid = threadIdx.x;
+  int nc = 0;
+  for (; c0 < i1 && nc + min(THREADS, i1 - c0) <= cap; c0 += THREADS) {
+    const int kk = c0 + tid;
+    bool keep = false;
+    if (kk < i1) {
+      const float* row = tab + (size_t)kk * TROW;
+      const float p[3] = {row[0], row[1], row[2]};
+      const float r[3] = {row[8], row[9], row[10]};
+      keep = box_meets(p, r, box);
+    }
+    int total;
+    const int slot = block_compact(keep, nc, s_warp_n, &total);
+    if (slot >= 0) {
+      s_cand[slot] = kk;
+      emit(slot, kk, tab + (size_t)kk * TROW);
+    }
+    nc += total;
+  }
+  next = min(c0, i1);
+  return nc;
+}
+
+// The candidates of a brick (candidate_window, then list_chunk's rounds),
+// handed over in chunks of at most cap rows: after a barrier, body(n, first,
+// last) uses slots [0, n), then a barrier frees them; the last chunk,
+// perhaps with n = 0, is always handed over.  Returns the count, in every
+// thread.
+template <class Emit, class Body>
+__device__ __forceinline__ int list_candidates(const float* tab,
+                                               const float* pm, int pm_stride,
+                                               int k, float rm, int cap,
+                                               const float* red, float* box,
+                                               int* s_cand, int* s_warp_n,
+                                               int* s_range, Emit emit,
+                                               Body body) {
+  candidate_window(pm, pm_stride, k, rm, red, box, s_range);
+  const int tid = threadIdx.x;
   const int i0 = s_range[0], i1 = s_range[1];
   int nc = 0, done = 0;
-  // One call site of body, so that it is inlined once.
+  // list_chunk's rounds, written out so that A's and B's loops stay as
+  // they were tuned; one call site of body, so that it is inlined once.
   for (int c0 = i0;; c0 += THREADS) {
     if (c0 < i1) {
       const int kk = c0 + tid;

@@ -1,24 +1,14 @@
 // Shared device code of the demixing kernels (motion.cu, c1.cu, gram.cu,
-// refine.cu).
+// refine.cu, through cull.cuh).
 //
-// Every kernel evaluates warped Gaussian footprints on the fly from flat
-// voxel indices: pixel index -> (m, n, z) by integer divmod, the 10
-// quadratic basis values, the per-frame warp psi_d = sum_j beta[j][d]
-// phi_j (denormalized for the "normalized" parameterization), the border
-// fade w = prod_d clip(1 + min(psi_d, hi_d - psi_d), 0, 1), and the
-// Gaussian in direct (psi - p)^2 form with exp2f.  A matmul-form exponent
-// would sum cancelling O(coord^2) terms, so it is never used.
-//
-// The motion, c1 and refine kernels cull by spatial bricks (cull.cuh).
-// The Gram kernel (gram.cu) culls by m alone: neuron parameters arrive
-// sorted by their m coordinate, in blocks of KB neurons; each block
-// carries an m-interval [lo, hi] widened by 6 sigma, and a warp (32
-// consecutive pixels) skips a block whose interval misses the warp's
-// deformed-m range: exp(-36) ~ 2e-16 is below float32 resolution.  With
-// per-frame (tracked) positions the table holds one row set per frame,
-// prm_stride floats apart (0 for shared anchors), sorted by each neuron's
-// mean m; a block's interval spans its members' m over all frames, so the
-// same culling holds in every frame.
+// Every kernel evaluates warped Gaussian footprints on the fly: the 10
+// quadratic basis values of a voxel, the per-frame warp psi_d = sum_j
+// beta[j][d] phi_j (denormalized for the "normalized" parameterization),
+// the border fade w = prod_d clip(1 + min(psi_d, hi_d - psi_d), 0, 1), and
+// the Gaussian in direct (psi - p)^2 form with exp2f.  A matmul-form
+// exponent would sum cancelling O(coord^2) terms, so it is never used.
+// Pixel index p = (m * N + n) * Z + z.  The kernels cull by spatial
+// bricks (cull.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,9 +16,6 @@
 
 namespace dnmf {
 
-constexpr int KB = 32;        // neurons per culling block
-constexpr int NPARAM = 8;     // params row: px py pz sx sy sz 0 0
-                              // (s_d = log2(e) / sigma_d^2)
 constexpr int THREADS = 256;  // threads per block of every kernel
 constexpr int NWARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -55,19 +42,6 @@ __device__ __forceinline__ void basis_xyz(float x, float y, float z,
   phi[7] = x * y; phi[8] = x * z; phi[9] = y * z;
 }
 
-// The 10 quadratic basis values at voxel (mi, ni, zi).
-__device__ __forceinline__ void basis_at(int mi, int ni, int zi,
-                                         const Geom& g, float phi[10]) {
-  basis_xyz(basis_coord(mi, 0, g), basis_coord(ni, 1, g),
-            basis_coord(zi, 2, g), phi);
-}
-
-// The basis at flat voxel index p = (mi * N + ni) * Z + zi.
-__device__ __forceinline__ void basis(int p, const Geom& g, float phi[10]) {
-  const int rest = p / g.Z;
-  basis_at(rest / g.N, rest % g.N, p % g.Z, g, phi);
-}
-
 // Pixel-space deformed coordinates; beta is one frame's [10][3] row-major.
 __device__ __forceinline__ void warp_psi(const float* beta, const float phi[10],
                                          const Geom& g, float psi[3]) {
@@ -90,7 +64,7 @@ __device__ __forceinline__ float fade(const float psi[3], const Geom& g) {
          fade_axis(psi[2], g.hi[2]);
 }
 
-// Raw Gaussian of one neuron (params row prm) at psi.
+// Raw Gaussian of one neuron at psi: prm = p (3), log2(e) / sigma_d^2 (3).
 __device__ __forceinline__ float gauss(const float* prm, const float psi[3]) {
   const float dx = prm[0] - psi[0];
   const float dy = prm[1] - psi[1];

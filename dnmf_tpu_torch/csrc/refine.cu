@@ -28,27 +28,30 @@
 //    pixel's warp and fade in registers: one warp evaluation per pixel.
 //  * the brick's exact psi box (block min/max) against each neuron's
 //    per-axis 6 sigma box, on the frame's own m-sorted table (table.cu; a
-//    search for the m window, then all three axes; list_candidates, shared
-//    with motion.cu and c1.cu): the candidate list, in table order, in
-//    shared memory, with each neuron's trace (c_rows: the traces in table
-//    order); its length goes to `counts`.
+//    search for the m window, then all three axes; candidate_window and
+//    list_chunk, shared with motion.cu, c1.cu and gram.cu): the
+//    candidates, in table order, with each neuron's trace (c_rows: the
+//    traces in table order), into shared rows CAND at a time, so any K
+//    runs (a list of several chunks is listed twice: S, then the
+//    moments); their count goes to `counts`.
 //  * residual phase: S over the candidates only, r w kept in registers,
 //    the squared residual summed per thread;
 //  * moments phase: per chunk of candidates, NMOM sums per thread,
-//    block-reduced in a fixed order and added to shared per-neuron
-//    accumulators of the group.
-//  * the group writes its dense [K][NMOM] partials and its SSE;
-//    refine_finish adds the groups in a fixed order (a warp per neuron),
-//    applies the 4 c / (P s^n) factors and writes each neuron's gradient
-//    at its place in the caller's order.  No float atomics: results repeat
-//    exactly, and a frame's result does not depend on the other frames of
-//    the call (the group count depends only on the volume and K).
+//    block-reduced in a fixed order and added by one thread each to the
+//    group's own dense [K][NMOM] row of partials in global memory (zeroed
+//    first; the barriers order the additions);
+//  * refine_finish adds the groups' rows and SSEs in a fixed order (a
+//    warp per neuron), applies the 4 c / (P s^n) factors and writes each
+//    neuron's gradient at its place in the caller's order.  No float
+//    atomics: results repeat exactly, and a frame's result does not depend
+//    on the other frames of the call (the group count depends only on the
+//    volume and K).
 #include "cull.cuh"
 
 namespace dnmf {
 
-constexpr int CPARAM = 8;   // candidate row in shared memory: p, s, c, 0
-constexpr int SHARED_TOO_SMALL = -1;  // dnmf_refine: K's rows do not fit
+constexpr int CPARAM = 8;          // candidate row in shared memory: p, s, c, 0
+constexpr int CAND = 2 * THREADS;  // candidate rows listed at a time
 
 // Three blocks per SM (80 registers): the dsigma variant otherwise takes
 // 105 and runs at two, ~15% slower at 16 frames.
@@ -63,11 +66,8 @@ refine_bricks(const float* __restrict__ betas, const float* __restrict__ table,
   constexpr int CH = NMOM == 6 ? 4 : 8;  // candidates per moments chunk
   constexpr int NACC = CH * NMOM;
   const int grp = blockIdx.x, n_groups = gridDim.x, b = blockIdx.y;
-  extern __shared__ float smem[];
-  float* s_acc = smem;                            // [k][NMOM]
-  float* s_cprm = s_acc + (size_t)k * NMOM;       // [k][CPARAM]
-  float* s_pm = s_cprm + (size_t)k * CPARAM;      // [k] the table's m
-  int* s_cand = (int*)(s_pm + k);                 // [k]
+  __shared__ float s_cprm[CAND * CPARAM];
+  __shared__ int s_cand[CAND];
   __shared__ float s_beta[30];
   __shared__ float s_red[NWARPS * NACC];
   __shared__ float s_box[6];
@@ -79,13 +79,14 @@ refine_bricks(const float* __restrict__ betas, const float* __restrict__ table,
   const int tid = threadIdx.x;
   if (tid < 30) s_beta[tid] = betas[b * 30 + tid];
   brick_slots(bk, s_off);
-  for (int i = tid; i < k * NMOM; i += THREADS) s_acc[i] = 0.0f;
+  // The group's own dense [k][NMOM] row of partials, in table order; the
+  // barriers of the first listing order these stores before any addition.
+  float* out = mom_part + ((size_t)b * n_groups + grp) * k * NMOM;
+  for (int i = tid; i < k * NMOM; i += THREADS) out[i] = 0.0f;
   const float* tab = table + (size_t)b * k * TROW;
   const float* cr = c_rows + (size_t)b * k;
-  for (int i = tid; i < k; i += THREADS) s_pm[i] = tab[(size_t)i * TROW];
   const float* yb = y + (size_t)b * g.P;
   const float rm = *rmax;
-  __syncthreads();
 
   float sse = 0.0f;
   const int first = grp * bricks_per_group;
@@ -94,71 +95,94 @@ refine_bricks(const float* __restrict__ betas, const float* __restrict__ table,
     const Brick br = brick_at(id, bk, g);
     float* coord = s_coord[(id - first) & 1];
     const int npix = br.count();
-    // The warp of this thread's pixels, once, and the candidates.
+    // The warp of this thread's pixels, once; rw holds S, then r w.
     float psi[PPT][3], rw[PPT], yv[PPT];
     brick_pixels<true>(br, bk, g, s_off, coord, s_beta, yb, psi, yv, s_red);
-    // The whole list at once (cap k): it stays in the slots after the
-    // listing returns.
-    const int nc = list_candidates(
-        tab, s_pm, 1, k, rm, k, s_red, s_box, s_cand, s_warp_n, s_range,
-        [&](int slot, int kk, const float* row) {
 #pragma unroll
-          for (int j = 0; j < 6; ++j) s_cprm[slot * CPARAM + j] = row[j];
-          s_cprm[slot * CPARAM + 6] = cr[kk];
-          s_cprm[slot * CPARAM + 7] = 0.0f;
-        },
-        [](int, bool, bool) {});
-    if (tid == 0) counts[(size_t)b * n_bricks + id] = nc;
-
-    // Residual phase: S over the candidates.
+    for (int i = 0; i < PPT; ++i) rw[i] = 0.0f;
+    candidate_window(tab, TROW, k, rm, s_red, s_box, s_range);
+    const int i1 = s_range[1];
+    // Phase 0 lists the candidates chunk by chunk and sums S; phase 1
+    // takes the moments, from the slots where the list came in one chunk,
+    // else listing it again.  One call site of the listing and of each
+    // phase.
+    bool chunked = false;  // block-uniform: the list came in several chunks
+    int nc = 0, n = 0, c0 = s_range[0], phase = 0;
+    for (;;) {
+      if (phase == 0 || chunked) {
+        int next;
+        n = list_chunk(tab, c0, i1, CAND, s_box, s_cand, s_warp_n, next,
+                       [&](int slot, int kk, const float* row) {
 #pragma unroll
-    for (int i = 0; i < PPT; ++i) {
-      rw[i] = 0.0f;
-      if (tid + i * THREADS >= npix) continue;
-      float S = 0.0f;
-      for (int c = 0; c < nc; ++c) {
-        const float* pk = &s_cprm[c * CPARAM];
-        S = fmaf(pk[6], gauss(pk, psi[i]), S);
+                         for (int j = 0; j < 6; ++j)
+                           s_cprm[slot * CPARAM + j] = row[j];
+                         s_cprm[slot * CPARAM + 6] = cr[kk];
+                         s_cprm[slot * CPARAM + 7] = 0.0f;
+                       });
+        c0 = next;
+        __syncthreads();
       }
-      const float w = fade(psi[i], g);
-      const float r = w * S - yv[i];
-      sse = fmaf(r, r, sse);
-      rw[i] = r * w;
-    }
-
-    // Moments phase: CH candidates at a time.
-    for (int c0 = 0; c0 < nc; c0 += CH) {
-      float acc[NACC];
+      const bool listed = c0 >= i1;  // the chunk was the list's last
+      if (phase == 0) {
+        // Residual phase: S over the chunk's candidates, then r w.
+        nc += n;
+        chunked = chunked || !listed;
 #pragma unroll
-      for (int j = 0; j < NACC; ++j) acc[j] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < PPT; ++i) {
-        if (tid + i * THREADS >= npix) continue;
-#pragma unroll
-        for (int cc = 0; cc < CH; ++cc) {
-          if (c0 + cc >= nc) continue;
-          const float* pk = &s_cprm[(c0 + cc) * CPARAM];
-          const float a = gauss(pk, psi[i]) * rw[i];
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float dd = psi[i][d] - pk[d];
-            acc[cc * NMOM + d] = fmaf(a, dd, acc[cc * NMOM + d]);
-            if (NMOM == 6)
-              acc[cc * NMOM + 3 + d] = fmaf(a * dd, dd, acc[cc * NMOM + 3 + d]);
+        for (int i = 0; i < PPT; ++i) {
+          if (tid + i * THREADS >= npix) continue;
+          float S = rw[i];
+          for (int c = 0; c < n; ++c) {
+            const float* pk = &s_cprm[c * CPARAM];
+            S = fmaf(pk[6], gauss(pk, psi[i]), S);
+          }
+          rw[i] = S;
+          if (listed) {
+            const float w = fade(psi[i], g);
+            const float r = w * S - yv[i];
+            sse = fmaf(r, r, sse);
+            rw[i] = r * w;
           }
         }
+        if (listed) {
+          phase = 1;
+          c0 = s_range[0];
+        }
+        continue;
       }
-      block_sum<NACC>(acc, s_red, s_sum);
-      __syncthreads();
-      if (tid < NACC && c0 + tid / NMOM < nc)
-        s_acc[s_cand[c0 + tid / NMOM] * NMOM + tid % NMOM] += s_sum[tid];
-      __syncthreads();
+      // Moments phase: CH candidates at a time.
+      for (int q0 = 0; q0 < n; q0 += CH) {
+        float acc[NACC];
+#pragma unroll
+        for (int j = 0; j < NACC; ++j) acc[j] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) {
+          if (tid + i * THREADS >= npix) continue;
+#pragma unroll
+          for (int cc = 0; cc < CH; ++cc) {
+            if (q0 + cc >= n) continue;
+            const float* pk = &s_cprm[(q0 + cc) * CPARAM];
+            const float a = gauss(pk, psi[i]) * rw[i];
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const float dd = psi[i][d] - pk[d];
+              acc[cc * NMOM + d] = fmaf(a, dd, acc[cc * NMOM + d]);
+              if (NMOM == 6)
+                acc[cc * NMOM + 3 + d] =
+                    fmaf(a * dd, dd, acc[cc * NMOM + 3 + d]);
+            }
+          }
+        }
+        block_sum<NACC>(acc, s_red, s_sum);
+        __syncthreads();
+        if (tid < NACC && q0 + tid / NMOM < n)
+          out[s_cand[q0 + tid / NMOM] * NMOM + tid % NMOM] += s_sum[tid];
+        __syncthreads();
+      }
+      if (!chunked || listed) break;
     }
+    if (tid == 0) counts[(size_t)b * n_bricks + id] = nc;
   }
   block_sum<1>(&sse, s_red, sse_part + (size_t)b * n_groups + grp);
-  __syncthreads();
-  float* out = mom_part + ((size_t)b * n_groups + grp) * k * NMOM;
-  for (int i = tid; i < k * NMOM; i += THREADS) out[i] = s_acc[i];
 }
 
 // Per frame b (blockIdx.y): mse = sum_g sse_part / P; per neuron of the
@@ -213,23 +237,6 @@ refine_finish(const float* __restrict__ table,
   if (NMOM == 6 && !aniso) dsig[o] = ds;
 }
 
-// Sets kernel's dynamic shared memory to `bytes`; SHARED_TOO_SMALL where
-// those and its static arrays exceed what a block may have on this card.
-template <class Kernel>
-int reserve_shared(Kernel kernel, size_t bytes) {
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-  if (e != cudaSuccess) return (int)e;
-  int dev, limit;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return (int)e;
-  if (attr.sharedSizeBytes + bytes > (size_t)limit) return SHARED_TOO_SMALL;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <int NMOM>
 int refine_launch(const float* betas, const float* table,
                   const long long* order, const float* rmax,
@@ -240,10 +247,7 @@ int refine_launch(const float* betas, const float* table,
                   cudaStream_t s) {
   const int n_bricks = bk.nbm * bk.nbn * bk.nbz;
   const int n_groups = (n_bricks + bricks_per_group - 1) / bricks_per_group;
-  const size_t smem = (size_t)k * (NMOM + CPARAM + 2) * sizeof(float);
-  const int e = reserve_shared(refine_bricks<NMOM>, smem);
-  if (e != 0) return e;
-  refine_bricks<NMOM><<<dim3(n_groups, B), THREADS, smem, s>>>(
+  refine_bricks<NMOM><<<dim3(n_groups, B), THREADS, 0, s>>>(
       betas, table, rmax, c_rows, y, sse_part, mom_part, counts, g, bk,
       n_bricks, bricks_per_group, k);
   const cudaError_t le = cudaGetLastError();
@@ -265,9 +269,7 @@ int refine_launch(const float* betas, const float* table,
 // in the caller's neuron order: mse [B], dpos [B][k][3], with want_dsigma
 // dsig ([B][k][3] if aniso, else [B][k]); counts [B][n_bricks] candidates
 // per brick.  Scratch: sse_part [B][n_groups], mom_part
-// [B][n_groups][k][nmom], nmom = 3 (M1) or 6 (M1, M2).  Returns -1
-// (SHARED_TOO_SMALL), launching nothing, where K's rows do not fit a
-// block's shared memory.
+// [B][n_groups][k][nmom], nmom = 3 (M1) or 6 (M1, M2).
 extern "C" int dnmf_refine(const float* betas, const float* table,
                            const long long* order, const float* rmax,
                            const float* c_rows, const float* y,

@@ -32,16 +32,13 @@ _I = ctypes.c_int
 SIGNATURES = {
     "dnmf_c1": [_P] * 8 + [_I] * 11 + [_P],
     "dnmf_motion": [_P] * 8 + [_I] * 10 + [_P],
-    "dnmf_gram": [_P] * 8 + [_I] * 8 + [_P],
-    "dnmf_gram_rows": [_P] * 9 + [_I] * 4 + [_P],
+    "dnmf_gram": [_P] * 11 + [_I] * 12 + [_P],
+    "dnmf_gram_rows": [_P] * 12 + [_I] * 10 + [_P],
     "dnmf_refine": [_P] * 12 + [_I] * 12 + [_P],
     "dnmf_phasecorr": [_P] * 13 + [_I] * 11 + [_P],
-    "dnmf_warp": [_P] * 8 + [_I] * 10 + [ctypes.c_float, _P],
+    "dnmf_warp": [_P] * 7 + [_I] * 14 + [ctypes.c_float, _P],
     "dnmf_table": [_P] * 5 + [_I] * 3 + [_P],
 }
-# Returned, before anything is launched, where the neuron rows that a
-# kernel keeps in shared memory do not fit a thread block's (refine.cu).
-SHARED_TOO_SMALL = -1
 
 _lib = None
 
@@ -117,10 +114,6 @@ def load():
 
 
 def check(err: int, name: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by an entry point
-    (``ValueError`` for ``SHARED_TOO_SMALL``)."""
-    if err == SHARED_TOO_SMALL:
-        raise ValueError(f"{name}: the neuron rows do not fit the kernel's "
-                         "shared memory")
+    """Raise on a non-zero ``cudaError_t`` returned by an entry point."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")

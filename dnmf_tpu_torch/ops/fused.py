@@ -43,7 +43,7 @@ from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import footprints as fp_ops
 from dnmf_tpu_torch.ops import phasecorr, warp
 
-KB = 32  # neurons per culling block of the Gram kernel (csrc/footprint.cuh)
+KB = 32  # neurons per block of sorted_params' tables
 REFINE_BRICK_MN = 8  # brick kernels: brick extent in m and in n
 REFINE_ROW = 16  # floats per neuron row of the brick kernels' tables
 REFINE_PART_FLOATS = 1 << 20  # refine kernel: partial sums per frame
@@ -53,10 +53,15 @@ BRICK_GROUPS = 512
 PART_SHARE = 16
 REACH_SIGMAS = 6.0  # exp(-36) ~ 2e-16: below float32 resolution
 LOG2E = 1.4426950408889634
-GRAM_TILE = 64  # pixels per step of the Gram kernel
 TARGET_BLOCKS = 1056  # 8 thread blocks per SM of an H100
-# Gram grids hold many pair-culled blocks that exit at once: ask for more.
-GRAM_TARGET_BLOCKS = 4 * TARGET_BLOCKS
+# Gram kernel: partial sums per frame (k (k + 1) / 2 per brick group),
+# table rows per split's block (csrc/gram.cu GROWS), at most this many
+# splits per group, and the thread blocks per frame they aim for (one per
+# SM of an H100).
+GRAM_PART_FLOATS = 1 << 22
+GRAM_ROWS = 64
+GRAM_SPLITS = 64
+GRAM_SPLIT_BLOCKS = 132
 _CHUNK_ELEMS = 1 << 25  # plain versions: elements of the [B, chunk, K, 3] diff
 
 
@@ -314,17 +319,19 @@ def _stream() -> int:
 
 
 # -------------------------------------------------------------- wrappers
-def brick_groups(size, floats_per_group: int) -> Tuple[int, int]:
-    """``(bricks per group, groups)`` of the motion and c1 kernels for a
-    volume ``size``: at most ``BRICK_GROUPS`` groups per frame, and at most
-    ``P / PART_SHARE`` partial floats per frame for groups that write
-    ``floats_per_group`` each (32 for the motion kernel, K for c1).  The
-    count depends on the volume and K only, so a frame's result does not
-    depend on the other frames of the call."""
+def brick_groups(size, floats_per_group: int,
+                 budget=None) -> Tuple[int, int]:
+    """``(bricks per group, groups)`` of the brick kernels for a volume
+    ``size``: at most ``BRICK_GROUPS`` groups per frame, and at most
+    ``budget`` partial floats per frame (default ``P / PART_SHARE``) for
+    groups that write ``floats_per_group`` each (32 for the motion kernel,
+    K for c1; :func:`gram_groups`).  The count depends on the volume and K
+    only, so a frame's result does not depend on the other frames of the
+    call."""
     m, n, z = (int(s) for s in size)
     n_bricks = brick_count(size)
-    cap = max(1, min(BRICK_GROUPS, m * n * z // (PART_SHARE
-                                                 * floats_per_group)))
+    budget = m * n * z // PART_SHARE if budget is None else int(budget)
+    cap = max(1, min(BRICK_GROUPS, budget // max(1, floats_per_group)))
     per_group = -(-n_bricks // cap)
     return per_group, -(-n_bricks // per_group)
 
@@ -437,86 +444,125 @@ def c1_block_tracked(betas, pos_t, sigma, y, size,
                       scaling, brick_counts)
 
 
-def _gram_outputs(bsz, p, nkb, device):
-    """``(n_chunks, gpart, cpart, G, c1)``: the partial sums and the padded
-    results of csrc/gram.cu for ``nkb`` neuron blocks."""
-    n_pairs = nkb * (nkb + 1) // 2
-    n_chunks = _n_chunks(p, GRAM_TILE, bsz * n_pairs, GRAM_TARGET_BLOCKS)
-    f32 = dict(dtype=torch.float32, device=device)
-    return (n_chunks, torch.empty((bsz, n_pairs, n_chunks, KB * KB), **f32),
-            torch.empty((bsz, nkb, n_chunks, KB), **f32),
-            torch.empty((bsz, nkb * KB, nkb * KB), **f32),
-            torch.empty((bsz, nkb * KB), **f32))
+def gram_groups(size, k: int) -> Tuple[int, int]:
+    """``(bricks per group, groups)`` of the Gram kernel for a volume
+    ``size`` and ``k`` neurons: each group keeps the upper triangle of a
+    ``k x k`` partial in table order (``k (k + 1) / 2`` floats, of which it
+    touches only its window of table rows), at most ``GRAM_PART_FLOATS``
+    per frame where a group per frame allows it; the count depends on the
+    volume and K only."""
+    return brick_groups(size, k * (k + 1) // 2, GRAM_PART_FLOATS)
 
 
-def _gram_launch(betas, params, blocks, y, size, scaling):
-    """Run csrc/gram.cu on a shared or per-frame neuron table; ``(G, c1)``
-    padded and in sorted order."""
+def gram_splits(size, k: int) -> int:
+    """Thread blocks per group of the Gram kernel: where the ``K x K``
+    partials leave fewer than ``GRAM_SPLIT_BLOCKS`` groups per frame (large
+    K), enough splits to make up the difference, at most one per
+    ``GRAM_ROWS`` table rows and ``GRAM_SPLITS``.  A split walks the
+    group's bricks and takes the pairs whose first row lies in its own
+    blocks of rows.  The count depends on the volume and K only."""
+    _, n_groups = gram_groups(size, k)
+    return max(1, min(GRAM_SPLITS, -(-int(k) // GRAM_ROWS),
+                      -(-GRAM_SPLIT_BLOCKS // n_groups)))
+
+
+def _gram_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts,
+                 rows=None):
+    """Run csrc/gram.cu for the wrapper ``fn`` on shared anchors ``pos [K,
+    3]`` or per-frame positions ``[B, K, 3]``, from the warp (``betas``) or
+    from precomputed ``rows = (psi, w)``: ``(G [B, K, K], c1 [B, K])`` in
+    the caller's order (and the candidate count per brick)."""
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
-    bsz = y.shape[0]
-    nkb = blocks.shape[0]
-    stride = nkb * KB * 8 if params.ndim == 3 else 0
-    beta_rows, m, n, z, norm = _common(betas, size, scaling)
-    n_chunks, gpart, cpart, g, c1 = _gram_outputs(bsz, y.shape[1], nkb,
-                                                  y.device)
-    err = lib.dnmf_gram(
-        beta_rows.data_ptr(), params.data_ptr(), blocks.data_ptr(),
-        y.data_ptr(), gpart.data_ptr(), cpart.data_ptr(), g.data_ptr(),
-        c1.data_ptr(), bsz, m, n, z, norm, nkb, n_chunks, stride, _stream())
-    return err, g, c1
-
-
-def _unpermute_grams(g, c1, perm, k):
-    inv = torch.argsort(perm)
-    return g[:, :k, :k][:, inv][:, :, inv], c1[:, :k][:, inv]
+    bsz, k = y.shape[0], pos.shape[-2]
+    m, n, z = (int(s) for s in size)
+    tracked = pos.ndim == 3
+    table, order, rmax = neuron_table(pos if tracked else pos[None], sigma)
+    per_group, n_groups = gram_groups(size, k)
+    f32 = dict(dtype=torch.float32, device=y.device)
+    gpart = torch.empty(bsz * n_groups * (k * (k + 1) // 2), **f32)
+    cpart = torch.empty(bsz * n_groups * k, **f32)
+    windows = torch.empty(bsz * n_groups * 2, dtype=torch.int32,
+                          device=y.device)
+    g = torch.empty((bsz, k, k), **f32)
+    c1 = torch.empty((bsz, k), **f32)
+    counts, counts_ptr = _counts_out(bsz, size, y.device, brick_counts)
+    scratch = (table.data_ptr(), order.data_ptr(), rmax.data_ptr(),
+               y.data_ptr(), gpart.data_ptr(), cpart.data_ptr(),
+               windows.data_ptr(), g.data_ptr(), c1.data_ptr(), counts_ptr)
+    if rows is None:
+        beta_rows, _, _, _, norm = _common(betas, size, scaling)
+        err = lib.dnmf_gram(beta_rows.data_ptr(), *scratch, bsz, m, n, z,
+                            norm, k, int(tracked), *refine_bricks(size),
+                            per_group, gram_splits(size, k), _stream())
+        _build.check(err, "dnmf_gram")
+    else:
+        psi, w = rows
+        err = lib.dnmf_gram_rows(psi.data_ptr(), w.data_ptr(), *scratch, bsz,
+                                 m, n, z, k, *refine_bricks(size), per_group,
+                                 gram_splits(size, k), _stream())
+        _build.check(err, "dnmf_gram_rows")
+    fn.launches += 1
+    return (g, c1, counts) if brick_counts else (g, c1)
 
 
 def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized",
-               psi_source: str = "kernel", rows=None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               psi_source: str = "kernel", rows=None,
+               brick_counts: bool = False):
     """``(G [B, K, K], c1 [B, K])`` for ``betas [B, 10, 3]``, ``y [B, P]``;
     ``pos [B, K, 3]`` goes to :func:`gram_block_tracked`.
 
     ``psi_source="stream"`` computes the deformed coordinates and fades
     outside the kernel (:func:`psi_rows`, or ``rows = (psi [B, P, 3], w
     [B, P])`` from the caller: the hook for coordinate fields computed
-    elsewhere) and hands them to :func:`gram_block_rows`.
+    elsewhere) and hands them to :func:`gram_block_rows`.  ``brick_counts``
+    appends the kernel's candidate count of every brick, ``[B, n_bricks]``
+    int32 (on CPU tensors: from :func:`brick_candidates_plain`); a brick
+    sums the ``n (n + 1) / 2`` pairs of its ``n`` candidates
+    (:func:`gram_block_bricks_plain`).
     """
     if psi_source == "stream":
         if pos.ndim == 3:
             raise ValueError("psi_source='stream' takes shared anchors "
                              "pos [K, 3]")
         psi, w = rows if rows is not None else psi_rows(betas, size, scaling)
-        return gram_block_rows(psi, w, pos, sigma, y)
+        return gram_block_rows(psi, w, pos, sigma, y, size, brick_counts)
     if psi_source != "kernel":
         raise ValueError(f"unknown psi_source: {psi_source!r}")
     if pos.ndim == 3:
-        return gram_block_tracked(betas, pos, sigma, y, size, scaling)
+        return gram_block_tracked(betas, pos, sigma, y, size, scaling,
+                                  brick_counts)
     if y.device.type == "cpu":
-        return gram_block_plain(betas, pos, sigma, y, size, scaling)
+        out = gram_block_plain(betas, pos, sigma, y, size, scaling)
+        return (_plain_counts(out, betas, pos, sigma, size, scaling)
+                if brick_counts else out)
     _check("gram_block", size, scaling, y, betas, pos, sigma)
-    from dnmf_tpu_torch.ops import _build
-
-    perm, params, blocks = sorted_params(pos, sigma)
-    err, g, c1 = _gram_launch(betas, params, blocks, y, size, scaling)
-    gram_block.launches += 1
-    _build.check(err, "dnmf_gram")
-    return _unpermute_grams(g, c1, perm, pos.shape[0])
+    return _gram_launch(gram_block, betas, pos, sigma, y, size, scaling,
+                        brick_counts)
 
 
-def gram_block_rows(psi, w, pos, sigma, y
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def gram_block_rows(psi, w, pos, sigma, y, size,
+                    brick_counts: bool = False):
     """``(G [B, K, K], c1 [B, K])`` from precomputed rows: pixel-space
     deformed coordinates ``psi [B, P, 3]`` and fades ``w [B, P]`` of
-    ``y [B, P]``, for shared anchors ``pos [K, 3]``."""
-    if y.device.type == "cpu":
-        return gram_block_rows_plain(psi, w, pos, sigma, y)
+    ``y [B, P]``, for shared anchors ``pos [K, 3]``; the kernel culls by
+    the bricks of the volume ``size`` the rows come from.
+    ``brick_counts`` as in :func:`gram_block`."""
     bsz, p = y.shape
-    if tuple(psi.shape) != (bsz, p, 3) or tuple(w.shape) != (bsz, p):
-        raise ValueError(f"gram_block_rows: psi {tuple(psi.shape)} and w "
-                         f"{tuple(w.shape)} for y {tuple(y.shape)}")
+    size = tuple(int(s) for s in size)
+    if y.device.type == "cpu":
+        out = gram_block_rows_plain(psi, w, pos, sigma, y)
+        return (out + (brick_candidates_plain(
+            None, pos, sigma, size, psi=psi).sum(-1).to(torch.int32),)
+            if brick_counts else out)
+    if (tuple(psi.shape) != (bsz, p, 3) or tuple(w.shape) != (bsz, p)
+            or size[0] * size[1] * size[2] != p):
+        raise ValueError(f"gram_block_rows: psi {tuple(psi.shape)}, w "
+                         f"{tuple(w.shape)} and size {size} for y "
+                         f"{tuple(y.shape)}")
+    if pos.ndim != 2:
+        raise ValueError("gram_block_rows takes shared anchors pos [K, 3]")
     for t in (psi, w, pos, sigma, y):
         if t.device != y.device:
             raise ValueError(f"gram_block_rows: all inputs must be on "
@@ -524,36 +570,22 @@ def gram_block_rows(psi, w, pos, sigma, y
         if t.dtype != torch.float32:
             raise TypeError(f"gram_block_rows: the kernel takes float32, got "
                             f"{t.dtype}")
-    from dnmf_tpu_torch.ops import _build
-
-    lib = _build.load()
-    psi, w, y = psi.contiguous(), w.contiguous(), y.contiguous()
-    perm, params, blocks = sorted_params(pos, sigma)
-    nkb = blocks.shape[0]
-    n_chunks, gpart, cpart, g, c1 = _gram_outputs(bsz, p, nkb, y.device)
-    err = lib.dnmf_gram_rows(
-        psi.data_ptr(), w.data_ptr(), params.data_ptr(), blocks.data_ptr(),
-        y.data_ptr(), gpart.data_ptr(), cpart.data_ptr(), g.data_ptr(),
-        c1.data_ptr(), bsz, p, nkb, n_chunks, _stream())
-    gram_block_rows.launches += 1
-    _build.check(err, "dnmf_gram_rows")
-    return _unpermute_grams(g, c1, perm, pos.shape[0])
+    rows = (psi.contiguous(), w.contiguous())
+    return _gram_launch(gram_block_rows, None, pos, sigma, y.contiguous(),
+                        size, "pixel", brick_counts, rows)
 
 
 def gram_block_tracked(betas, pos_t, sigma, y, size,
-                       scaling: str = "normalized"
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       scaling: str = "normalized",
+                       brick_counts: bool = False):
     """:func:`gram_block` with per-frame positions ``pos_t [B, K, 3]``."""
     if y.device.type == "cpu":
-        return gram_block_plain(betas, pos_t, sigma, y, size, scaling)
+        out = gram_block_plain(betas, pos_t, sigma, y, size, scaling)
+        return (_plain_counts(out, betas, pos_t, sigma, size, scaling)
+                if brick_counts else out)
     _check("gram_block_tracked", size, scaling, y, betas, pos_t, sigma)
-    from dnmf_tpu_torch.ops import _build
-
-    perm, params, blocks = sorted_params_tracked(pos_t, sigma)
-    err, g, c1 = _gram_launch(betas, params, blocks, y, size, scaling)
-    gram_block_tracked.launches += 1
-    _build.check(err, "dnmf_gram")
-    return _unpermute_grams(g, c1, perm, pos_t.shape[1])
+    return _gram_launch(gram_block_tracked, betas, pos_t, sigma, y, size,
+                        scaling, brick_counts)
 
 
 def refine_bricks(size):
@@ -585,16 +617,20 @@ def brick_ids(size, device=None) -> Tuple[torch.Tensor, int]:
 
 
 def brick_candidates_plain(betas, pos, sigma, size,
-                           scaling: str = "normalized") -> torch.Tensor:
+                           scaling: str = "normalized",
+                           psi=None) -> torch.Tensor:
     """The brick kernels' culling rule in plain torch: ``[B, n_bricks,
     K]``, True where neuron k's per-axis box ``pos[k] +- 6 sigma_k`` meets
     the exact per-axis range of frame b's deformed coordinates over the
     brick (on all three axes), for shared anchors ``pos [K, 3]`` or
     per-frame positions ``pos [B, K, 3]``.  Any other neuron's footprint
-    is below ``exp(-36)`` at every voxel of the brick."""
-    bsz = betas.shape[0]
-    ids, nb = brick_ids(size, betas.device)
-    psi = _warped(betas, size, scaling, 0, ids.numel())  # [B, P, 3]
+    is below ``exp(-36)`` at every voxel of the brick.  ``psi [B, P, 3]``
+    gives the deformed coordinates in place of ``betas``' warp (the Gram
+    from rows)."""
+    ids, nb = brick_ids(size, pos.device)
+    if psi is None:
+        psi = _warped(betas, size, scaling, 0, ids.numel())  # [B, P, 3]
+    bsz = psi.shape[0]
     idx = ids[None, :, None].expand_as(psi)
     lo = torch.full((bsz, nb, 3), math.inf, dtype=psi.dtype,
                     device=psi.device).scatter_reduce(1, idx, psi, "amin")
@@ -605,6 +641,28 @@ def brick_candidates_plain(betas, pos, sigma, size,
     pt = pos[None] if pos.ndim == 2 else pos[:, None]  # [B|1, 1, K, 3]
     meets = (pt + reach >= lo[:, :, None]) & (pt - reach <= hi[:, :, None])
     return meets.all(dim=-1)
+
+
+def gram_block_bricks_plain(betas, pos, sigma, y, size,
+                            scaling: str = "normalized", rows=None):
+    """The Gram kernel's pair rule in plain torch: ``(G, c1)`` summed, at
+    each voxel, over the pairs of its brick's candidates only
+    (:func:`brick_candidates_plain`: a brick with ``n`` candidates sums
+    their ``n (n + 1) / 2`` pairs, and c1 over the ``n``), from the warp
+    of ``betas`` or from ``rows = (psi [B, P, 3], w [B, P])``.  Equal to
+    :func:`gram_block_plain` up to the dropped terms, below ``exp(-36)``
+    of a footprint's peak."""
+    ids, _ = brick_ids(size, pos.device)
+    if rows is None:
+        mask = brick_candidates_plain(betas, pos, sigma, size, scaling)
+        a = _footprints(betas, pos, sigma, size, scaling, 0, ids.numel())
+    else:
+        psi, w = rows
+        mask = brick_candidates_plain(None, pos, sigma, size, psi=psi)
+        a = fp_ops.gaussian_footprints(psi, pos, sigma) * w[..., None]
+    a = a * mask[:, ids].to(a.dtype)  # [B, P, K]
+    return (torch.bmm(a.transpose(1, 2), a),
+            torch.bmm(y[:, None], a)[:, 0])
 
 
 def neuron_table_plain(pos_t, sigma):
@@ -701,10 +759,9 @@ def refine_block(betas, pos_t, sigma, c_block, y, size,
         beta_rows.data_ptr(), table.data_ptr(), order.data_ptr(),
         rmax.data_ptr(), c_rows.data_ptr(), y.data_ptr(),
         sse_part.data_ptr(), mom_part.data_ptr(), mse.data_ptr(),
-        dpos.data_ptr(), dsig.data_ptr(), counts.data_ptr(), bsz, m, n, z, norm, k, bm, bn,
-        bz, per_group, int(want_dsigma), int(sigma.ndim == 2), _stream())
-    # Raises ValueError, with nothing launched, where K's rows do not fit
-    # the kernel's shared memory.
+        dpos.data_ptr(), dsig.data_ptr(), counts.data_ptr(), bsz, m, n, z,
+        norm, k, bm, bn, bz, per_group, int(want_dsigma),
+        int(sigma.ndim == 2), _stream())
     _build.check(err, "dnmf_refine")
     refine_block.launches += 1
     out = (mse, dpos, dsig) if want_dsigma else (mse, dpos)

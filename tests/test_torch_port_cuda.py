@@ -2,9 +2,11 @@
 per-frame positions; the Gram from precomputed coordinate rows, C4;
 phase correlation F and the fused warp G) against their plain PyTorch
 versions on the card, and the streamed pipeline on the card.  The brick
-kernels (motion, c1, refine) also at odd shapes, repeated bit for bit,
-and frame for frame alone or inside a 16-frame call.  Marked ``cuda``;
-every test skips where no CUDA device exists.
+kernels (motion, c1, Gram, refine) also at odd shapes, at K = 6000 and
+20000 crowding a small volume, repeated bit for bit, frame for frame
+alone or inside a 16-frame call, and with their candidate counts held to
+the plain rule; G also at odd sizes and the largest shifts its halo
+takes.  Marked ``cuda``; every test skips where no CUDA device exists.
 
 Run on a machine with an H100:
 ``python -m pytest tests/test_torch_port_cuda.py -q -m cuda``.
@@ -12,6 +14,8 @@ Run on a machine with an H100:
 Tolerance: 1e-4 of the float64 oracle's max magnitude (the kernels sum
 in float32, per thread and then per chunk in a fixed order).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -343,37 +347,33 @@ def test_brick_kernels_take_any_k(dev):
     assert counts["c1_block_tracked"] == 1
 
 
-def test_refine_raises_where_k_outgrows_shared_memory(dev):
-    """D keeps K rows in shared memory; its entry point asks the card for
-    the kernel's static arrays and the block limit, so every K either runs
-    or raises ValueError with nothing launched.  The largest K that runs
-    is found by bisection; one more raises."""
+@pytest.mark.parametrize("k", [6000, 20000])
+def test_refine_runs_at_any_k(dev, k):
+    """K = 6000 and 20000 neurons crowd a small volume: every brick lists
+    thousands of candidates, handed to D in chunks of its shared buffer
+    (listed twice: S, then the moments); with and without dsigma, D
+    matches its plain version in float32 and float64 (the kernel that
+    kept K rows in shared memory raised past ~3,000-3,600 neurons)."""
     size = (16, 16, 4)
-
-    def runs(k):
-        betas, _, pos_t, sigma, c, y = _brick_inputs(size, k, dev,
-                                                     "normalized", False, b=1)
-        fused.reset_launch_counts()
-        try:
-            fused.refine_block(betas, pos_t, sigma, c, y, size,
-                               want_dsigma=True)
-        except ValueError as err:
-            assert "shared memory" in str(err)
-            assert fused.launch_counts()["refine_block"] == 0
-            return False
+    betas, _, pos_t, sigma, c, y = _brick_inputs(size, k, dev, "normalized",
+                                                 True, b=2)
+    d = [t.double() for t in (betas, pos_t, sigma, c, y)]
+    fused.reset_launch_counts()
+    for want in (False, True):
+        got = fused.refine_block(betas, pos_t, sigma, c, y, size,
+                                 want_dsigma=want, brick_counts=True)
+        p32 = fused.refine_block_plain(betas, pos_t, sigma, c, y, size,
+                                       want_dsigma=want)
+        ref = fused.refine_block_plain(*d, size, want_dsigma=want)
+        mask = fused.brick_candidates_plain(betas, pos_t, sigma, size)
         torch.cuda.synchronize()
-        assert fused.launch_counts()["refine_block"] == 1
-        return True
-
-    lo, hi = 1000, 20000
-    assert runs(lo) and not runs(hi)
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if runs(mid) else (lo, mid)
-    # 16 floats of rows per neuron with dsigma, in 227 KB less the
-    # kernel's static arrays.
-    assert 3000 < lo < 227 * 1024 // 64
-    assert runs(lo) and not runs(lo + 1)
+        assert int(got[-1].max()) > 2 * 512  # several chunks per brick
+        assert torch.equal(got[-1], mask.sum(-1).to(torch.int32))
+        for g, p, r in zip(got[:-1], p32, ref):
+            assert g.shape == r.shape
+            assert rel_err(g, r) <= 1e-4
+            assert rel_err(g, p.double()) <= 1e-4
+    assert fused.launch_counts()["refine_block"] == 2
 
 
 @pytest.mark.parametrize("aniso", [False, True])
@@ -595,7 +595,173 @@ def test_gram_rows_kernel_matches_float64(dev, shape, scaling):
     assert rel_err(g, g_o) <= 1e-4 and rel_err(c1, c1_o) <= 1e-4
     assert rel_err(g, g_in.double()) <= 1e-4
     with pytest.raises(ValueError):
-        fused.gram_block_rows(psi[:, :-1], w, pos, sigma, y)
+        fused.gram_block_rows(psi[:, :-1], w, pos, sigma, y, size)
+
+
+# ------------------- C/E/C4: the exact Gram on the brick walk of cull.cuh
+GRAM_SHAPES = {  # name: (size, K, frames, position margin as bench.py's)
+    "roi": ((256, 256, 10), 50, 2, 10.0),
+    "whole_brain": ((512, 512, 20), 200, 2, 20.0),
+}
+
+
+def _gram_run(source, betas, pos, pos_t, sigma, y, size, **kw):
+    """The Gram kernel for ``source``: C (shared anchors), E (per-frame
+    positions) or C4 (rows from ``psi_rows``), and its float64 oracle."""
+    d = [t.double() for t in (betas, pos, pos_t, sigma, y)]
+    if source == "rows":
+        psi, w = fused.psi_rows(betas, size)
+        got = fused.gram_block_rows(psi, w, pos, sigma, y, size, **kw)
+        psi64, w64 = fused.psi_rows(d[0], size)
+        return got, fused.gram_block_rows_plain(psi64, w64, d[1], d[3], d[4])
+    where = pos_t if source == "tracked" else pos
+    got = fused.gram_block(betas, where, sigma, y, size, **kw)
+    return got, fused.gram_block_plain(d[0], where.double(), d[3], d[4],
+                                       size)
+
+
+@pytest.mark.parametrize("source", ["shared", "tracked", "rows"])
+@pytest.mark.parametrize("shape", sorted(GRAM_SHAPES))
+@pytest.mark.parametrize("aniso", [False, True])
+def test_gram_kernels_match_float64_at_the_kernel_shapes(dev, source, shape,
+                                                         aniso):
+    """C, E (crossing tracks) and C4 at the ROI and whole-brain shapes
+    against float64, isotropic and [K, 3] widths; G is symmetric and one
+    launch ran."""
+    size, k, b, margin = GRAM_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    extent = torch.tensor(size, dtype=torch.float32, device=dev)
+    pos = margin + torch.rand((k, 3), generator=gen, device=dev) * (
+        extent - 2 * margin)
+    sigma = 3.0 * (0.8 + 0.4 * torch.rand((k, 3) if aniso else (k,),
+                                          generator=gen, device=dev))
+    betas = torch.zeros((b, 10, 3), device=dev)
+    betas[:, 1, 0] = betas[:, 2, 1] = betas[:, 3, 2] = 1.0
+    betas += 0.005 * torch.randn((b, 10, 3), generator=gen, device=dev)
+    y = torch.rand((b, size[0] * size[1] * size[2]), generator=gen,
+                   device=dev)
+    pos_t = _tracked(pos, b, crossing=True)
+    fused.reset_launch_counts()
+    (g, c1), (g_o, c1_o) = _gram_run(source, betas, pos, pos_t, sigma, y,
+                                     size)
+    torch.cuda.synchronize()
+    assert rel_err(g, g_o) <= 1e-4 and rel_err(c1, c1_o) <= 1e-4
+    assert torch.equal(g, g.transpose(1, 2))
+    name = {"shared": "gram_block", "tracked": "gram_block_tracked",
+            "rows": "gram_block_rows"}[source]
+    assert fused.launch_counts()[name] == 1
+
+
+@pytest.mark.parametrize("source", ["shared", "tracked", "rows"])
+def test_gram_kernels_take_any_k(dev, source):
+    """K = 6000 neurons crowd a small volume: every brick lists thousands
+    of candidates, more than one shared chunk, so the pairs of later
+    chunks are listed again for each earlier one; C, E and C4 still match
+    float64."""
+    size, k = (24, 16, 6), 6000
+    betas, pos, pos_t, sigma, _, y = _brick_inputs(size, k, dev,
+                                                   "normalized", False, b=2)
+    (g, c1, counts), (g_o, c1_o) = _gram_run(source, betas, pos, pos_t,
+                                             sigma, y, size,
+                                             brick_counts=True)
+    torch.cuda.synchronize()
+    assert int(counts.max()) > 2 * 256
+    assert rel_err(g, g_o) <= 1e-4 and rel_err(c1, c1_o) <= 1e-4
+
+
+@pytest.mark.parametrize("crowded", [False, True])
+@pytest.mark.parametrize("source", ["shared", "tracked"])
+def test_gram_kernels_give_a_frame_the_same_bits_in_any_call(dev, source,
+                                                             crowded):
+    """A frame's (G, c1) from C and E are bit-equal alone and inside a
+    16-frame call: the group and split counts depend only on the volume
+    and K ("crowded": 12 splits per group and staged tiles)."""
+    size, k = ((20, 16, 6), 1500) if crowded else ((96, 64, 20), 100)
+    betas, pos, pos_t, sigma, _, y = _brick_inputs(size, k, dev,
+                                                   "normalized", True, b=16)
+    where = pos_t if source == "tracked" else pos
+
+    def run(sl):
+        return fused.gram_block(betas[sl], where[sl] if where.ndim == 3
+                                else where, sigma, y[sl], size)
+
+    full = run(slice(None))
+    for b in (0, 7, 15):
+        alone = run(slice(b, b + 1))
+        torch.cuda.synchronize()
+        for f, a in zip(full, alone):
+            assert torch.equal(f[b:b + 1], a)
+
+
+@pytest.mark.parametrize("shape", sorted(BRICK_SHAPES) + ["crowded"])
+def test_gram_counts_match_the_plain_rule(dev, shape):
+    """The Gram kernel's own candidate count per brick (C, E and C4),
+    returned by the launch, equals ``brick_candidates_plain``'s; a brick
+    sums the pairs of those candidates."""
+    size, k = BRICK_SHAPES.get(shape, ((20, 16, 6), 1500))
+    betas, pos, pos_t, sigma, c, y = _brick_inputs(size, k, dev,
+                                                   "normalized", True)
+    psi, w = fused.psi_rows(betas, size)
+    for where, out, rows in (
+            (pos, fused.gram_block(betas, pos, sigma, y, size,
+                                   brick_counts=True), None),
+            (pos_t, fused.gram_block(betas, pos_t, sigma, y, size,
+                                     brick_counts=True), None),
+            (pos, fused.gram_block_rows(psi, w, pos, sigma, y, size,
+                                        brick_counts=True), psi)):
+        mask = fused.brick_candidates_plain(betas, where, sigma, size,
+                                            psi=rows)
+        torch.cuda.synchronize()
+        assert out[-1].dtype == torch.int32
+        assert torch.equal(out[-1], mask.sum(-1).to(torch.int32))
+
+
+@pytest.mark.parametrize("size,grid,max_shifts,max_dev", [
+    ((19, 37, 5), (3, 4, 2), (3, 3, 2), 2),
+    ((23, 70, 3), (2, 3, 1), (6, 6, 1), 3),
+    ((37, 131, 7), (2, 5, 2), (8, 8, 2), 3),
+    ((17, 9, 4), (1, 1, 1), (2, 2, 1), 1)])
+def test_fused_warp_kernel_at_odd_sizes_and_the_largest_shifts(
+        dev, size, grid, max_shifts, max_dev):
+    """G on odd sizes (tiles cut at the far faces, halos cut at the
+    volume's edges) with rigid shifts at the base bound ``ceil(max_shifts)
+    + 1`` and patch shifts past the clip, so the n pass takes taps at the
+    halo's edge; one launch, within 1e-4 of float64."""
+    b = 3
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    bound = torch.tensor([math.ceil(float(m)) + 1.0 for m in max_shifts],
+                         dtype=torch.float64)
+    base = (torch.rand((b, 3), generator=gen, dtype=torch.float64) * 2 - 1
+            ) * bound
+    base[0] = bound * torch.tensor([1.0, -1.0, 1.0], dtype=torch.float64)
+    base[1] = -bound
+    spread = max_dev + 4.0
+    ps = base[:, None] + (torch.rand((b, int(np.prod(grid)), 3),
+                                     generator=gen, dtype=torch.float64)
+                          * 2 - 1) * spread
+    vol = torch.rand((b,) + size, generator=gen, dtype=torch.float64)
+    vol, ps, base = vol.to(dev), ps.to(dev), base.to(dev)
+    fused.reset_launch_counts()
+    got = warp.fused_separable_warp(vol.float(), ps.float(), base.float(),
+                                    grid, size, max_shifts, max_dev)
+    oracle = warp.fused_separable_warp_plain(vol, ps, base, grid, size,
+                                             max_shifts, max_dev)
+    torch.cuda.synchronize()
+    assert fused.launch_counts()["fused_separable_warp"] == 1
+    assert rel_err(got, oracle) <= 1e-4
+
+
+def test_fused_warp_raises_where_the_halo_outgrows_shared_memory(dev):
+    """A halo that does not fit a block's shared memory raises ValueError
+    naming the bound, with nothing launched."""
+    size, grid = (8, 400, 100), (1, 2, 1)
+    vol = torch.rand((1,) + size, device=dev)
+    ps = torch.zeros((1, 2, 3), device=dev)
+    fused.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        warp.fused_separable_warp(vol, ps, torch.zeros((1, 3), device=dev),
+                                  grid, size, (60, 60, 2), 3)
+    assert fused.launch_counts()["fused_separable_warp"] == 0
 
 
 def _planted(rng, size, k, t):
