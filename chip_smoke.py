@@ -93,7 +93,27 @@ Phases, each of which exits non-zero on failure:
 13. streamed == resident: ``register_and_demix`` at the ROI shape (T=64,
    points pinned) on a NumPy recording and on a ``StreamingVideo`` over
    it: positions equal, traces within rtol 2e-4 / atol 1e-6, beta within
-   1e-5.
+   1e-5;
+14. dataset path at the ROI shape: ``SimulatedVideoDataset`` (the port's
+   simulator on the card: 256x256x10, K=50, T=256, temporally smooth GP
+   motion, its noise at 0.1 of the normalized clean render's RMS), then
+   ``DeformableNMF.fit(dataset)`` from the fixture's frame-0 positions (2
+   rounds, gram_mode="auto"), with the kernels and with
+   ``use_kernels=False``: the motion, c1 and Gram kernels ran, the two
+   fits agree, ``fit(dataset)`` equals ``fit(dataset.video)`` bit for bit,
+   and the traces correlate with the fixture's (mean >= 0.9);
+   ``roi_signals`` at the true positions is printed beside them;
+15. whole-brain pipeline witness (BASELINE.md:43, bench.py's protocol):
+   ``dnmf_tpu_torch.tools.wb_recovery.seeded_recovery`` at 512x512x20,
+   K=200, T=32, rigid-seeded, 6 x (12 epochs + 50 MU), analytic Grams:
+   trace corr mean >= 0.999, min >= 0.995, warp error <= 0.05 px, the
+   motion and c1 kernels ran;
+16. anisotropic-width witness (BASELINE.md:46): 256x256x10, K=100, T=32,
+   per-axis widths in the truth, 6 x (8 epochs + 50 MU) with width
+   fitting every round (4 steps x 16 frames), fitted with per-axis and
+   with isotropic widths: the per-axis width error <= 0.2 px and under
+   half the isotropic one, trace corr mean >= 0.999 per axis and >= 0.998
+   isotropic, the refine kernel (with dsigma) ran in both.
 
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
@@ -114,6 +134,8 @@ import numpy as np
 import torch
 
 from dnmf_tpu_torch import config as tcfg
+from dnmf_tpu_torch.data import simulator
+from dnmf_tpu_torch.data.datasets import SimulatedVideoDataset
 from dnmf_tpu_torch.engine import trainer as ttr
 from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import (_build, basis, footprints, fused, phasecorr,
@@ -121,6 +143,7 @@ from dnmf_tpu_torch.ops import (_build, basis, footprints, fused, phasecorr,
 from dnmf_tpu_torch.ops.resample import trilinear_resample
 from dnmf_tpu_torch.registration import MotionCorrect
 from dnmf_tpu_torch.registration import motion_correct as mc_lib
+from dnmf_tpu_torch.tools import wb_recovery
 
 SEED = 0
 KERNEL_TOL = 1e-4  # max|kernel - float64| / max|float64|
@@ -219,6 +242,28 @@ PIPE_NOISE = 0.05  # noise std (a neuron's peak is 0.3 to ~3)
 SEED_PX = 2.5
 SEED_SHARE = 0.9  # share of planted neurons that must be seeded
 TRACE_CORR_MEAN = 0.9  # mean correlation with the truth, matched neurons
+# The dataset path: a fixture of the port's simulator at the ROI shape,
+# temporally smooth GP motion of ~0.7 px per neuron (no global warp).
+DATASET_SIM = dict(size=(256, 256, 10), num_neurons=50, num_frames=256,
+                   motion="gpt", gp_sigma=(0.5, 0.5, 0.01),
+                   gp_length_scale=(20.0, 20.0, 20.0), min_separation=8.0,
+                   margin=8.0)
+DATASET_NOISE = 0.1  # noise std over the normalized clean render's RMS
+DATASET_CORR_MEAN = 0.9  # fitted traces vs the fixture's (PERF.md section 2)
+# The round-5 recovery witnesses (BASELINE.md:43 and :46) with bench.py's
+# protocols (wb_recovery.WITNESSES), on fixtures of the port's harness.
+WITNESS_WB_CORR = (0.999, 0.995)  # trace corr vs the truth, mean and min
+WITNESS_WB_WARP_PX = 0.05  # mean warp error, px
+WITNESS_ANISO_SIGMA_PX = 0.2  # per-axis width error, px (and < half iso's)
+# Trace corr vs the truth, mean, per-axis arm and isotropic control.  The
+# control's varies with the draw: 0.998473-0.999300 over the harness's
+# seeds 0-4 on an H100 (seed 0 plants two neurons 0.98 px apart),
+# 0.999649 on the JAX package's own fixture; the per-axis arm's
+# 0.999103-0.999820.  The JAX package's fit of the seed-0 fixture, from
+# the port's registration seed and initial state, reads the same
+# 0.998473 / 0.999103 (tests/jax_recovery_fixture.py --fit; PERF.md
+# section 6), so the control's gate is the draw's, not the port's.
+WITNESS_ANISO_CORR_MEAN = {3: 0.999, 1: 0.998}
 
 
 def fail(msg: str) -> None:
@@ -1663,12 +1708,164 @@ def streamed_equals_resident(dev, size, k):
         fail("streamed != resident")
 
 
+def dataset_noise(dev, cfg):
+    """The fixture's positions and the RMS of its clean render after
+    ``generate_video``'s division by the sum of squares, from the draws
+    that ``SimulatedVideoDataset(cfg)`` will make (the same generator
+    seed)."""
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    clean, pos, _ = simulator.clean_fixture(cfg, gen, dev)
+    rms = float(torch.sqrt(torch.mean((clean / torch.sum(clean ** 2)) ** 2)))
+    return pos, rms
+
+
+def dataset_path(dev, sim=DATASET_SIM):
+    """``DeformableNMF.fit(SimulatedVideoDataset(...))`` at the ROI shape:
+    kernels vs plain, ``fit(ds)`` vs ``fit(ds.video)``, and the traces
+    against the fixture's.  Returns the launch counts of the kernel fit."""
+    cfg = tcfg.SimulatorConfig(**sim)
+    t0 = time.perf_counter()
+    pos, rms = dataset_noise(dev, cfg)
+    # generate_video's noise std is sqrt(10^(bg_snr_db / 10)).
+    bg_snr_db = 20.0 * math.log10(DATASET_NOISE * rms)
+    cfg = dataclasses.replace(cfg, bg_snr_db=bg_snr_db)
+    ds = SimulatedVideoDataset(cfg, device=dev)
+    torch.cuda.synchronize()
+    say(f"dataset: SimulatedVideoDataset {tuple(ds.video.shape)} on the card "
+        f"({time.perf_counter() - t0:.3f} s with the noise-level render); "
+        f"normalized signal RMS {rms:.6e}, noise std "
+        f"{DATASET_NOISE * rms:.6e} (bg_snr_db {bg_snr_db:.4f})")
+    if not torch.equal(ds.positions, pos):
+        fail("dataset: the fixture's draws differ from the noise-level run")
+    model = tcfg.ModelConfig(size=cfg.size, num_neurons=cfg.num_neurons,
+                             num_frames=cfg.num_frames,
+                             shape_std=cfg.shape_std)
+
+    def fit(source, use_kernels):
+        opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=2,
+                                   motion_epochs=2, mu_iters=50, seed=SEED)
+        rt = tcfg.RuntimeConfig(frame_block=8, gram_mode="auto",
+                                use_kernels=use_kernels)
+        return ttr.DeformableNMF(model, opt, rt,
+                                 positions=ds.positions[:, :, 0],
+                                 device=dev).fit(source)
+
+    fused.reset_launch_counts()
+    res_k = fit(ds, None)
+    launches = fused.launch_counts()
+    say(f"dataset: launches during fit(dataset): {launches}")
+    for kname in ("motion_block", "c1_block", "gram_block"):
+        if launches[kname] <= 0:
+            fail(f"dataset: {kname} was not launched during fit(dataset)")
+    res_v = fit(ds.video, None)
+    res_p = fit(ds, False)
+    same = all(torch.equal(getattr(res_k.state, f), getattr(res_v.state, f))
+               for f in ("beta", "c", "sigma"))
+    mk = [m for m in res_k.metrics if m["phase"] == "motion"]
+    mp = [m for m in res_p.metrics if m["phase"] == "motion"]
+    worst = max(abs(a["recon_mse"] - b["recon_mse"]) / abs(b["recon_mse"])
+                for a, b in zip(mk, mp))
+    agree = float(trace_corr(res_k.state.c, res_p.state.c).min())
+    gt = trace_corr(res_k.state.c, ds.traces)
+    roi = trace_corr(simulator.roi_signals(ds.video, ds.positions),
+                     ds.traces)
+    secs = [m["seconds"] for m in res_k.metrics if m["phase"] == "round"]
+    say(f"dataset: fit(dataset) == fit(dataset.video) bit for bit: {same}; "
+        f"kernel vs plain recon_mse max rel diff {worst:.3e}, trace corr min "
+        f"{agree:.6f}; trace corr vs the fixture mean {float(gt.mean()):.6f}, "
+        f"min {float(gt.min()):.6f}; roi_signals at the true positions "
+        f"mean {float(roi.mean()):.6f}, min {float(roi.min()):.6f}; seconds "
+        f"per round (kernels) {secs}")
+    if not same:
+        fail("dataset: fit(dataset) differs from fit(dataset.video)")
+    if len(mk) != len(mp) or not worst <= FIT_MSE_TOL:
+        fail(f"dataset: recon_mse differs by {worst:.3e}")
+    if not agree >= FIT_CORR_MIN:
+        fail(f"dataset: kernel vs plain trace correlation {agree:.6f}")
+    if not float(gt.mean()) >= DATASET_CORR_MEAN:
+        fail(f"dataset: mean trace correlation {float(gt.mean()):.6f}")
+    return launches
+
+
+def witness_wb(dev):
+    """The whole-brain pipeline witness: ``seeded_recovery`` at bench.py's
+    protocol (rigid-seeded, analytic Grams).  Returns the launch counts."""
+    w = wb_recovery.WITNESSES["pipeline"]
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = wb_recovery.seeded_recovery(w["size"], w["k"], w["t"], w["rounds"],
+                                    w["epochs"], w["mu_iters"], device=dev,
+                                    **w["fit"])
+    total = time.perf_counter() - t0
+    launches = fused.launch_counts()
+    corr = r["corr"]
+    say(f"witness whole-brain ({w}): launches {launches}")
+    say(f"witness whole-brain: trace corr mean {corr.mean():.6f}, min "
+        f"{corr.min():.6f}; warp error {r['warp_err_px']:.6f} px; synth "
+        f"{r['synth_s']:.3f} s, registration seed {r['reg_s']:.3f} s, round "
+        f"{r['round_s_steady']:.3f} s (median after the first, "
+        f"{w['t'] / r['round_s_steady']:.1f} frames/s); closest planted "
+        f"pair {wb_recovery.closest_pair(r['pos_gt']):.4f} px; total "
+        f"{total:.3f} s")
+    for kname in ("motion_block", "c1_block"):
+        if launches[kname] <= 0:
+            fail(f"witness whole-brain: {kname} was not launched")
+    if not bool(torch.isfinite(r["state"].c).all()):
+        fail("witness whole-brain: non-finite traces")
+    if not (corr.mean() >= WITNESS_WB_CORR[0]
+            and corr.min() >= WITNESS_WB_CORR[1]):
+        fail(f"witness whole-brain: trace corr {corr.mean():.6f} / "
+             f"{corr.min():.6f}")
+    if not r["warp_err_px"] <= WITNESS_WB_WARP_PX:
+        fail(f"witness whole-brain: warp error {r['warp_err_px']:.6f} px")
+    return launches
+
+
+def witness_aniso(dev):
+    """The anisotropic-width witness: one per-axis fixture, fitted with
+    per-axis widths and with the isotropic control.  Returns the launch
+    counts of the per-axis arm."""
+    w = wb_recovery.WITNESSES["aniso"]
+    t0 = time.perf_counter()
+    fixture = wb_recovery.recovery_fixture(w["size"], w["k"], w["t"],
+                                           sigma_aniso=True, device=dev)
+    arms, launches = {}, {}
+    for axes in w["arms"]:
+        fused.reset_launch_counts()
+        arms[axes] = wb_recovery.recover(fixture, w["rounds"], w["epochs"],
+                                         w["mu_iters"], fit_sigma_axes=axes,
+                                         **w["fit"])
+        launches[axes] = fused.launch_counts()
+    say(f"witness anisotropic ({w}): launches per-axis {launches[3]}, "
+        f"isotropic {launches[1]}")
+    for axes, r in arms.items():
+        say(f"witness anisotropic, sigma_axes={axes}: width error "
+            f"{r['sigma_err']:.6f} px; trace corr mean {r['corr'].mean():.6f},"
+            f" min {r['corr'].min():.6f}; warp error {r['warp_err_px']:.6f} "
+            f"px; round {r['round_s_steady']:.3f} s")
+        if launches[axes]["refine_block"] <= 0:
+            fail(f"witness anisotropic: refine_block was not launched "
+                 f"(sigma_axes={axes})")
+        if not r["corr"].mean() >= WITNESS_ANISO_CORR_MEAN[axes]:
+            fail(f"witness anisotropic: trace corr {r['corr'].mean():.6f} "
+                 f"(sigma_axes={axes})")
+    err3, err1 = arms[3]["sigma_err"], arms[1]["sigma_err"]
+    say(f"witness anisotropic: closest planted pair "
+        f"{wb_recovery.closest_pair(fixture['pos_gt']):.4f} px; synth "
+        f"{fixture['synth_s']:.3f} s; total {time.perf_counter() - t0:.3f} s")
+    if not (err3 <= WITNESS_ANISO_SIGMA_PX and err3 < 0.5 * err1):
+        fail(f"witness anisotropic: width error {err3:.6f} px against the "
+             f"isotropic {err1:.6f} px")
+    return launches[3]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
               file=sys.stderr)
         return 1
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     profile_only = sys.argv[1:] == ["--profile"]
@@ -1723,6 +1920,13 @@ def main() -> int:
     launches["gram_block_rows"] = c4["gram_block_rows"]
     say(f"launches on the pipeline path: {pipe}")
     streamed_equals_resident(dev, roi.size, roi.num_neurons)
+    for label, phase in (("dataset path", dataset_path),
+                         ("whole-brain witness", witness_wb),
+                         ("anisotropic witness", witness_aniso)):
+        t0 = time.perf_counter()
+        phase(dev)
+        say(f"{label}: {time.perf_counter() - t0:.3f} s")
+    say(f"chip_smoke: {time.perf_counter() - started:.3f} s in all")
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

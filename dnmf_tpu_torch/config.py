@@ -4,10 +4,10 @@ Field for field the same names and defaults as ``dnmf_tpu/config.py``,
 so one configuration drives either package.  The one rename is
 ``RuntimeConfig.use_pallas`` -> ``RuntimeConfig.use_kernels``: the
 hand-written CUDA kernels of :mod:`dnmf_tpu_torch.ops.fused` take the
-place of the Pallas kernels.
-
-``SimulatorConfig`` comes with the simulator slice of the port (ROADMAP
-Queue 1 item 9).
+place of the Pallas kernels.  ``SimulatorConfig`` drives the fixture
+generator :mod:`dnmf_tpu_torch.data.simulator`, and the
+``reference_demo_*`` presets give the reference demo's model, schedule
+and fixture.
 """
 
 from __future__ import annotations
@@ -192,6 +192,69 @@ class RegistrationConfig:
         v = (self.num_splits_to_process_rig if phase == "rig"
              else self.num_splits_to_process_els)
         return self.num_splits_to_process if v is None else v
+
+
+@dataclasses.dataclass(frozen=True)
+class SimulatorConfig:
+    """Synthetic-video generator settings (ground-truthed fixture).
+
+    Field for field ``dnmf_tpu.config.SimulatorConfig``: ``motion`` is
+    ``"gp"`` (GP offsets i.i.d. per frame), ``"gpt"`` (GP over time),
+    ``"sq"``/``"qs"`` (sequential quadratic) or ``"q"`` (cumulative
+    quadratic).
+    """
+
+    num_neurons: int = 10
+    num_frames: int = 100
+    size: Tuple[int, int, int] = (50, 50, 2)
+    shape_std: float = 3.0
+    density: float = 0.2
+    bg_snr_db: float = -120.0
+    traces: str = "exp"
+    motion: str = "gp"
+    # GP motion parameters (motion in {"gp", "gpt"}).
+    gp_sigma: Tuple[float, float, float] = (5.0, 5.0, 0.01)
+    gp_length_scale: Tuple[float, float, float] = (10.0, 10.0, 10.0)
+    # Quadratic motion parameters (motion in {"sq", "qs", "q"}).
+    motion_means: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    motion_snr_db: Tuple[float, float, float] = (-100.0, -100.0, -100.0)
+    # Constraints on the random anchors (0 = the reference's behaviour,
+    # which can place neurons arbitrarily close or at the border).
+    min_separation: float = 0.0
+    margin: float = 0.0
+    seed: int = 0
+
+
+def reference_demo_model(parity: bool = False) -> ModelConfig:
+    """The reference demo's model shapes.  ``parity=True`` selects the
+    reference's exact numerics (pixel basis, resampled footprints, the
+    detached regularizer); :class:`DeformableNMF` raises
+    ``NotImplementedError`` for its ``footprint_mode="resample"``
+    (ROADMAP Queue 1 item 11)."""
+    deform = (
+        DeformationConfig(footprint_mode="resample", basis_scaling="pixel",
+                          detach_regularizer=True)
+        if parity
+        else DeformationConfig()
+    )
+    return ModelConfig(size=(50, 50, 2), num_neurons=10, num_frames=100,
+                       shape_std=3.0, deformation=deform)
+
+
+def reference_demo_optimizer() -> OptimizerConfig:
+    """The reference demo's schedule."""
+    return OptimizerConfig(learning_rate=1e-5, batch_size=4, outer_rounds=5,
+                           motion_epochs=10, mu_iters=50, gamma_motion=1.0,
+                           gamma_traces=0.0)
+
+
+def reference_demo_simulator() -> SimulatorConfig:
+    """The reference demo's fixture."""
+    return SimulatorConfig(num_neurons=10, num_frames=100, size=(50, 50, 2),
+                           shape_std=3.0, density=0.2, bg_snr_db=-120.0,
+                           traces="exp", motion="gp",
+                           gp_sigma=(5.0, 5.0, 0.01),
+                           gp_length_scale=(10.0, 10.0, 10.0))
 
 
 def baseline_workload(name: str):

@@ -7,10 +7,11 @@ epochs on the warps, with ``fit_sigma`` a width fit on a frame
 subsample, then Grams and ``mu_iters`` trace updates), with the
 once-per-fit trust audit of the closed-form Grams; ``.refine(video)``
 then fits per-frame neuron positions.  ``video`` is an array or tensor
-held on the engine's device, or a host-streamed source
-(:mod:`dnmf_tpu_torch.data.streaming`) whose frame blocks go to that
-device.  Options outside the ported slice raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+held on the engine's device, a dataset (:mod:`dnmf_tpu_torch.data.datasets`;
+its ``frames_flat()`` goes to that device as it is, not clamped again), or
+a host-streamed source (:mod:`dnmf_tpu_torch.data.streaming`) whose frame
+blocks go to that device.  Options outside the ported slice raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -85,7 +86,8 @@ class DeformableNMF:
     Usage::
 
         dnmf = DeformableNMF(model_cfg, opt_cfg, positions=pos0)
-        result = dnmf.fit(video)   # video [T, M, N, Z], [T, P] or a source
+        result = dnmf.fit(video)   # [T, M, N, Z], [T, P], a dataset or
+                                   # a streamed source
 
     The engine runs on the CUDA device unless ``device`` says otherwise
     (``device="cpu"`` runs the plain versions on the CPU).  ``beta0 [T,
@@ -145,7 +147,7 @@ class DeformableNMF:
 
     def _prepare(self, video):
         """A streamed source as it is (on the engine's device), anything
-        else as the flat clamped tensor on the device."""
+        else as the flat tensor on the device (:meth:`_video_flat`)."""
         if not self._is_streaming(video):
             return self._video_flat(video)
         dev = torch.device(video.device)
@@ -157,12 +159,16 @@ class DeformableNMF:
         return video
 
     def _video_flat(self, video) -> torch.Tensor:
+        """A dataset's ``frames_flat()`` as it is (the simulated and
+        NeuroPAL datasets clamp when they are built); a raw array or
+        tensor flattened and clamped (NMF non-negativity), as the JAX
+        package does."""
         if hasattr(video, "frames_flat"):
-            raise _not_ported("dataset video sources (frames_flat)", 9)
+            return torch.as_tensor(video.frames_flat(), dtype=torch.float32,
+                                   device=self.device).contiguous()
         video = torch.as_tensor(video, dtype=torch.float32, device=self.device)
         if video.ndim == 4:
             video = video.reshape(video.shape[0], -1)
-        # NMF non-negativity: clamp raw arrays as the dataset wrappers do.
         return torch.clamp_min(video, 0.0).contiguous()
 
     def _gram_window(self) -> Optional[int]:

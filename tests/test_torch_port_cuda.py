@@ -6,7 +6,10 @@ kernels (motion, c1, Gram, refine) also at odd shapes, at K = 6000 and
 20000 crowding a small volume, repeated bit for bit, frame for frame
 alone or inside a 16-frame call, and with their candidate counts held to
 the plain rule; G also at odd sizes and the largest shifts its halo
-takes.  Marked ``cuda``; every test skips where no CUDA device exists.
+takes.  The data layer on the card: the simulator against its CPU run on
+one CPU generator's draws, a ``SimulatedVideoDataset`` on the card
+feeding ``fit``, and the recovery harness with and without the kernels.
+Marked ``cuda``; every test skips where no CUDA device exists.
 
 Run on a machine with an H100:
 ``python -m pytest tests/test_torch_port_cuda.py -q -m cuda``.
@@ -810,3 +813,80 @@ def test_pipeline_streamed_equals_resident_on_the_card(dev, tmp_path):
                                    atol=1e-6)
         np.testing.assert_allclose(got.fit.beta, res.fit.beta, atol=1e-5)
     assert np.isfinite(res.traces).all()
+
+
+# ------------------------------------------------------ the data layer
+DATA_SIM = dict(num_neurons=6, num_frames=12, size=(40, 36, 6),
+                shape_std=2.0, density=0.3, bg_snr_db=-90.0,
+                min_separation=5.0, margin=3.0)
+
+
+@pytest.mark.parametrize("motion", ["gp", "gpt", "sq", "q"])
+def test_simulator_on_the_card_is_its_cpu_run(dev, motion):
+    """A CPU generator's draws, moved to the card, give the CPU run's
+    fixture: positions and traces within 1e-5 of their max, the video
+    within 1e-5 of its max (float32 transforms on either device)."""
+    from dnmf_tpu_torch.data import simulator
+
+    cfg = tcfg.SimulatorConfig(motion=motion, motion_snr_db=(-100.0,) * 3,
+                               **DATA_SIM)
+    on_card = simulator.generate_video(
+        cfg, torch.Generator().manual_seed(4), device=dev)
+    on_cpu = simulator.generate_video(
+        cfg, torch.Generator().manual_seed(4), device="cpu")
+    for got, ref in zip(on_card, on_cpu):
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+    sig = simulator.roi_signals(on_card[0], on_card[1])
+    ref = simulator.roi_signals(on_cpu[0], on_cpu[1])
+    assert float((sig.cpu() - ref).abs().max()) <= 1e-5
+
+
+def test_simulated_dataset_on_the_card_feeds_fit(dev):
+    """``SimulatedVideoDataset(device="cuda")`` feeds ``fit`` through the
+    kernels, bit for bit as its video does."""
+    from dnmf_tpu_torch.data import SimulatedVideoDataset
+    from dnmf_tpu_torch.engine.trainer import DeformableNMF
+
+    ds = SimulatedVideoDataset(tcfg.SimulatorConfig(motion="gpt",
+                                                    **DATA_SIM), device=dev)
+    assert ds.video.device.type == "cuda" and float(ds.video.min()) >= 0.0
+    model = tcfg.ModelConfig(size=DATA_SIM["size"], num_neurons=6,
+                             num_frames=12, shape_std=2.0)
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=2,
+                               motion_epochs=2, mu_iters=20)
+
+    def fit(source):
+        return DeformableNMF(model, opt, tcfg.RuntimeConfig(frame_block=4),
+                             positions=ds.positions[:, :, 0],
+                             device=dev).fit(source)
+
+    fused.reset_launch_counts()
+    res = fit(ds)
+    launches = fused.launch_counts()
+    for kname in ("motion_block", "c1_block", "gram_block"):
+        assert launches[kname] > 0, kname
+    again = fit(ds.video)
+    assert torch.equal(res.state.beta, again.state.beta)
+    assert torch.equal(res.state.c, again.state.c)
+    assert bool(torch.isfinite(res.state.c).all())
+
+
+def test_recovery_harness_on_the_card(dev):
+    """``recover`` on a card fixture: kernels vs ``use_kernels=False``
+    within 1e-4 in trace correlation, warp and width error."""
+    from dnmf_tpu_torch.tools import wb_recovery
+
+    fixture = wb_recovery.recovery_fixture((48, 40, 8), 6, 16,
+                                           sigma_aniso=True, device=dev)
+    kw = dict(frame_block=8, fit_sigma=True, sigma_every=1)
+    fused.reset_launch_counts()
+    got = wb_recovery.recover(fixture, 2, 3, 20, **kw)
+    launches = fused.launch_counts()
+    for kname in ("motion_block", "c1_block", "refine_block"):
+        assert launches[kname] > 0, kname
+    ref = wb_recovery.recover(fixture, 2, 3, 20, use_kernels=False, **kw)
+    np.testing.assert_allclose(got["corr"], ref["corr"], rtol=0, atol=1e-4)
+    assert abs(got["warp_err_px"] - ref["warp_err_px"]) <= 1e-4
+    assert abs(got["sigma_err"] - ref["sigma_err"]) <= 1e-4

@@ -432,8 +432,8 @@ def test_streamed_and_sharded_refine_raise(rng):
 
     with pytest.raises(ValueError, match="streams to meta"):
         tt.refine(Streamed())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tt.refine(Dataset())
+    # Datasets feed refine (tests/test_torch_port_datasets.py).
+    tt.refine(Dataset(), rounds=1, epochs=1, mu_iters=1)
     with pytest.raises(NotImplementedError, match="item 10"):
         tR.sharded_refined_rounds(tt.state, video, tt.model, None)
     with pytest.raises(NotImplementedError, match="item 10"):
