@@ -3,8 +3,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profile   # only the kernel breakdowns
 
-``--profile`` prints the ``torch.profiler`` device time, launch by
-launch, of the phase-correlation kernel F at the pipeline's patch grid,
+``--profile`` prints the ``torch.profiler`` device time of one serial
+Adam step of the parity epoch at the ROI shape (plain PyTorch, by kernel
+name), then, launch by launch, of the phase-correlation kernel F at the
+pipeline's patch grid,
 of the fused warp G at ``bench.py``'s whole-brain patch grid (16
 frames), and of the Gram kernel (C at shared anchors, E at per-frame
 positions, C4 from rows), the motion kernel A, the c1 kernel B (shared
@@ -113,8 +115,30 @@ Phases, each of which exits non-zero on failure:
    fitting every round (4 steps x 16 frames), fitted with per-axis and
    with isotropic widths: the per-axis width error <= 0.2 px and under
    half the isotropic one, trace corr mean >= 0.999 per axis and >= 0.998
-   isotropic, the refine kernel (with dsigma) ran in both.
+   isotropic, the refine kernel (with dsigma) ran in both;
+17. parity path (a): ``motion_mode="parity"`` (serial Adam over shuffled
+   batches of 4 against the full beta) at the ROI shape, T=256, one round
+   of 2 epochs (128 steps), gram_mode="auto", with the kernels and with
+   ``use_kernels=False``: the c1 and Gram kernels ran (the closed form's
+   c1 pass and the audit), the motion kernel did not (the parity epoch is
+   plain PyTorch), and the two fits agree within the main path's gates;
+18. reference parity (b): ``reference_demo_model(parity=True)`` (resampled
+   footprints, pixel basis, detached regularizer) with the demo's
+   schedule in parity mode at 50x50x2, K=10, T=100, on a seeded simulator
+   fixture whose anchors sit ``REF_MARGIN`` px inside: one round on the
+   card and on the CPU, beta and C within ``REF_BETA_TOL`` / ``REF_C_TOL``;
+   then ``demo_torch.py --parity --rounds 1``, its summary printed;
+19. checkpoint/resume (c): ROI shape, T=64, ``fit`` 2 rounds with
+   ``checkpoint_dir``; a fresh engine restores ``round_0.pt`` and fits 1
+   round: beta, C, sigma, the Adam moments and count bit-equal;
+20. ``fit_fused`` (d) against ``fit`` at the same shape: the main path's
+   gates, two audits;
+21. ``profile_dir`` (e): the last round's ``torch.profiler`` trace names the
+   motion and c1 kernels;
+22. ``StaticFootprintNMF`` (f) at the ROI shape, T=64: ``STATIC_ITERS``
+   alternations against the same iterations in float64.
 
+Every phase prints its seconds with the card's name and power limit.
 The last two lines are a JSON object of per-kernel results and
 ``{"ok": true, "device": {...}}``.
 """
@@ -125,6 +149,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -137,6 +162,7 @@ from dnmf_tpu_torch import config as tcfg
 from dnmf_tpu_torch.data import simulator
 from dnmf_tpu_torch.data.datasets import SimulatedVideoDataset
 from dnmf_tpu_torch.engine import trainer as ttr
+from dnmf_tpu_torch.models import dnmf as model_lib
 from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import (_build, basis, footprints, fused, phasecorr,
                                 warp)
@@ -908,11 +934,12 @@ def warp_shifts(inp, max_shifts, max_dev):
     return rs, ps
 
 
-def device_breakdown(label, run, reps=5):
+def device_breakdown(label, run, reps=5, each_launch=True):
     """Print the device time of ``run()`` by kernel name under
     ``torch.profiler`` (launches and ms per call), its time per call by
     CUDA events, and the host time per call (the call's return, nothing
-    synchronized: the wrapper's own work and its launches)."""
+    synchronized: the wrapper's own work and its launches); with
+    ``each_launch``, one call's launches in order too."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = time_ms(run, reps)
@@ -940,6 +967,8 @@ def device_breakdown(label, run, reps=5):
         if t >= 0.005 * busy:
             say(f"profile {label}:   {t:.4f} ms ({100 * t / busy:.1f}%) in "
                 f"{n:g} launches: {key[:90]}")
+    if not each_launch:
+        return
     # One call's launches in order (key_averages merges a kernel's calls).
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
@@ -957,7 +986,23 @@ def profile_kernels(dev):
     E and C4 (the Gram), A (motion), B (c1 at shared anchors and at
     per-frame positions) and D (refine, with and without dsigma) at the
     whole-brain shape with 2 and 16 frames (16: the pipeline's frame
-    block): ``python3 chip_smoke.py --profile``."""
+    block), after one serial Adam step of the parity epoch at the ROI
+    shape (plain PyTorch): ``python3 chip_smoke.py --profile``."""
+    roi, _ = tcfg.baseline_workload("roi")
+    model = tcfg.ModelConfig(size=roi.size, num_neurons=roi.num_neurons,
+                             num_frames=PARITY_FRAMES,
+                             shape_std=roi.shape_std)
+    pos, _, video = ground_truth(dev, model.size, model.num_neurons,
+                                 PARITY_FRAMES, SEED)
+    state = model_lib.init_state(model, positions=pos, device=dev)
+    batch = (torch.arange(4, device=dev)[None], torch.ones((1, 4),
+                                                           device=dev))
+    device_breakdown(
+        f"parity step ROI (4 frames of {PARITY_FRAMES})",
+        lambda: model_lib.motion_epoch_parity(state, video, *batch, model,
+                                              model_lib.Adam(1e-3), 1.0),
+        each_launch=False)
+    del state, video
     inp = registration_inputs(dev, *REG_SHAPES["pipeline"])
     z = inp["window"][2]
     cap = max(1, int(2 * REG_SHAPES["pipeline"][4]))
@@ -1859,6 +1904,289 @@ def witness_aniso(dev):
     return launches[3]
 
 
+# ----------------------------------------------------------------------
+# The reference-parity path and the engine's remainder
+# ----------------------------------------------------------------------
+PARITY_FRAMES = 256  # parity motion at the ROI shape: 64 batches of 4
+ENGINE_FRAMES = 64  # checkpoint/resume, fit_fused, profile_dir
+# Reference demo fixture, its anchors kept 10 px inside the 50x50 plane:
+# its GP offsets (2.56 px std) then stay inside too (ROADMAP Queue 3's
+# runaway traces rule out the demo's own borderless fixture as a gate).
+REF_MARGIN = 10.0
+# Card vs CPU on the reference's numerics, relative to the CPU's max:
+# float32 sums in another order on each device, and the trilinear
+# gradient jumps where a coordinate crosses a cell face (a coordinate
+# within an ulp of a face may round to either side).
+REF_BETA_TOL = 1e-4
+REF_C_TOL = 1e-3
+STATIC_ITERS = 5
+STATIC_TOL = 1e-4  # StaticFootprintNMF float32 vs float64, relative to max
+
+
+def engine_fit(model, pos, video, use_kernels=None, rounds=2, **kw):
+    """An engine at the main path's schedule; ``kw`` go to the runtime
+    (e.g. ``checkpoint_dir``, ``profile_dir``)."""
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=rounds,
+                               motion_epochs=2, mu_iters=50, seed=SEED)
+    rt = tcfg.RuntimeConfig(frame_block=8, use_kernels=use_kernels, **kw)
+    return ttr.DeformableNMF(model, opt, rt, positions=pos,
+                             device=video.device)
+
+
+def check_agree(label, rk, rp):
+    """The main path's gates between two fits: the last motion epoch's
+    recon_mse of every round within FIT_MSE_TOL, per-neuron trace
+    correlation >= FIT_CORR_MIN."""
+    mk, mp = ([m["motion_recon_mse"] for m in r.metrics
+               if m["phase"] == "round"] for r in (rk, rp))
+    worst = max((abs(a - b) / abs(b) for a, b in zip(mk, mp)),
+                default=math.inf)
+    corr = float(trace_corr(rk.state.c, rp.state.c).min())
+    say(f"{label}: recon_mse max rel diff {worst:.3e} over {len(mk)} "
+        f"rounds; trace corr min {corr:.6f}")
+    if len(mk) != len(mp) or not worst <= FIT_MSE_TOL:
+        fail(f"{label}: recon_mse differs by {worst:.3e}")
+    if not corr >= FIT_CORR_MIN:
+        fail(f"{label}: trace correlation {corr:.6f}")
+
+
+def parity_path(dev, card):
+    """(a) ``motion_mode="parity"`` at the ROI shape (T=256, batch_size=4,
+    shuffled): one round of 2 epochs (128 serial Adam steps) with
+    gram_mode="auto" and again with ``use_kernels=False``.  The c1 and
+    Gram kernels ran (the closed form's c1 pass and the audit), the motion
+    epoch is plain PyTorch, and the two fits agree.  Returns the kernel
+    fit's launches."""
+    roi, _ = tcfg.baseline_workload("roi")
+    model = tcfg.ModelConfig(size=roi.size, num_neurons=roi.num_neurons,
+                             num_frames=PARITY_FRAMES,
+                             shape_std=roi.shape_std)
+    pos, c_true, video = ground_truth(dev, model.size, model.num_neurons,
+                                      model.num_frames, SEED)
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=1,
+                               motion_epochs=2, mu_iters=50, seed=SEED,
+                               motion_mode="parity", batch_size=4,
+                               shuffle=True)
+
+    def fit(use_kernels):
+        eng = ttr.DeformableNMF(model, opt, tcfg.RuntimeConfig(
+            frame_block=8, use_kernels=use_kernels), positions=pos,
+            device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.fit(video)
+        return res, time.perf_counter() - t0
+
+    fused.reset_launch_counts()
+    res_k, secs_k = fit(None)
+    launches = fused.launch_counts()
+    res_p, secs_p = fit(False)
+    epochs = [m for m in res_k.metrics if m["phase"] == "motion"]
+    rounds = [m for m in res_k.metrics if m["phase"] == "round"]
+    motion_s = rounds[0]["seconds"]
+    say(f"parity ({card}): launches {launches}; Adam steps "
+        f"{int(res_k.state.count)}; fit {secs_k:.3f} s with kernels, "
+        f"{secs_p:.3f} s plain; {1e3 * secs_k / len(epochs):.1f} ms per "
+        f"parity epoch (round {motion_s:.3f} s, Grams and 50 MU included); "
+        f"recon_mse per epoch {[round(m['recon_mse'], 9) for m in epochs]}")
+    for kname in ("c1_block", "gram_block"):
+        if launches[kname] <= 0:
+            fail(f"parity: {kname} was not launched")
+    if launches["motion_block"] != 0:
+        fail("parity: the motion kernel ran in a parity epoch")
+    if int(res_k.state.count) != 2 * PARITY_FRAMES // 4:
+        fail(f"parity: {int(res_k.state.count)} Adam steps")
+    check_agree("parity kernel vs plain", res_k, res_p)
+    if not bool(torch.isfinite(res_k.state.beta).all()):
+        fail("parity: non-finite warps")
+    return launches
+
+
+def reference_parity(dev, card):
+    """(b) The reference's numerics (``reference_demo_model(parity=True)``:
+    resampled footprints, pixel basis, detached regularizer; the demo's
+    schedule, parity mode) at the demo's shape on a seeded simulator
+    fixture whose anchors sit ``REF_MARGIN`` inside: one round on the card
+    and the same round on the CPU from the same state; then ``demo_torch
+    --parity --rounds 1``, its summary printed ungated."""
+    sim = dataclasses.replace(tcfg.reference_demo_simulator(),
+                              margin=REF_MARGIN, seed=SEED)
+    ds = SimulatedVideoDataset(sim, device=dev)
+    model = tcfg.reference_demo_model(parity=True)
+    opt = dataclasses.replace(tcfg.reference_demo_optimizer(),
+                              motion_mode="parity", outer_rounds=1)
+    results, secs = {}, {}
+    for role, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        eng = ttr.DeformableNMF(model, opt, positions=ds.positions[:, :, 0],
+                                device=device)
+        if eng._use_kernels:
+            fail("reference parity: the kernels resolved for resampling")
+        t0 = time.perf_counter()
+        results[role] = eng.fit(ds.video.to(device))
+        secs[role] = time.perf_counter() - t0
+    card_res, cpu_res = results["card"], results["cpu"]
+    beta_err = rel_err(card_res.state.beta.cpu(), cpu_res.state.beta)
+    c_err = rel_err(card_res.state.c.cpu(), cpu_res.state.c)
+    corr = trace_corr(card_res.state.c.cpu(), ds.traces.cpu())
+    say(f"reference parity ({card}): 1 round (10 epochs x 25 batches, "
+        f"50 MU) card {secs['card']:.3f} s, CPU {secs['cpu']:.3f} s; "
+        f"card vs CPU beta {beta_err:.3e} (tol {REF_BETA_TOL:g}), C "
+        f"{c_err:.3e} (tol {REF_C_TOL:g}), relative to the CPU's max; trace "
+        f"corr vs the fixture mean {float(corr.mean()):.6f}, min "
+        f"{float(corr.min()):.6f}")
+    if not beta_err <= REF_BETA_TOL:
+        fail(f"reference parity: beta card vs CPU {beta_err:.3e}")
+    if not c_err <= REF_C_TOL:
+        fail(f"reference parity: C card vs CPU {c_err:.3e}")
+    import demo_torch
+
+    t0 = time.perf_counter()
+    summary = demo_torch.main(["--parity", "--rounds", "1"])
+    if not isinstance(summary, dict):
+        fail(f"demo_torch --parity --rounds 1 exited with {summary}")
+    say(f"demo_torch --parity --rounds 1 ({card}): "
+        f"{time.perf_counter() - t0:.3f} s; summary {json.dumps(summary)}")
+
+
+def checkpoint_resume(dev, card, model, pos, video):
+    """(c) ``fit`` 2 rounds with ``checkpoint_dir`` (parallel, kernels, no
+    anneal); a fresh engine restores ``round_0`` and fits 1 round: beta,
+    C, sigma, the Adam moments and count equal the unbroken run's, bit
+    for bit."""
+    import tempfile
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        fused.reset_launch_counts()
+        t0 = time.perf_counter()
+        unbroken = engine_fit(model, pos, video, checkpoint_dir=tmp).fit(
+            video).state
+        fit_s = time.perf_counter() - t0
+        launches = fused.launch_counts()
+        fresh = engine_fit(model, pos, video)
+        t0 = time.perf_counter()
+        fresh.restore(os.path.join(tmp, "round_0.pt"))
+        restore_s = time.perf_counter() - t0
+        resumed = fresh.fit(video, rounds=1).state
+        size = os.path.getsize(os.path.join(tmp, "round_0.pt"))
+    same = {f: torch.equal(getattr(resumed, f), getattr(unbroken, f))
+            for f in ("beta", "c", "sigma", "mu", "nu", "count")}
+    say(f"checkpoint/resume ({card}): fit 2 rounds with checkpoints "
+        f"{fit_s:.3f} s, restore {restore_s:.3f} s ({size / 1e6:.3f} MB per "
+        f"checkpoint); launches {launches}; resumed == unbroken: {same}")
+    for kname in ("motion_block", "c1_block", "gram_block"):
+        if launches[kname] <= 0:
+            fail(f"checkpoint/resume: {kname} was not launched")
+    if not all(same.values()):
+        fail(f"checkpoint/resume: resumed run differs: {same}")
+    return launches
+
+
+def fused_vs_fit(dev, card, model, pos, video):
+    """(d) ``fit_fused`` against ``fit`` from the same engine state, within
+    the main path's gates."""
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    ff = engine_fit(model, pos, video).fit_fused(video)
+    torch.cuda.synchronize()
+    ff_s = time.perf_counter() - t0
+    launches = fused.launch_counts()
+    t0 = time.perf_counter()
+    fit = engine_fit(model, pos, video).fit(video)
+    fit_s = time.perf_counter() - t0
+    same = all(torch.equal(getattr(ff.state, f), getattr(fit.state, f))
+               for f in ("beta", "c", "mu", "nu"))
+    audits = [m["rel_err"] for m in ff.metrics if m["phase"] == "gram_audit"]
+    say(f"fit_fused ({card}): {ff_s:.3f} s, fit {fit_s:.3f} s; launches "
+        f"{launches}; audits before/after {audits}; bit-equal to fit: "
+        f"{same}")
+    for kname in ("motion_block", "c1_block", "gram_block"):
+        if launches[kname] <= 0:
+            fail(f"fit_fused: {kname} was not launched")
+    if len(audits) != 2:
+        fail("fit_fused: the closed-form Grams were not audited twice")
+    check_agree("fit_fused vs fit", ff, fit)
+    return launches
+
+
+def profile_round(dev, card, model, pos, video):
+    """(e) ``profile_dir``: the trace of the last round names the motion
+    and c1 kernels."""
+    import tempfile
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        engine_fit(model, pos, video, profile_dir=tmp).fit(video)
+        secs = time.perf_counter() - t0
+        files = sorted(os.listdir(tmp))
+        with open(os.path.join(tmp, files[-1])) as f:
+            trace = json.load(f)
+    events = trace.get("traceEvents", [])
+    found = {k: sum(k in e.get("name", "") for e in events)
+             for k in ("motion_bricks", "c1_bricks")}
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    say(f"profile_dir ({card}): fit 2 rounds {secs:.3f} s; trace files "
+        f"{files}; {len(events)} events, {kernels} kernel events; events "
+        f"by name {found}")
+    if files != ["round_1.trace.json"]:
+        fail(f"profile_dir: wrote {files}")
+    for k, n in found.items():
+        if n <= 0:
+            fail(f"profile_dir: the trace names no {k} kernel")
+
+
+def static_footprint(dev, card, model, pos, video):
+    """(f) ``StaticFootprintNMF`` at the ROI shape: ``STATIC_ITERS``
+    alternations against the same iterations in float64."""
+    from dnmf_tpu_torch.ops import mu as mu_ops
+
+    eng = ttr.StaticFootprintNMF(model, pos, device=dev)
+    a0, c0, d = eng.a.double(), eng.c.double(), eng.d.double()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a, c = eng.fit(video, iters=STATIC_ITERS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    y = torch.clamp_min(video.double(), 0.0).T
+    a_o, c_o = a0, c0
+    for _ in range(STATIC_ITERS):
+        c_o = c_o * (a_o.T @ y) / ((a_o.T @ a_o) @ c_o + mu_ops.EPS)
+        a_o = mu_ops.mu_spatial_step(a_o, c_o, y, d=d, gamma=eng.gamma_a)
+    ea, ec = rel_err(a, a_o), rel_err(c, c_o)
+    say(f"StaticFootprintNMF ({card}): {STATIC_ITERS} iterations at "
+        f"{tuple(video.shape)} {secs:.3f} s; vs float64 A {ea:.3e}, C "
+        f"{ec:.3e} (tol {STATIC_TOL:g})")
+    if not (ea <= STATIC_TOL and ec <= STATIC_TOL):
+        fail(f"StaticFootprintNMF: float32 vs float64 A {ea:.3e}, C {ec:.3e}")
+
+
+def engine_paths(dev, card):
+    """Phases (a)-(f), each timed; returns the launches per phase."""
+    roi, _ = tcfg.baseline_workload("roi")
+    model = tcfg.ModelConfig(size=roi.size, num_neurons=roi.num_neurons,
+                             num_frames=ENGINE_FRAMES,
+                             shape_std=roi.shape_std)
+    pos, _, video = ground_truth(dev, model.size, model.num_neurons,
+                                 model.num_frames, SEED)
+    launches = {}
+    phases = (("parity path", lambda: parity_path(dev, card)),
+              ("reference parity", lambda: reference_parity(dev, card)),
+              ("checkpoint/resume", lambda: checkpoint_resume(
+                  dev, card, model, pos, video)),
+              ("fit_fused", lambda: fused_vs_fit(dev, card, model, pos,
+                                                 video)),
+              ("profile_dir", lambda: profile_round(dev, card, model, pos,
+                                                    video)),
+              ("StaticFootprintNMF", lambda: static_footprint(
+                  dev, card, model, pos, video)))
+    for label, phase in phases:
+        t0 = time.perf_counter()
+        launches[label] = phase()
+        say(f"{label}: {time.perf_counter() - t0:.3f} s ({card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -1926,6 +2254,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(dev)
         say(f"{label}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    engine_paths(dev, card)
+    say(f"engine paths (a)-(f): {time.perf_counter() - t0:.3f} s ({card})")
     say(f"chip_smoke: {time.perf_counter() - started:.3f} s in all")
 
     kernels = []

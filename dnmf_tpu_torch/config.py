@@ -5,9 +5,9 @@ so one configuration drives either package.  The one rename is
 ``RuntimeConfig.use_pallas`` -> ``RuntimeConfig.use_kernels``: the
 hand-written CUDA kernels of :mod:`dnmf_tpu_torch.ops.fused` take the
 place of the Pallas kernels.  ``SimulatorConfig`` drives the fixture
-generator :mod:`dnmf_tpu_torch.data.simulator`, and the
-``reference_demo_*`` presets give the reference demo's model, schedule
-and fixture.
+generator :mod:`dnmf_tpu_torch.data.simulator`, the ``reference_demo_*``
+presets give the reference demo's model, schedule and fixture, and
+``high_snr_registration`` is the JAX package's registration preset.
 """
 
 from __future__ import annotations
@@ -21,9 +21,9 @@ class DeformationConfig:
     """Quadratic deformation model settings.
 
     ``footprint_mode``: ``"analytic"`` evaluates the Gaussians directly
-    at deformed coordinates.  ``"resample"`` (trilinear resampling of a
-    stored footprint volume, the reference-parity path) is not ported
-    yet.
+    at deformed coordinates; ``"resample"`` samples a stored footprint
+    volume trilinearly (the reference's numerics).  Only analytic
+    footprints with the border fade run the CUDA kernels.
     """
 
     footprint_mode: str = "analytic"
@@ -73,8 +73,8 @@ class OptimizerConfig:
     mu_iters: int = 50
     gamma_motion: float = 1.0  # Jacobian regularizer weight
     gamma_traces: float = 0.0  # temporal smoothing weight
-    # "parallel": per-frame independent Adam (ported).  "parity": the
-    # reference's serial mini-batch schedule (not ported yet).
+    # "parallel": per-frame independent Adam.  "parity": the reference's
+    # serial mini-batch schedule (batch_size frames per Adam step).
     motion_mode: str = "parallel"
     shuffle: bool = True
     # Per-round multipliers on the footprint widths (padded with 1.0).
@@ -105,8 +105,10 @@ class RuntimeConfig:
     mesh_batch: Optional[int] = None
     mesh_pixel: Optional[int] = None
     # Hand-written CUDA kernels for the motion, c1 and Gram passes.
-    # None = kernels for CUDA tensors, the plain PyTorch versions for
-    # CPU tensors; False = the plain versions everywhere.
+    # None = kernels on the card for analytic footprints with the border
+    # fade, the plain PyTorch versions otherwise (and on the CPU); False =
+    # the plain versions everywhere; True raises for resampled or unfaded
+    # footprints, whose function the kernels do not compute.
     use_kernels: Optional[bool] = None
     # MU Gram computation: "auto" (closed form wherever valid, guarded
     # by the per-fit trust audit), "exact" (the O(P K^2) pixel
@@ -119,7 +121,9 @@ class RuntimeConfig:
     gram_trust_tol: Optional[float] = 0.02
     # Raise on non-finite factors after each update phase.
     check_finite: bool = False
+    # torch.profiler trace of the last fit() round into this directory.
     profile_dir: Optional[str] = None
+    # Checkpoint after every fit() round into this directory.
     checkpoint_dir: Optional[str] = None
     metrics_path: Optional[str] = None
 
@@ -225,12 +229,20 @@ class SimulatorConfig:
     seed: int = 0
 
 
+def high_snr_registration(**overrides) -> RegistrationConfig:
+    """The JAX package's fast-correlation preset for known-high-SNR
+    recordings (``dft_precision="default"``; any field can be
+    overridden).  The port accepts the field and stays in float32: on the
+    card every option computes the transforms in float32 FMA, without
+    TF32, so this preset changes no result of the port."""
+    return RegistrationConfig(**{"dft_precision": "default", **overrides})
+
+
 def reference_demo_model(parity: bool = False) -> ModelConfig:
     """The reference demo's model shapes.  ``parity=True`` selects the
-    reference's exact numerics (pixel basis, resampled footprints, the
-    detached regularizer); :class:`DeformableNMF` raises
-    ``NotImplementedError`` for its ``footprint_mode="resample"``
-    (ROADMAP Queue 1 item 11)."""
+    reference's exact numerics: pixel basis, resampled footprints and the
+    detached regularizer (run with ``motion_mode="parity"`` for its
+    serial mini-batch schedule)."""
     deform = (
         DeformationConfig(footprint_mode="resample", basis_scaling="pixel",
                           detach_regularizer=True)

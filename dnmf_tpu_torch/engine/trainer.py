@@ -1,23 +1,31 @@
 """User-facing driver: alternating deformation fits and trace updates.
 
-Counterpart of ``dnmf_tpu/engine/trainer.py`` on the main path:
+Counterpart of ``dnmf_tpu/engine/trainer.py``:
 ``DeformableNMF(model, optimizer, runtime, positions=..., device=...)
-.fit(video)`` runs ``outer_rounds`` x (``motion_epochs`` parallel Adam
-epochs on the warps, with ``fit_sigma`` a width fit on a frame
+.fit(video)`` runs ``outer_rounds`` x (``motion_epochs`` Adam epochs on
+the warps, per-frame parallel or the reference's serial mini-batches
+(``motion_mode="parity"``), with ``fit_sigma`` a width fit on a frame
 subsample, then Grams and ``mu_iters`` trace updates), with the
-once-per-fit trust audit of the closed-form Grams; ``.refine(video)``
-then fits per-frame neuron positions.  ``video`` is an array or tensor
-held on the engine's device, a dataset (:mod:`dnmf_tpu_torch.data.datasets`;
-its ``frames_flat()`` goes to that device as it is, not clamped again), or
-a host-streamed source (:mod:`dnmf_tpu_torch.data.streaming`) whose frame
-blocks go to that device.  Options outside the ported slice raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+once-per-fit trust audit of the closed-form Grams; ``.fit_fused(video)``
+runs the same schedule as one call per anneal segment;
+``.refine(video)`` then fits per-frame neuron positions.  ``video`` is
+an array or tensor held on the engine's device, a dataset
+(:mod:`dnmf_tpu_torch.data.datasets`; its ``frames_flat()`` goes to that
+device as it is, not clamped again), or a host-streamed source
+(:mod:`dnmf_tpu_torch.data.streaming`) whose frame blocks go to that
+device.  ``runtime.checkpoint_dir`` saves every round
+(:meth:`DeformableNMF.save` / :meth:`~DeformableNMF.restore`),
+``runtime.profile_dir`` traces the last round with ``torch.profiler``.
+:class:`StaticFootprintNMF` is the static-footprint MU mode.  The mesh
+options raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import time
 import warnings
 from typing import List, Optional
@@ -29,7 +37,10 @@ from dnmf_tpu_torch.config import ModelConfig, OptimizerConfig, RuntimeConfig
 from dnmf_tpu_torch.models import dnmf as model_lib
 from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import basis as basis_ops
+from dnmf_tpu_torch.ops import footprints as fp_ops
 from dnmf_tpu_torch.ops import gram_analytic as ga
+from dnmf_tpu_torch.ops import mu as mu_ops
+from dnmf_tpu_torch.utils import checkpoint
 
 
 @dataclasses.dataclass
@@ -92,6 +103,15 @@ class DeformableNMF:
     The engine runs on the CUDA device unless ``device`` says otherwise
     (``device="cpu"`` runs the plain versions on the CPU).  ``beta0 [T,
     10, 3]`` seeds the warps, e.g. from registration.
+
+    ``runtime.use_kernels`` is resolved here, once, as the JAX package
+    resolves ``use_pallas``: None takes the CUDA kernels on the card for
+    the configurations whose function they compute (analytic footprints
+    with the border fade) and the plain versions otherwise, so
+    ``footprint_mode="resample"`` and ``mask_out_of_bounds=False`` run
+    plain; ``True`` with either of those raises ``ValueError``.  Parity
+    mode draws each epoch's batch order from a ``torch.Generator``
+    seeded with ``optimizer.seed``.
     """
 
     def __init__(self, model: ModelConfig, optimizer: OptimizerConfig,
@@ -101,44 +121,41 @@ class DeformableNMF:
         self.opt_config = optimizer
         self.runtime = runtime or RuntimeConfig()
         self.device = torch.device(device)
-        self._check_slice()
+        self._check_options()
         self.optimizer = model_lib.make_motion_optimizer(optimizer)
         self.state = model_lib.init_state(
             model, positions=positions,
             generator=torch.Generator().manual_seed(optimizer.seed),
             device=self.device, beta0=beta0)
+        self._batch_gen = torch.Generator().manual_seed(optimizer.seed)
         self.metrics: List[dict] = []
         self._base_sigma = self.state.sigma
         # Per-frame positions [T, K, 3] from refine(), None before it.
         self.pos_t: Optional[torch.Tensor] = None
         if self.runtime.use_kernels is None:
-            self._use_kernels = self.device.type == "cuda"
+            self._use_kernels = (self.device.type == "cuda"
+                                 and model_lib.kernels_apply(model))
         else:
             self._use_kernels = bool(self.runtime.use_kernels)
+            model_lib.check_kernels(model, self._use_kernels)
         mode = self.runtime.gram_mode
         if mode == "auto":
-            # Footprints are analytic and there is no pixel mesh on the
-            # ported path, so the closed form is always valid here.
-            mode = "analytic"
+            # The closed form wherever valid (analytic footprints; there
+            # is no pixel mesh on the ported path).
+            analytic = model.deformation.footprint_mode == "analytic"
+            mode = "analytic" if analytic else "exact"
         elif mode not in ("exact", "analytic"):
             raise ValueError(f"unknown gram_mode: {mode!r} "
                              "(expected 'auto', 'exact', or 'analytic')")
         self._gram_mode = mode
         self._gram_audited = False
 
-    def _check_slice(self) -> None:
-        model_lib.check_main_path(self.model)
+    def _check_options(self) -> None:
         rt, opt = self.runtime, self.opt_config
-        if opt.motion_mode == "parity":
-            raise _not_ported("motion_mode='parity'", 11)
-        if opt.motion_mode != "parallel":
+        if opt.motion_mode not in ("parallel", "parity"):
             raise ValueError(f"unknown motion_mode: {opt.motion_mode!r}")
         if rt.mesh_time or rt.mesh_batch or rt.mesh_pixel:
             raise _not_ported("mesh_time/mesh_batch/mesh_pixel", 10)
-        if rt.checkpoint_dir:
-            raise _not_ported("checkpoint_dir (save/restore)", 11)
-        if rt.profile_dir:
-            raise _not_ported("profile_dir (per-round traces)", 11)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -170,6 +187,20 @@ class DeformableNMF:
         if video.ndim == 4:
             video = video.reshape(video.shape[0], -1)
         return torch.clamp_min(video, 0.0).contiguous()
+
+    def _epoch_batches(self):
+        """One parity epoch's ``(times, weights)``, ``[num_batches, B]``:
+        the frames in shuffled (or natural) order, the last batch padded
+        with frame 0 at weight 0."""
+        t, b = self.model.num_frames, self.opt_config.batch_size
+        order = (torch.randperm(t, generator=self._batch_gen)
+                 if self.opt_config.shuffle else torch.arange(t))
+        pad = (-t) % b
+        times = torch.cat([order, torch.zeros(pad, dtype=order.dtype)])
+        weights = torch.cat([torch.ones(t), torch.zeros(pad)])
+        nb = (t + pad) // b
+        return (times.reshape(nb, b).to(self.device),
+                weights.reshape(nb, b).to(self.device))
 
     def _gram_window(self) -> Optional[int]:
         """Lattice window of the closed-form Grams, sized for the widest
@@ -206,7 +237,10 @@ class DeformableNMF:
 
     # ------------------------------------------------------------------
     def update_motion(self, video, epochs: Optional[int] = None) -> dict:
-        """``epochs`` parallel Adam epochs on the warps."""
+        """``epochs`` Adam epochs on the warps: per-frame parallel, or in
+        parity mode serial mini-batches.  A streamed source runs the
+        streamed parallel epoch in either mode, as the JAX package does
+        (ROADMAP Queue 3)."""
         return self._motion(self._prepare(video), epochs)
 
     def _motion(self, video, epochs=None) -> dict:
@@ -218,6 +252,11 @@ class DeformableNMF:
                 self.state, m = model_lib.motion_epoch_streaming(
                     self.state, video, self.model, self.optimizer, gamma,
                     use_kernels=self._use_kernels)
+            elif self.opt_config.motion_mode == "parity":
+                times, weights = self._epoch_batches()
+                self.state, m = model_lib.motion_epoch_parity(
+                    self.state, video, times, weights, self.model,
+                    self.optimizer, gamma)
             else:
                 self.state, m = model_lib.motion_epoch_parallel(
                     self.state, video, self.model, self.optimizer, gamma,
@@ -301,8 +340,23 @@ class DeformableNMF:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _profiler(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities)
+
     def fit(self, video, rounds: Optional[int] = None) -> FitResult:
-        """Full alternation schedule; returns final state + metric log."""
+        """Full alternation schedule; returns final state + metric log.
+
+        With ``runtime.profile_dir`` the last round runs under
+        ``torch.profiler`` and its trace is written to
+        ``{profile_dir}/round_{r}.trace.json`` (Chrome trace format); with
+        ``runtime.checkpoint_dir`` every round is saved to
+        ``{checkpoint_dir}/round_{r}.pt`` (:meth:`save`).
+        """
         video = self._prepare(video)
         rounds = rounds or self.opt_config.outer_rounds
         self._gram_audited = False
@@ -312,18 +366,26 @@ class DeformableNMF:
             factor = anneal[r] if r < len(anneal) else 1.0
             self.state = self.state.replace(sigma=self._base_sigma * factor)
             t0 = time.perf_counter()
-            motion_m = self._motion(video)
-            self._check_finite("motion")
-            if self.opt_config.fit_sigma and factor == 1.0:
-                # Width fitting waits out the annealed (deliberately
-                # widened) rounds, then runs every sigma_every-th round.
-                if plain_rounds % max(self.opt_config.sigma_every, 1) == 0:
-                    self._sigma(video)
-                    self._check_finite("sigma")
-                plain_rounds += 1
-            traces_m = self._footprints(video)
-            self._check_finite("traces")
-            self._sync()
+            prof = (self._profiler()
+                    if self.runtime.profile_dir and r == rounds - 1 else None)
+            with prof or contextlib.nullcontext():
+                motion_m = self._motion(video)
+                self._check_finite("motion")
+                if self.opt_config.fit_sigma and factor == 1.0:
+                    # Width fitting waits out the annealed (deliberately
+                    # widened) rounds, then runs every sigma_every-th round.
+                    if plain_rounds % max(self.opt_config.sigma_every,
+                                          1) == 0:
+                        self._sigma(video)
+                        self._check_finite("sigma")
+                    plain_rounds += 1
+                traces_m = self._footprints(video)
+                self._check_finite("traces")
+                self._sync()
+            if prof is not None:
+                os.makedirs(self.runtime.profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(
+                    self.runtime.profile_dir, f"round_{r}.trace.json"))
             entry = {
                 "phase": "round", "round": r,
                 "seconds": time.perf_counter() - t0,
@@ -331,8 +393,68 @@ class DeformableNMF:
                 **{f"traces_{k}": v for k, v in traces_m.items()},
             }
             self._log(entry)
+            if self.runtime.checkpoint_dir:
+                self.save(os.path.join(self.runtime.checkpoint_dir,
+                                       f"round_{r}.pt"))
         # End on the base widths even when the anneal covers the last round.
         self.state = self.state.replace(sigma=self._base_sigma)
+        return FitResult(state=self.state, metrics=self.metrics)
+
+    def fit_fused(self, video, rounds: Optional[int] = None) -> FitResult:
+        """The alternation as one call of
+        :func:`~dnmf_tpu_torch.models.dnmf.fused_rounds` per run of equal
+        ``sigma_anneal`` factors (one call without an anneal); the same
+        factors as :meth:`fit` in parallel mode, with per-round metrics.
+        The closed-form Grams are audited before (deciding the mode for
+        the whole call) and again after (a witness in the metrics).
+        Parity mode, ``fit_sigma`` (its host-side cadence) and streamed
+        sources raise ``ValueError``: use :meth:`fit`."""
+        if self._is_streaming(video):
+            raise ValueError(
+                "fit_fused supports the single-device, device-resident "
+                "path; use fit() for meshes and streamed videos")
+        if self.opt_config.motion_mode == "parity":
+            raise ValueError("fit_fused requires motion_mode='parallel'")
+        if self.opt_config.fit_sigma:
+            raise ValueError(
+                "fit_fused runs the whole schedule in one call and cannot "
+                "interleave the sigma-fitting cadence; use fit() with "
+                "fit_sigma=True")
+        video = self._video_flat(video)
+        rounds = rounds or self.opt_config.outer_rounds
+        self._gram_audited = False
+        self._maybe_audit_analytic()
+        anneal = self.opt_config.sigma_anneal
+        segments = []  # [factor, rounds] runs of equal anneal factors
+        for r in range(rounds):
+            factor = anneal[r] if r < len(anneal) else 1.0
+            if segments and segments[-1][0] == factor:
+                segments[-1][1] += 1
+            else:
+                segments.append([factor, 1])
+        cfg = self.opt_config
+        recon, reg = [], []
+        for factor, seg_rounds in segments:
+            self.state = self.state.replace(sigma=self._base_sigma * factor)
+            self.state, m = model_lib.fused_rounds(
+                self.state, video, self.model, self.optimizer,
+                rounds=seg_rounds, epochs=cfg.motion_epochs,
+                mu_iters=cfg.mu_iters, gamma=cfg.gamma_motion,
+                mu_gamma=cfg.gamma_traces,
+                frame_block=self.runtime.frame_block,
+                use_kernels=self._use_kernels, gram_mode=self._gram_mode,
+                gram_window=self._gram_window(),
+                trace_solver=cfg.trace_solver)
+            recon.extend(float(v) for v in m["recon_mse"])
+            reg.extend(float(v) for v in m["reg"])
+        self.state = self.state.replace(sigma=self._base_sigma)
+        for r in range(rounds):
+            self.metrics.append({"phase": "round", "round": r,
+                                 "motion_recon_mse": recon[r],
+                                 "motion_reg": reg[r]})
+        self._gram_audited = False
+        self._maybe_audit_analytic()
+        self._check_finite("fused fit")
         return FitResult(state=self.state, metrics=self.metrics)
 
     def refine(self, video, rounds: int = 3, epochs: int = 40,
@@ -374,20 +496,46 @@ class DeformableNMF:
                 f.write(json.dumps(entry) + "\n")
 
     def save(self, path: str) -> None:
-        raise _not_ported("DeformableNMF.save", 11)
+        """Checkpoint the state (factors and Adam moments), the anneal's
+        base widths, the parity batch generator and, once :meth:`refine`
+        has run, its positions ``pos_t``
+        (:mod:`dnmf_tpu_torch.utils.checkpoint`).  A fresh engine that restores it and fits the
+        remaining rounds gives the unbroken run's factors, bit for bit;
+        its ``fit`` counts the anneal schedule and the width-fitting
+        cadence from its own first round."""
+        extra = {"base_sigma": self._base_sigma,
+                 "batch_rng": self._batch_gen.get_state()}
+        if self.pos_t is not None:
+            extra["pos_t"] = self.pos_t
+        checkpoint.save_state(path, self.state, **extra)
 
     def restore(self, path: str) -> None:
-        raise _not_ported("DeformableNMF.restore", 11)
+        """Load a checkpoint of :meth:`save` onto the engine's device.  A
+        checkpoint without refined positions clears ``pos_t``: positions
+        refined before the restore belong to the replaced factors."""
+        self.state, extra = checkpoint.load_state(path, self.device)
+        self.pos_t = extra.get("pos_t")
+        self._base_sigma = extra.get("base_sigma", self.state.sigma)
+        if "batch_rng" in extra:
+            self._batch_gen.set_state(extra["batch_rng"].cpu())
 
     @property
     def traces(self) -> np.ndarray:
         return self.state.c.detach().cpu().numpy()
 
+    def positions_at(self, frame: int, iters: int = 3) -> np.ndarray:
+        """Apparent positions ``warp_t^{-1}(p_k)`` ``[K, 3]`` at one
+        frame (:meth:`positions_all`)."""
+        return self.positions_all(iters=iters)[frame]
+
     def positions_all(self, iters: int = 3) -> np.ndarray:
         """Apparent positions ``warp_t^{-1}(p_k)`` of every neuron in
-        every frame: ``[T, K, 3]``."""
+        every frame: ``[T, K, 3]``, by fixed-point iteration.  After
+        :meth:`refine`, the refined per-frame positions ``pos_t`` take the
+        anchors' place."""
         beta = self.state.beta
-        pts = self.state.pos.expand((beta.shape[0],) + self.state.pos.shape)
+        pts = (self.pos_t if self.pos_t is not None else
+               self.state.pos.expand((beta.shape[0],) + self.state.pos.shape))
         if self.model.deformation.basis_scaling == "normalized":
             p = basis_ops.normalize_points(pts, self.model.size)
             inv = basis_ops.invert_warp_points(p, beta, iters=iters)
@@ -395,3 +543,43 @@ class DeformableNMF:
         else:
             out = basis_ops.invert_warp_points(pts, beta, iters=iters)
         return out.detach().cpu().numpy()
+
+
+class StaticFootprintNMF:
+    """Classic static-footprint NMF on a motion-corrected video: MU
+    updates of a learned footprint matrix ``A [P, K]`` (with the
+    distance-penalty field ``D`` around the positions) alternated with MU
+    updates of the traces ``C [K, T]``.  Counterpart of the JAX
+    package's class; its products are plain ``torch.matmul`` (TF32 off,
+    PyTorch's default).  ``generator`` (a ``torch.Generator``, default
+    seed 0) draws the initial traces on the CPU."""
+
+    def __init__(self, model: ModelConfig, positions, gamma_a: float = 1.0,
+                 penalty_rate: float = 0.01,
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda"):
+        self.model = model
+        self.device = torch.device(device)
+        grid = basis_ops.voxel_grid(model.size, device=self.device)
+        pos = torch.as_tensor(positions, dtype=torch.float32).to(self.device)
+        sigma = torch.full((model.num_neurons,), model.shape_std,
+                           device=self.device)
+        self.a = fp_ops.gaussian_footprints(grid, pos, sigma)  # [P, K]
+        self.d = mu_ops.distance_penalty(grid, pos, rate=penalty_rate)
+        self.gamma_a = gamma_a
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.c = torch.rand((model.num_neurons, model.num_frames),
+                            generator=generator).to(self.device)
+
+    def fit(self, video, iters: int = 50):
+        """``iters`` alternating trace and footprint updates on the
+        clamped video; returns ``(A [P, K], C [K, T])``."""
+        y = torch.as_tensor(video, dtype=torch.float32).to(self.device)
+        y = torch.clamp_min(y.reshape(y.shape[0], -1), 0.0).T  # [P, T]
+        a, c = self.a, self.c
+        for _ in range(iters):
+            c = c * (a.T @ y) / ((a.T @ a) @ c + mu_ops.EPS)
+            a = mu_ops.mu_spatial_step(a, c, y, d=self.d, gamma=self.gamma_a)
+        self.a, self.c = a, c
+        return a, c

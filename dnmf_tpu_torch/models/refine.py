@@ -14,21 +14,30 @@ block over a host-streamed source, in one pass over the recording.
 With ``use_kernels`` the data term and its ``dpos`` come from the refine
 kernel (:func:`dnmf_tpu_torch.ops.fused.refine_block`, all frames in one
 call) and the Grams from the tracked c1 or Gram kernels; without, from
-the plain versions, one frame block at a time.
+the plain versions, one frame block at a time.  Refinement needs analytic
+footprints (``ValueError`` in resample mode, as in the JAX package);
+unfaded ones (``mask_out_of_bounds=False``) take the plain versions only.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from dnmf_tpu_torch.config import ModelConfig
 from dnmf_tpu_torch.models.dnmf import (Adam, DNMFState, block_state,
-                                        check_main_path, grams_local,
+                                        check_kernels, grams_local,
                                         _blocks, _valid_mask)
 from dnmf_tpu_torch.ops import fused
 from dnmf_tpu_torch.ops import mu as mu_ops
+
+
+def _check_refine(model: ModelConfig, use_kernels: bool) -> None:
+    if model.deformation.footprint_mode != "analytic":
+        raise ValueError("position refinement requires analytic footprints")
+    check_kernels(model, use_kernels)
 
 
 def refine_positions(state: DNMFState, pos_t: Optional[torch.Tensor],
@@ -45,7 +54,7 @@ def refine_positions(state: DNMFState, pos_t: Optional[torch.Tensor],
     state is not modified.  Returns ``(pos_t, {"recon_mse": [T]})``, the
     MSE of the last epoch, taken before its update.
     """
-    check_main_path(model)
+    _check_refine(model, use_kernels)
     t = video.shape[0]
     k = state.pos.shape[0]
     anchors = state.pos
@@ -58,7 +67,12 @@ def refine_positions(state: DNMFState, pos_t: Optional[torch.Tensor],
     # The kernel takes every frame at once; the plain version's memory
     # grows with the frames of a call, so it goes one frame block at a time.
     blocks = [(0, t)] if use_kernels else _blocks(t, frame_block)
-    refine = fused.refine_block if use_kernels else fused.refine_block_plain
+    if use_kernels:
+        refine = fused.refine_block
+    else:
+        refine = functools.partial(
+            fused.refine_block_plain,
+            mask_out_of_bounds=model.deformation.mask_out_of_bounds)
     mses = None
     for _ in range(epochs):
         parts = [refine(state.beta[s:e], pos_t[s:e], state.sigma, c_t[s:e],
@@ -79,6 +93,7 @@ def tracked_grams(state: DNMFState, pos_t: torch.Tensor, video: torch.Tensor,
     """Per-frame MU statistics ``(G [T, K, K], c1 [T, K])`` at per-frame
     positions: the tracked Gram pass (``"exact"``), or closed-form Grams
     plus the tracked c1 pass (``"analytic"``)."""
+    _check_refine(model, use_kernels)
     return grams_local(state, video, model, frame_block, use_kernels,
                        gram_mode, gram_window, pos_t=pos_t)
 

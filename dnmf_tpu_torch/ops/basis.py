@@ -25,6 +25,10 @@ def quadratic_basis_points(points: torch.Tensor) -> torch.Tensor:
          y * z], dim=-1)
 
 
+# The JAX package's (and the reference's) name for the same function.
+quadratic_basis = quadratic_basis_points
+
+
 def voxel_grid(size, dtype=torch.float32, device=None) -> torch.Tensor:
     """Flat identity coordinate grid ``[M*N*Z, 3]`` in ij order."""
     m, n, z = (int(s) for s in size)

@@ -169,12 +169,15 @@ def gram_block_rows_plain(psi, w, pos, sigma, y):
 
 
 def refine_block_plain(betas, pos_t, sigma, c_block, y, size,
-                       scaling: str = "normalized", want_dsigma: bool = False):
+                       scaling: str = "normalized", want_dsigma: bool = False,
+                       mask_out_of_bounds: bool = True):
     """Plain version of :func:`refine_block`: autograd over pixel chunks.
 
     The widths enter as one copy per frame, so autograd gives each
     frame's own ``dsigma``; an isotropic width is expanded over the three
     axes inside the graph, which sums the axis terms.
+    ``mask_out_of_bounds=False`` drops the border fade (a function the
+    kernel does not compute).
     """
     bsz, p = y.shape
     k = pos_t.shape[1]
@@ -192,7 +195,8 @@ def refine_block_plain(betas, pos_t, sigma, c_block, y, size,
             s3 = sg if sigma.ndim == 2 else sg[..., None].expand(bsz, k, 3)
             d = psi[:, :, None, :] - pt[:, None]  # [B, C, K, 3]
             a = torch.exp(-torch.sum(d * d / (s3 * s3)[:, None], dim=-1))
-            a = a * fp_ops._bounds_mask(psi, size)
+            if mask_out_of_bounds:
+                a = a * fp_ops._bounds_mask(psi, size)
             r = torch.bmm(a, c_block[:, :, None])[..., 0] - y[:, start:stop]
             s = torch.sum(r * r, dim=1)
             grads = torch.autograd.grad(s.sum(), leaves)

@@ -94,3 +94,24 @@ def nnls_temporal(c: torch.Tensor, grams: torch.Tensor, c1: torch.Tensor,
         y_c = c_new + ((tk - 1.0) / tk1) * (c_new - c_prev)
         c_prev, tk = c_new, tk1
     return c_prev
+
+
+def mu_spatial_step(a: torch.Tensor, c: torch.Tensor, y: torch.Tensor,
+                    d: Optional[torch.Tensor] = None,
+                    gamma: Optional[float] = None) -> torch.Tensor:
+    """Multiplicative update of a static footprint matrix ``a [P, K]``
+    given traces ``c [K, T]`` and the (motion-corrected) video ``y [P,
+    T]``, with the optional distance-penalty field ``d [P, K]`` weighted
+    by ``gamma``: ``a * (y c^T) / (a (c c^T) + gamma d)``."""
+    a2 = a @ (c @ c.T)
+    if d is not None and gamma is not None:
+        a2 = a2 + gamma * d
+    return a * (y @ c.T) / (a2 + EPS)
+
+
+def distance_penalty(grid: torch.Tensor, pos: torch.Tensor,
+                     rate: float = 0.01) -> torch.Tensor:
+    """``D[p, k] = 1 - exp(-rate * ||grid_p - pos_k||)``: ``[P, K]``."""
+    diff = grid[:, None, :] - pos[None, :, :]
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+    return 1.0 - torch.exp(-rate * dist)

@@ -890,3 +890,135 @@ def test_recovery_harness_on_the_card(dev):
     np.testing.assert_allclose(got["corr"], ref["corr"], rtol=0, atol=1e-4)
     assert abs(got["warp_err_px"] - ref["warp_err_px"]) <= 1e-4
     assert abs(got["sigma_err"] - ref["sigma_err"]) <= 1e-4
+
+
+# ------------------------------------------- parity path and checkpoints
+def _parity_pair(deform, dev, t=8, k=4, size=(20, 20, 2)):
+    """A model, a state with perturbed warps and a video, on the CPU and
+    on ``dev``; resampled footprints get a half-pixel shift that keeps
+    coordinates off the cell faces, where the trilinear gradient jumps
+    (tests/test_torch_port_parity.py)."""
+    from dnmf_tpu_torch.models import dnmf as tM
+
+    model = tcfg.ModelConfig(size=size, num_neurons=k, num_frames=t,
+                             shape_std=3.0,
+                             deformation=tcfg.DeformationConfig(**deform))
+    rng = np.random.default_rng(0)
+    pos = np.array([[4.0, 4.0, 1.0], [15.0, 4.5, 0.5], [1.0, 14.0, 1.2],
+                    [14.5, 18.5, 0.8]], np.float32)
+    state = tM.init_state(model, positions=pos)
+    beta = state.beta.numpy() + 0.01 * rng.normal(size=(t, 10, 3))
+    if model.deformation.basis_scaling == "pixel":
+        beta[:, 4:] *= 0.01
+    if model.deformation.footprint_mode == "resample":
+        beta[:, 0] += 0.5
+    state = state.replace(beta=torch.tensor(beta, dtype=torch.float32))
+    video = torch.tensor(rng.uniform(0, 1, (t, model.num_voxels)),
+                         dtype=torch.float32)
+    on_dev = tM.state_from_numpy(tM.state_to_numpy(state), device=dev)
+    return model, state, video, on_dev, video.to(dev)
+
+
+@pytest.mark.parametrize("deform", [
+    {}, dict(footprint_mode="resample", basis_scaling="pixel",
+             detach_regularizer=True)], ids=["analytic", "reference"])
+def test_parity_motion_on_the_card_matches_the_cpu(dev, deform):
+    """Two serial mini-batch epochs on the card against the same epochs
+    on the CPU, from one state and the same batches: beta and the Adam
+    moments within 1e-4 of the CPU's max magnitude (float32 sums in
+    another order on each device)."""
+    from dnmf_tpu_torch.models import dnmf as tM
+
+    model, st, video, st_d, video_d = _parity_pair(deform, dev)
+    lr = 1e-3 if not deform else 1e-4
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        times = torch.as_tensor(rng.permutation(8).reshape(2, 4))
+        weights = torch.ones((2, 4))
+        st, _ = tM.motion_epoch_parity(st, video, times, weights, model,
+                                       tM.Adam(lr), 0.5)
+        st_d, _ = tM.motion_epoch_parity(st_d, video_d, times.to(dev),
+                                         weights.to(dev), model, tM.Adam(lr),
+                                         0.5)
+    for name in ("beta", "mu", "nu"):
+        got, ref = getattr(st_d, name).cpu(), getattr(st, name)
+        assert rel_err(got, ref.double()) <= 1e-4, name
+    assert int(st_d.count) == int(st.count) == 4
+
+
+def test_parity_fit_on_the_card_runs_the_c1_and_gram_kernels(dev):
+    """A parity-mode fit with analytic footprints: the closed-form Grams'
+    c1 pass and the audit's exact Gram run on their kernels; the motion
+    epoch is plain PyTorch (as the JAX package's parity epoch is)."""
+    from dnmf_tpu_torch.engine.trainer import DeformableNMF
+
+    model, st, video, _, video_d = _parity_pair({}, dev)
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=2,
+                               motion_epochs=2, mu_iters=20,
+                               motion_mode="parity")
+    from dnmf_tpu_torch.models import dnmf as tM
+
+    def fit(device, source):
+        eng = DeformableNMF(model, opt, tcfg.RuntimeConfig(frame_block=4),
+                            device=device)
+        eng.state = tM.state_from_numpy(tM.state_to_numpy(st), device=device)
+        eng._base_sigma = eng.state.sigma
+        return eng.fit(source)
+
+    fused.reset_launch_counts()
+    got = fit(dev, video_d)
+    launches = fused.launch_counts()
+    assert launches["c1_block"] > 0 and launches["gram_block"] > 0
+    assert launches["motion_block"] == 0
+    ref = fit("cpu", video)
+    assert rel_err(got.state.c.cpu(), ref.state.c.double()) <= 1e-3
+    assert rel_err(got.state.beta.cpu(), ref.state.beta.double()) <= 1e-4
+
+
+def test_checkpoint_restores_across_devices(dev, tmp_path):
+    """Saved on the card, restored on the CPU and back: the same bits."""
+    from dnmf_tpu_torch.engine.trainer import DeformableNMF
+
+    model, st, video, st_d, video_d = _parity_pair({}, dev)
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=1,
+                               motion_epochs=2, mu_iters=10)
+    on_card = DeformableNMF(model, opt, device=dev)
+    on_card.fit(video_d)
+    on_card.refine(video_d, rounds=1, epochs=2, mu_iters=2)
+    on_card.save(str(tmp_path / "card.pt"))
+    on_cpu = DeformableNMF(model, opt, device="cpu")
+    on_cpu.restore(str(tmp_path / "card.pt"))
+    for name in ("beta", "c", "pos", "sigma", "count", "mu", "nu"):
+        got = getattr(on_cpu.state, name)
+        assert got.device.type == "cpu"
+        assert torch.equal(got, getattr(on_card.state, name).cpu()), name
+    assert torch.equal(on_cpu.pos_t, on_card.pos_t.cpu())
+    on_cpu.save(str(tmp_path / "cpu.pt"))
+    back = DeformableNMF(model, opt, device=dev)
+    back.restore(str(tmp_path / "cpu.pt"))
+    for name in ("beta", "c", "mu", "nu"):
+        got = getattr(back.state, name)
+        assert got.device.type == "cuda"
+        assert torch.equal(got, getattr(on_card.state, name)), name
+
+
+@pytest.mark.parametrize("deform,option", [
+    (dict(footprint_mode="resample"), "footprint_mode='resample'"),
+    (dict(mask_out_of_bounds=False), "mask_out_of_bounds=False"),
+])
+def test_use_kernels_true_raises_for_resample(dev, deform, option):
+    """On the card too, the kernels are refused for the functions they do
+    not compute; ``use_kernels=None`` resolves to the plain versions."""
+    from dnmf_tpu_torch.engine.trainer import DeformableNMF
+
+    model = tcfg.ModelConfig(size=(20, 20, 2), num_neurons=4,
+                             num_frames=8,
+                             deformation=tcfg.DeformationConfig(**deform))
+    with pytest.raises(ValueError, match=option.replace("(", r"\(")):
+        DeformableNMF(model, tcfg.OptimizerConfig(),
+                      tcfg.RuntimeConfig(use_kernels=True), device=dev)
+    eng = DeformableNMF(model, tcfg.OptimizerConfig(), device=dev)
+    assert not eng._use_kernels
+    assert DeformableNMF(tcfg.ModelConfig(size=(20, 20, 2), num_neurons=4,
+                                          num_frames=8),
+                         tcfg.OptimizerConfig(), device=dev)._use_kernels

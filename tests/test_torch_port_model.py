@@ -250,19 +250,30 @@ def test_check_finite_raises(rng):
     ({}, {}, dict(footprint_mode="resample"), 11),
     ({}, {}, dict(mask_out_of_bounds=False), 11),
 ])
-def test_outside_the_slice_raises(opt, rt, model, item):
+def test_outside_the_slice_raises(opt, rt, model, item, tmp_path):
+    """The mesh options (ROADMAP item 10) raise; item 11's options are
+    ported, and the engine takes them."""
     m = tcfg.ModelConfig(size=SIZE, num_neurons=K, num_frames=T,
                          deformation=tcfg.DeformationConfig(**model))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        ttr.DeformableNMF(m, tcfg.OptimizerConfig(**opt),
-                          tcfg.RuntimeConfig(**rt), device="cpu")
+    rt = {k: str(tmp_path / v) if k.endswith("_dir") else v
+          for k, v in rt.items()}
+
+    def make():
+        return ttr.DeformableNMF(m, tcfg.OptimizerConfig(**opt),
+                                 tcfg.RuntimeConfig(**rt), device="cpu")
+
+    if item == 10:
+        with pytest.raises(NotImplementedError, match="item 10"):
+            make()
+    else:
+        assert not make()._use_kernels
 
 
-def test_unported_methods_and_sources_raise(rng):
+def test_unported_methods_and_sources_raise(rng, tmp_path):
     _, tt, video = _trainers(rng)
-    for call in (lambda: tt.save("x"), lambda: tt.restore("x")):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    # save/restore are ported (tests/test_torch_port_engine_extras.py).
+    tt.save(str(tmp_path / "ckpt.pt"))
+    tt.restore(str(tmp_path / "ckpt.pt"))
 
     class Streamed:  # a source that streams to another device
         block = 4

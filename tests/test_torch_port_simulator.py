@@ -62,11 +62,18 @@ def test_reference_demo_presets_match_jax(preset):
 
 
 def test_parity_model_raises_item_11():
+    """The parity preset is ported (ROADMAP item 11): the engine takes
+    it with the plain versions and exact Grams, and raises ValueError
+    only where the kernels are asked for."""
     from dnmf_tpu_torch.engine.trainer import DeformableNMF
 
-    with pytest.raises(NotImplementedError, match="item 11"):
+    eng = DeformableNMF(tcfg.reference_demo_model(parity=True),
+                        tcfg.reference_demo_optimizer(), device="cpu")
+    assert eng._gram_mode == "exact" and not eng._use_kernels
+    with pytest.raises(ValueError, match="use_kernels=False"):
         DeformableNMF(tcfg.reference_demo_model(parity=True),
-                      tcfg.reference_demo_optimizer(), device="cpu")
+                      tcfg.reference_demo_optimizer(),
+                      tcfg.RuntimeConfig(use_kernels=True), device="cpu")
 
 
 # ------------------------------------------------- transforms on JAX draws
