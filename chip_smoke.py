@@ -136,7 +136,32 @@ Phases, each of which exits non-zero on failure:
 21. ``profile_dir`` (e): the last round's ``torch.profiler`` trace names the
    motion and c1 kernels;
 22. ``StaticFootprintNMF`` (f) at the ROI shape, T=64: ``STATIC_ITERS``
-   alternations against the same iterations in float64.
+   alternations against the same iterations in float64;
+23. the parallel layer, (a) voxel-range kernels: the motion kernel A and
+   the Gram kernel C over the voxel ranges of 4 shards (slabs of 128 m
+   rows) and of 5 (runs that cut m row 102.4) of the whole-brain volume
+   (512x512x20, K=200, 2 frames): each shard against its plain version in
+   float32 and float64, A's mean and C's sum over the shards against the
+   unsharded kernel, within ``KERNEL_TOL``; each shard's time beside the
+   unsharded call's, and the worst errors in the kernels line;
+24. (b) ``python -m dnmf_tpu_torch.tools.pod_check --cuda 4``: the 14
+   sharded == single equalities on 4 ranks that share the card;
+25. (c) sharded fits at full width: a seeded whole-brain fixture of the
+   recovery harness (512x512x20, K=200, T=32, registration-seeded warps)
+   on 4 ranks that share the card (a ``gloo`` group whose ranks keep CUDA
+   tensors: NCCL refuses two ranks on one device), each run against the
+   same run in this process: time 2 x pixel 2 with exact Grams (2
+   rounds; A and C over voxel ranges); time 4 with ``gram_mode="auto"``,
+   the audit and the MU halo, then ``refine(rounds=1, epochs=4)``; time 4
+   ``refine`` with exact Grams.  Every rank's launch counters must show
+   the path's kernels (A, B, C, D, B-tracked, E; the audit's C on the
+   rank that owns its frame);
+26. (d) ``sharded_register_pwrigid`` at the ROI patch grid on 2 time
+   shards (time 2 x batch 2) against the single-process chunked run:
+   F and G ran on every rank;
+27. (e) a one-rank NCCL group: collectives on the card and a
+   ``mesh_time=1`` fit equal to the fit without a mesh.
+   Ranks that share one card measure correctness, not scaling.
 
 Every phase prints its seconds with the card's name and power limit.
 The last two lines are a JSON object of per-kernel results and
@@ -341,17 +366,19 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def active_pairs(betas, pos, sigma, size, scaling="normalized"):
+def active_pairs(betas, pos, sigma, size, scaling="normalized", lo=0,
+                 hi=None):
     """``(n1, n2)`` of this run's data: the (frame, pixel, neuron) triples
     whose footprint clears float32 resolution on all three axes, and the
     sum over (frame, pixel) of their count squared (the Gram's neuron
-    pairs).  ``pos [K, 3]`` or per-frame ``[B, K, 3]``."""
+    pairs), over the voxels ``[lo, hi)`` (default all).  ``pos [K, 3]`` or
+    per-frame ``[B, K, 3]``."""
     sig = sigma if sigma.ndim == 2 else sigma[:, None].expand(-1, 3)
     inv = 1.0 / (sig * sig)
     bsz, k = betas.shape[0], pos.shape[-2]
-    p = size[0] * size[1] * size[2]
+    p = size[0] * size[1] * size[2] if hi is None else hi
     n1 = n2 = 0.0
-    for start, stop in fused._chunks(p, bsz * k * 3):
+    for start, stop, _, _ in fused._range_chunks(lo, p - lo, bsz * k * 3):
         psi = fused._warped(betas, size, scaling, start, stop)[:, :, None]
         d = psi - (pos if pos.ndim == 2 else pos[:, None])
         act = (((d * d) * inv).sum(-1) < REACH).sum(-1).double()
@@ -2187,6 +2214,441 @@ def engine_paths(dev, card):
     return launches
 
 
+# ------------------------------------------------------------------
+# The parallel layer (phases 23-27): voxel-range kernels, then ranks of
+# a process group that share the one card (gloo: NCCL refuses two ranks
+# on one device).  They measure correctness, not scaling.
+# ------------------------------------------------------------------
+RANGE_NPIX = (4, 5)  # pixel shards of the whole-brain volume: slabs of 128
+# m rows, and runs that cut m row 102.4
+SHARD_WORLD = 4  # ranks on the card
+SHARD_FRAMES = 32  # frames of the sharded whole-brain fits
+SHARD_OPT = dict(learning_rate=1e-3, outer_rounds=2, motion_epochs=4,
+                 mu_iters=50, seed=SEED)
+SHARD_TIMEOUT_S = 420  # the sharded ranks, start-up included
+SHARD_REG_CFG = dict(max_shifts=(6, 6, 2), strides=(96, 96, 10),
+                     overlaps=(32, 32, 0), max_deviation_rigid=3,
+                     pw_rigid=True, niter_rig=1, niter_els=1, splits=2,
+                     frame_block=8, remap_mode="fused", border_nan=False)
+# Sharded == single-process tolerances: those of the CPU tests
+# (tests/test_torch_port_parallel*.py), rtol and atol.
+SHARD_TOL = {"beta": (1e-5, 1e-6), "c": (1e-4, 1e-6),
+             "pos_t": (1e-5, 1e-6), "shifts": (0.0, 1e-4),
+             "template": (0.0, 1e-4), "corrected": (0.0, 1e-3)}
+
+
+def _allclose(label, got, ref, key):
+    rtol, atol = SHARD_TOL[key]
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    err = np.abs(got - ref) - rtol * np.abs(ref)
+    worst = float(np.max(np.abs(got - ref)))
+    say(f"{label} {key}: max|sharded - single| {worst:.3e} (rtol {rtol:g}, "
+        f"atol {atol:g})")
+    if got.shape != ref.shape or not float(np.max(err)) <= atol:
+        fail(f"{label}: {key} differs from the single-process run "
+             f"(max abs {worst:.3e})")
+
+
+def range_kernel_phase(dev):
+    """(a) Kernels A and C over voxel ranges of the whole-brain volume
+    (``RANGE_NPIX`` shards): each shard against its plain version in
+    float32 and float64, the mean (A) or sum (C) over the shards against
+    the unsharded kernel, and each shard's time beside the unsharded
+    call's.  Returns the kernels-line entries of the range variants."""
+    size, k, frames, margin = SHAPES["whole_brain"]
+    betas, pos, sigma, c, y = kernel_inputs(dev, size, k, frames, margin,
+                                            SEED)
+    p = y.shape[1]
+    kernels = {"motion_block": fused.motion_block,
+               "gram_block": fused.gram_block}
+    plains = {"motion_block": fused.motion_block_plain,
+              "gram_block": fused.gram_block_plain}
+
+    def call(fn, kn, ys, p0, sl=slice(None), dt=torch.float32):
+        args = [betas[sl], pos, sigma] + (
+            [c[sl]] if kn == "motion_block" else []) + [ys[sl]]
+        return fn(*(a.to(dt) for a in args), size, p_offset=p0)
+
+    whole = {kn: call(kernels[kn], kn, y, None) for kn in kernels}
+    whole_ms = {kn: time_ms(lambda kn=kn: call(kernels[kn], kn, y, None))
+                for kn in kernels}
+    out = {}
+    for npix in RANGE_NPIX:
+        p_loc = p // npix
+        sums = {kn: None for kn in kernels}
+        for kn in kernels:
+            worst_abs = worst_rel = 0.0
+            shard_ms, bounds = [], []
+            for i in range(npix):
+                p0 = i * p_loc
+                ys = y[:, p0:p0 + p_loc].contiguous()
+                got = call(kernels[kn], kn, ys, p0)
+                p32 = call(plains[kn], kn, ys, p0)
+                o64 = [torch.cat(parts) for parts in zip(*(
+                    call(plains[kn], kn, ys, p0, slice(b, b + 1),
+                         torch.float64) for b in range(frames)))]
+                for g, q, o in zip(got, p32, o64):
+                    e_k = rel_err(g, o)
+                    worst_rel = max(worst_rel, e_k)
+                    worst_abs = max(worst_abs,
+                                    float((g.double() - o).abs().max()))
+                    if not e_k <= KERNEL_TOL:
+                        fail(f"{kn} over voxels [{p0}, {p0 + p_loc}): "
+                             f"kernel-vs-float64 {e_k:.3e} > {KERNEL_TOL}")
+                    if not rel_err(q, o) <= KERNEL_TOL:
+                        fail(f"{kn} plain over voxels [{p0}, {p0 + p_loc}) "
+                             f"vs float64 {rel_err(q, o):.3e}")
+                sums[kn] = (list(got) if sums[kn] is None else
+                            [a + b for a, b in zip(sums[kn], got)])
+                shard_ms.append(time_ms(lambda: call(kernels[kn], kn, ys,
+                                                     p0)))
+                n1, n2 = active_pairs(betas, pos, sigma, size, lo=p0,
+                                      hi=p0 + p_loc)
+                inputs = (betas, pos, sigma, ys) + (
+                    (c,) if kn == "motion_block" else ())
+                bounds.append(bound(nbytes(*inputs, *got),
+                                    footprint_flops(kn, frames, p_loc, n1,
+                                                    n2)))
+            total = [t / npix for t in sums[kn]] if kn == "motion_block" \
+                else sums[kn]
+            e_sum = max(rel_err(t, w) for t, w in zip(total, whole[kn]))
+            say(f"kernel {kn} voxel range, {npix} shards of {p_loc} voxels "
+                f"({p_loc / (size[1] * size[2]):g} m rows): worst shard "
+                f"kernel-vs-float64 {worst_rel:.3e}; "
+                f"{'mean' if kn == 'motion_block' else 'sum'} over shards "
+                f"vs unsharded kernel {e_sum:.3e}; ms per shard "
+                f"{[round(m, 4) for m in shard_ms]} (sum "
+                f"{sum(shard_ms):.4f}), unsharded {whole_ms[kn]:.4f} ms, "
+                f"bound per shard {max(b[0] for b in bounds):.4f} ms "
+                f"({bounds[0][1]}) ({frames} frames)")
+            if not e_sum <= KERNEL_TOL:
+                fail(f"{kn}: the {npix} shards' {e_sum:.3e} from the "
+                     "unsharded kernel")
+            out[f"{kn}[range {npix}]"] = {
+                "max_abs_err": worst_abs, "max_rel_err": worst_rel,
+                "ms": max(shard_ms), "unsharded_ms": whole_ms[kn],
+                "bound_ms": max(b[0] for b in bounds)}
+    return out
+
+
+def pod_check_phase():
+    """(b) ``python -m dnmf_tpu_torch.tools.pod_check --cuda 4``: the 14
+    sharded == single equalities on 4 ranks that share the card, with
+    the kernels where a check asks for them."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "dnmf_tpu_torch.tools.pod_check", "--cuda",
+         str(SHARD_WORLD)], capture_output=True, text=True,
+        timeout=SHARD_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if "PASS" in ln or "FAIL" in ln or "pod_check" in ln]
+    for ln in lines:
+        say(f"pod_check --cuda {SHARD_WORLD}: {ln.strip()}")
+    passes = sum(ln.strip().startswith("PASS") for ln in lines)
+    if proc.returncode != 0 or passes != 14:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"pod_check --cuda {SHARD_WORLD}: rc {proc.returncode}, "
+             f"{passes} of 14 checks passed")
+
+
+def _shard_runs():
+    """The sharded runs of phase (c): (label, runtime, optimizer, calls);
+    the runtime's mesh options are dropped for the single-process run."""
+    return [
+        ("time 2 x pixel 2, exact", dict(mesh_time=2, mesh_pixel=2,
+                                         gram_mode="exact"),
+         dict(SHARD_OPT), [("fit", {})]),
+        ("time 4, auto + halo + refine", dict(mesh_time=4, gram_mode="auto"),
+         dict(SHARD_OPT, gamma_traces=0.01),
+         [("fit", {}), ("refine", dict(rounds=1, epochs=4))]),
+        ("time 4, exact refine", dict(mesh_time=4, gram_mode="exact"),
+         dict(SHARD_OPT), [("refine", dict(rounds=1, epochs=4))]),
+    ]
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _run_engine(model, rt, opt, calls, spec, video, device):
+    """One run of :func:`_shard_runs` on ``device``: ``(engine, result,
+    seconds)``."""
+    eng = ttr.DeformableNMF(
+        model, tcfg.OptimizerConfig(**opt),
+        tcfg.RuntimeConfig(frame_block=8, **rt), positions=spec["pos"],
+        device=device, beta0=spec["beta0"])
+    _sync(device)
+    t0 = time.perf_counter()
+    res = None
+    for method, kw in calls:
+        res = getattr(eng, method)(video, **kw)
+    _sync(device)
+    return eng, res, time.perf_counter() - t0
+
+
+def _shard_rank(rank, world, address, out, spec):
+    """A rank of phases (c) and (d): the runs of :func:`_shard_runs` on
+    its shard, then the sharded piecewise-rigid registration; puts
+    ``(rank, label, launches, seconds, result file or None)``."""
+    from dnmf_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # The ranks share the host's cores, as they share the card.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    parallel.initialize_distributed(address, world, rank,
+                                    local_device_ids=[0], backend="gloo")
+    dev = torch.device(spec["device"])
+    model = spec["model"]
+    video = np.load(spec["video"], mmap_mode="c")
+    for i, (label, rt, opt, calls) in enumerate(spec["runs"]):
+        fused.reset_launch_counts()
+        torch.distributed.barrier()
+        eng, res, secs = _run_engine(model, rt, opt, calls, spec, video, dev)
+        launches = fused.launch_counts()
+        pos_t = eng._whole(eng.pos_t) if eng.pos_t is not None else None
+        path = None
+        if rank == 0:
+            path = os.path.join(spec["dir"], f"run{i}.npz")
+            np.savez(path, **model_lib.state_to_numpy(res.state),
+                     **({} if pos_t is None else
+                        {"pos_t": pos_t.cpu().numpy()}),
+                     round_s=np.array([m["seconds"] for m in eng.metrics
+                                       if m["phase"] == "round"]))
+        out.put((rank, label, launches, secs, path))
+    mesh = parallel.make_mesh(num_time=2, num_batch=world // 2)
+    reg_video = np.load(spec["reg_video"])
+    template = np.load(spec["reg_template"])
+    cfg = tcfg.RegistrationConfig(**spec["reg_cfg"])
+    fused.reset_launch_counts()
+    torch.distributed.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    templ, corrected, shifts = parallel.sharded_register_pwrigid(
+        reg_video, cfg, mesh, template=template, device=dev)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    launches = fused.launch_counts()
+    corrected = parallel.gather_time(torch.from_numpy(corrected).to(dev),
+                                     mesh)
+    shifts = parallel.gather_time(torch.as_tensor(shifts).to(dev), mesh)
+    path = None
+    if rank == 0:
+        path = os.path.join(spec["dir"], "reg.npz")
+        np.savez(path, template=templ.cpu().numpy(),
+                 corrected=corrected.cpu().numpy(),
+                 shifts=shifts.cpu().numpy())
+    out.put((rank, "registration", launches, secs, path))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn(fn, world, args, timeout):
+    """``world`` spawned ranks of ``fn(rank, world, address, out,
+    *args)``, joined within ``timeout`` seconds (killed past it); returns
+    what the ranks put on ``out``, drained while they run."""
+    import torch.multiprocessing as mp
+
+    out = mp.get_context("spawn").SimpleQueue()
+    address = f"tcp://127.0.0.1:{_free_port()}"
+    ctx = mp.start_processes(fn, args=(world, address, out) + tuple(args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    rows = []
+    try:
+        while True:
+            while not out.empty():
+                rows.append(out.get())
+            if ctx.join(timeout=2):
+                break
+            if time.monotonic() > deadline:
+                fail(f"{fn.__name__}: ranks ran past {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    while not out.empty():
+        rows.append(out.get())
+    return rows
+
+
+def sharded_paths(dev, card):
+    """(c) the sharded whole-brain fits and (d) the sharded registration,
+    on ``SHARD_WORLD`` ranks that share the card, each against the
+    single-process run on the card; the launch counters of every rank."""
+    import tempfile
+
+    wb, _ = tcfg.baseline_workload("whole_brain")
+    size, k = wb.size, wb.num_neurons
+    model = tcfg.ModelConfig(size=size, num_neurons=k,
+                             num_frames=SHARD_FRAMES, shape_std=3.0)
+    fixture = wb_recovery.recovery_fixture(size, k, SHARD_FRAMES, seed=SEED,
+                                           device=dev)
+    video = fixture["video"]
+    _, beta0 = wb_recovery.registration_seed(video, size)
+    spec = {"model": model, "pos": fixture["pos_gt"].cpu().numpy(),
+            "beta0": beta0.cpu().numpy(), "device": str(dev),
+            "runs": _shard_runs(), "reg_cfg": SHARD_REG_CFG}
+    reg_size, strides, overlaps, max_shifts, max_dev = REG_SHAPES["roi"]
+    reg = registration_inputs(dev, reg_size, strides, overlaps, max_shifts,
+                              max_dev)
+    reg_template = reg["frames"].mean(0)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        spec.update(dir=tmp, video=os.path.join(tmp, "video.npy"),
+                    reg_video=os.path.join(tmp, "reg.npy"),
+                    reg_template=os.path.join(tmp, "reg_template.npy"))
+        host_video = video.cpu().numpy()
+        np.save(spec["video"], host_video)
+        np.save(spec["reg_video"], reg["frames"].cpu().numpy())
+        np.save(spec["reg_template"], reg_template.cpu().numpy())
+        singles = {}
+        for label, rt, opt, calls in spec["runs"]:
+            rt1 = {k_: v for k_, v in rt.items() if not k_.startswith("mesh")}
+            eng, res, secs = _run_engine(model, rt1, opt, calls, spec,
+                                         host_video, dev)
+            singles[label] = (res, eng.pos_t, secs, [
+                m["seconds"] for m in eng.metrics if m["phase"] == "round"])
+        t0 = time.perf_counter()
+        reg_single = mc_lib._batch_pwrigid(
+            reg["frames"].cpu().numpy(),
+            tcfg.RegistrationConfig(**SHARD_REG_CFG), dev, reg_template)
+        reg_single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = _spawn(_shard_rank, SHARD_WORLD, (spec,), SHARD_TIMEOUT_S)
+        say(f"sharded ranks: {SHARD_WORLD} processes on the card, "
+            f"{time.perf_counter() - t0:.3f} s in all, start-up included "
+            f"({card})")
+        results = {}
+        for rank, label, launches, secs, path in sorted(
+                rows, key=lambda r: (r[1], r[0])):
+            say(f"sharded {label} rank {rank}: {secs:.3f} s; launches "
+                f"{ {kn: n for kn, n in launches.items() if n} }")
+            results.setdefault(label, {"launches": [], "secs": []})
+            results[label]["launches"].append(launches)
+            results[label]["secs"].append(secs)
+            if path is not None:
+                results[label]["data"] = dict(np.load(path))
+        _check_sharded(results, singles, reg_single, reg_single_s, card)
+
+
+def _check_sharded(results, singles, reg_single, reg_single_s, card):
+    """The gates of phases (c) and (d)."""
+    need = {  # kernels that every rank, or some rank, must have launched
+        "time 2 x pixel 2, exact": ({"motion_block", "gram_block"}, set()),
+        "time 4, auto + halo + refine": (
+            {"motion_block", "c1_block", "refine_block", "c1_block_tracked"},
+            {"gram_block"}),  # the audit: the owner of the frame
+        "time 4, exact refine": ({"refine_block", "gram_block_tracked"},
+                                 set()),
+        "registration": ({"phase_corr_block", "fused_separable_warp"},
+                         set()),
+    }
+    for label, (every, some) in need.items():
+        got = results.get(label)
+        if got is None or len(got["launches"]) != SHARD_WORLD:
+            fail(f"sharded {label}: not every rank reported")
+        for kn in every:
+            if min(ln[kn] for ln in got["launches"]) <= 0:
+                fail(f"sharded {label}: a rank did not launch {kn}")
+        for kn in some:
+            if max(ln[kn] for ln in got["launches"]) <= 0:
+                fail(f"sharded {label}: no rank launched {kn}")
+    for label, (res, pos_t, secs, round_s) in singles.items():
+        data = results[label]["data"]
+        rank_round_s = [float(x) for x in data["round_s"]]
+        say(f"sharded {label}: {max(results[label]['secs']):.3f} s (slowest "
+            f"rank), seconds per round {rank_round_s}; single process "
+            f"{secs:.3f} s, seconds per round {round_s} ({card})")
+        _allclose(f"sharded {label}", data["beta"],
+                  res.state.beta.cpu().numpy(), "beta")
+        _allclose(f"sharded {label}", data["c"], res.state.c.cpu().numpy(),
+                  "c")
+        if pos_t is not None:
+            _allclose(f"sharded {label}", data["pos_t"],
+                      pos_t.cpu().numpy(), "pos_t")
+        for name in ("beta", "c"):
+            if not np.all(np.isfinite(data[name])):
+                fail(f"sharded {label}: non-finite {name}")
+    data = results["registration"]["data"]
+    templ, _, xs, ys, zs, _, mc = reg_single
+    shifts = np.stack([np.stack(s, -1) for s in zip(xs, ys, zs)])
+    say(f"sharded registration (time 2 x batch 2): "
+        f"{max(results['registration']['secs']):.3f} s (slowest rank); "
+        f"single-process chunked run {reg_single_s:.3f} s ({card})")
+    _allclose("sharded registration", data["shifts"], shifts, "shifts")
+    _allclose("sharded registration", data["template"],
+              templ.cpu().numpy(), "template")
+    _allclose("sharded registration", data["corrected"], mc, "corrected")
+
+
+def _nccl_rank(rank, world, address, out):
+    """(e) a one-rank NCCL group: collectives on the card, and a mesh fit
+    (``mesh_time=1``) against the same fit without a mesh."""
+    from dnmf_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize_distributed(address, world, rank, backend="nccl")
+    dev = torch.device("cuda")
+    x = torch.arange(4.0, device=dev)
+    torch.distributed.all_reduce(x)
+    parts = [torch.empty_like(x)]
+    torch.distributed.all_gather(parts, x)
+    torch.distributed.barrier()
+    roi, _ = tcfg.baseline_workload("roi")
+    model = tcfg.ModelConfig(size=roi.size, num_neurons=roi.num_neurons,
+                             num_frames=16, shape_std=roi.shape_std)
+    pos, _, video = ground_truth(dev, model.size, model.num_neurons, 16, SEED)
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=1,
+                               motion_epochs=2, gamma_traces=0.01, seed=SEED)
+    fits = [ttr.DeformableNMF(model, opt, tcfg.RuntimeConfig(
+        frame_block=8, **kw), positions=pos, device=dev).fit(video).state
+        for kw in ({"mesh_time": 1}, {})]
+    same = all(torch.equal(getattr(fits[0], f), getattr(fits[1], f))
+               for f in ("beta", "c"))
+    out.put({"backend": torch.distributed.get_backend(),
+             "all_reduce": x.tolist(), "all_gather": parts[0].tolist(),
+             "mesh_fit_equal": same})
+    torch.distributed.destroy_process_group()
+
+
+def nccl_phase():
+    """(e) the one-rank NCCL group."""
+    rows = _spawn(_nccl_rank, 1, (), 180)
+    if len(rows) != 1:
+        fail(f"one-rank NCCL group: the rank reported {len(rows)} times")
+    res = rows[0]
+    say(f"one-rank NCCL group: {res}")
+    if (res["backend"] != "nccl" or res["all_reduce"] != [0.0, 1.0, 2.0, 3.0]
+            or res["all_gather"] != res["all_reduce"]
+            or not res["mesh_fit_equal"]):
+        fail(f"one-rank NCCL group: {res}")
+
+
+def parallel_paths(dev, card):
+    """Phases (a)-(e), each timed; returns the range kernels' entries."""
+    results = {}
+    for label, phase in (
+            ("voxel-range kernels", lambda: results.update(
+                range_kernel_phase(dev))),
+            (f"pod_check --cuda {SHARD_WORLD}", pod_check_phase),
+            ("sharded fits and registration", lambda: sharded_paths(
+                dev, card)),
+            ("one-rank NCCL group", nccl_phase)):
+        t0 = time.perf_counter()
+        phase()
+        say(f"{label}: {time.perf_counter() - t0:.3f} s ({card})")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -2257,14 +2719,18 @@ def main() -> int:
     t0 = time.perf_counter()
     engine_paths(dev, card)
     say(f"engine paths (a)-(f): {time.perf_counter() - t0:.3f} s ({card})")
+    t0 = time.perf_counter()
+    ranged = parallel_paths(dev, card)
+    say(f"parallel paths (a)-(e): {time.perf_counter() - t0:.3f} s ({card})")
     say(f"chip_smoke: {time.perf_counter() - started:.3f} s in all")
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():
         at = results["roi"][kname]
-        # The worst error over a kernel's variants (refine: dsigma, [K, 3]).
-        variants = [r for label, r in results["roi"].items()
-                    if label.split("[")[0] == kname]
+        # The worst error over a kernel's variants (refine: dsigma, [K, 3];
+        # motion and Gram: over voxel ranges of the whole-brain volume).
+        variants = [r for label, r in list(results["roi"].items())
+                    + list(ranged.items()) if label.split("[")[0] == kname]
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[kname],
                         "max_abs_err": max(r["max_abs_err"] for r in variants),

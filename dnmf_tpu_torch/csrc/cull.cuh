@@ -29,10 +29,18 @@ constexpr int TROW = 16;  // neuron table row: p (3), log2e / sigma^2 (3), 0,
                           // 0, reach 6 sigma (3), 0, 1 / sigma^2 (3), 0
 constexpr float LOG2E_F = 1.44269504088896341f;
 
-// Brick layout: bricks numbered ((im * nbn) + in) * nbz + iz.
+// Brick layout: bricks numbered ((im * nbn) + in) * nbz + iz.  A voxel
+// range (Geom::p_lo, PL) is a run of m rows, so the bricks it meets are
+// the consecutive ids [id0, id0 + count): a kernel walks local ids 0 ..
+// count - 1, and brick_at<true> adds id0.  In the bricks that the range's
+// ends cut (brick_cut), its voxels outside it are past the brick
+// (slot_in_range).  The range is a template parameter (RANGE) of the
+// kernels that take one (motion.cu, gram.cu), and their whole-volume
+// instances run the code without it.
 struct Bricks {
   int bm, bn, bz;     // brick extent (bm * bn * bz <= THREADS * PPT)
   int nbm, nbn, nbz;  // bricks per axis
+  int id0, count;     // the bricks that the voxel range meets
 };
 
 constexpr int PPT = 8;  // pixels per thread of a brick, at most
@@ -55,17 +63,32 @@ struct Brick {
   __device__ int count() const { return wm * wn * wz; }
 };
 
+// The brick layout, and the bricks that the voxel range of g meets (all
+// of them without a range).
 inline Bricks make_bricks(const Geom& g, int bm, int bn, int bz) {
   Bricks bk;
   bk.bm = bm; bk.bn = bn; bk.bz = bz;
   bk.nbm = (g.M + bm - 1) / bm;
   bk.nbn = (g.N + bn - 1) / bn;
   bk.nbz = (g.Z + bz - 1) / bz;
+  const int row = g.N * g.Z;
+  const int im_lo = g.p_lo / row / bm;
+  const int im_hi = (g.p_lo + g.PL - 1) / row / bm;
+  bk.id0 = im_lo * bk.nbn * bk.nbz;
+  bk.count = (im_hi - im_lo + 1) * bk.nbn * bk.nbz;
   return bk;
 }
 
+// Whether a voxel range fits the volume (and is not empty).
+inline bool range_ok(const Geom& g) {
+  return g.p_lo >= 0 && g.PL >= 1 && g.p_lo <= g.P - g.PL;
+}
+
+// Local brick id (0 .. bk.count - 1) to its brick.
+template <bool RANGE = false>
 __device__ __forceinline__ Brick brick_at(int id, const Bricks& bk,
                                           const Geom& g) {
+  if (RANGE) id += bk.id0;
   const int iz = id % bk.nbz, rest = id / bk.nbz;
   const int in = rest % bk.nbn, im = rest / bk.nbn;
   Brick b;
@@ -76,6 +99,25 @@ __device__ __forceinline__ Brick brick_at(int id, const Bricks& bk,
   b.wn = min(bk.bn, g.N - b.n0);
   b.wz = min(bk.bz, g.Z - b.z0);
   return b;
+}
+
+// Whether the voxel range cuts brick b (some of its voxels lie outside
+// it); never without a range.
+template <bool RANGE>
+__device__ __forceinline__ bool brick_cut(const Brick& b, const Geom& g) {
+  if (!RANGE) return false;
+  // p grows with m, n and z: the brick's first and last voxels bound it.
+  const int p_first = (b.m0 * g.N + b.n0) * g.Z + b.z0;
+  const int p_last =
+      ((b.m0 + b.wm - 1) * g.N + b.n0 + b.wn - 1) * g.Z + b.z0 + b.wz - 1;
+  return p_first < g.p_lo || p_last >= g.p_lo + g.PL;
+}
+
+// Whether every slot of the per-block slot table is a voxel of brick b: a
+// brick of full size that the range does not cut.
+__device__ __forceinline__ bool brick_full(const Brick& b, const Bricks& bk,
+                                           bool cut) {
+  return !cut && b.wm == bk.bm && b.wn == bk.bn && b.wz == bk.bz;
 }
 
 // Per-warp min (red[w * 6 + d]) and max (red[w * 6 + 3 + d]) of the
@@ -177,8 +219,9 @@ __device__ __forceinline__ void brick_slots(const Bricks& bk, int* s_off) {
 }
 
 // The brick-local voxel (dm, dn, dz) of this thread's slot i; false past
-// the brick.  A full brick reads the slot table; a brick clipped at the
-// volume's far faces numbers its own pixels, z fastest.
+// the brick.  A full brick (brick_full) reads the slot table; a brick
+// clipped at the volume's far faces or cut by a voxel range numbers its
+// own pixels, z fastest.
 __device__ __forceinline__ bool slot_voxel(const Brick& br, bool full,
                                            const int* s_off, int i, int& dm,
                                            int& dn, int& dz) {
@@ -197,6 +240,17 @@ __device__ __forceinline__ bool slot_voxel(const Brick& br, bool full,
   return l < br.count();
 }
 
+// slot_voxel, and false outside the voxel range of a brick it cuts.
+__device__ __forceinline__ bool slot_in_range(const Brick& br, bool full,
+                                              bool cut, const int* s_off,
+                                              int i, int& dm, int& dn,
+                                              int& dz, const Geom& g) {
+  if (!slot_voxel(br, full, s_off, i, dm, dn, dz)) return false;
+  if (!cut) return true;
+  const int p = ((br.m0 + dm) * g.N + br.n0 + dn) * g.Z + br.z0 + dz;
+  return p >= g.p_lo && p < g.p_lo + g.PL;
+}
+
 // The basis at a brick-local voxel from the brick's coordinate table.
 __device__ __forceinline__ void slot_basis(const float* coord,
                                            const Bricks& bk, int dm, int dn,
@@ -205,7 +259,8 @@ __device__ __forceinline__ void slot_basis(const float* coord,
 }
 
 // The warp of this thread's pixels of brick br, their video values yv
-// with LOAD_Y (0 outside the brick; the loads are issued here, to arrive
+// with LOAD_Y (0 outside the brick or the voxel range; yb holds the
+// frame's PL voxels from p_lo; the loads are issued here, to arrive
 // while the candidates are listed), and the per-warp partials of the
 // brick's psi box in red (box_partials).  The brick's
 // basis coordinates (basis_coord of its m, n and z values: the bits
@@ -213,7 +268,7 @@ __device__ __forceinline__ void slot_basis(const float* coord,
 // dividing.  Slots past the brick get psi = 0.  red: shared scratch of
 // NWARPS * 6 floats; coord: COORDS shared floats that no thread reads
 // until the next barrier (alternate two tables between bricks).
-template <bool LOAD_Y, int NP = PPT>
+template <bool LOAD_Y, int NP = PPT, bool RANGE = false>
 __device__ __forceinline__ void brick_pixels(const Brick& br,
                                              const Bricks& bk, const Geom& g,
                                              const int* s_off, float* coord,
@@ -230,7 +285,8 @@ __device__ __forceinline__ void brick_pixels(const Brick& br,
     coord[t] = basis_coord(v, d, g);
   }
   __syncthreads();
-  const bool full = br.wm == bk.bm && br.wn == bk.bn && br.wz == bk.bz;
+  const bool cut = brick_cut<RANGE>(br, g);
+  const bool full = brick_full(br, bk, cut);
   float lo[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
   float hi[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
@@ -238,10 +294,12 @@ __device__ __forceinline__ void brick_pixels(const Brick& br,
     psi[i][0] = psi[i][1] = psi[i][2] = 0.0f;
     yv[i] = 0.0f;
     int dm, dn, dz;
-    if (slot_voxel(br, full, s_off, i, dm, dn, dz)) {
+    if (RANGE ? slot_in_range(br, full, cut, s_off, i, dm, dn, dz, g)
+              : slot_voxel(br, full, s_off, i, dm, dn, dz)) {
       float phi[10];
       if (LOAD_Y)
-        yv[i] = yb[((br.m0 + dm) * g.N + br.n0 + dn) * g.Z + br.z0 + dz];
+        yv[i] = yb[((br.m0 + dm) * g.N + br.n0 + dn) * g.Z + br.z0 + dz -
+                   (RANGE ? g.p_lo : 0)];
       slot_basis(coord, bk, dm, dn, dz, phi);
       warp_psi(beta, phi, g, psi[i]);
 #pragma unroll

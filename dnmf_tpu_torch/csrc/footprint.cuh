@@ -8,7 +8,9 @@
 // the Gaussian in direct (psi - p)^2 form with exp2f.  A matmul-form
 // exponent would sum cancelling O(coord^2) terms, so it is never used.
 // Pixel index p = (m * N + n) * Z + z.  The kernels cull by spatial
-// bricks (cull.cuh).
+// bricks (cull.cuh).  A voxel range [p_lo, p_lo + PL) (a pixel shard of
+// the volume: y then holds only those voxels, PL per frame) restricts
+// every sum to its voxels; without one it is the whole volume.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,6 +24,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 struct Geom {
   int M, N, Z, P;
+  int p_lo, PL;     // the voxel range [p_lo, p_lo + PL) of y's rows
   int normalized;   // beta acts on [-1, 1] coordinates
   float hi[3];      // size_d - 1 (fade bounds)
   float den[3];     // max(size_d - 1, 1) (normalization scale)
@@ -113,9 +116,12 @@ __device__ __forceinline__ void block_sum(const float* vals, float* red,
   }
 }
 
-inline Geom make_geom(int M, int N, int Z, int normalized) {
+inline Geom make_geom(int M, int N, int Z, int normalized, int p_lo = 0,
+                      int p_count = -1) {
   Geom g;
   g.M = M; g.N = N; g.Z = Z; g.P = M * N * Z;
+  g.p_lo = p_lo;
+  g.PL = p_count < 0 ? g.P : p_count;
   g.normalized = normalized;
   const int s[3] = {M, N, Z};
   for (int d = 0; d < 3; ++d) {

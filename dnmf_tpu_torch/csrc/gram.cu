@@ -58,6 +58,12 @@
 //    float atomics: results repeat exactly, and the group and split
 //    counts depend on the volume and K only, so a frame's (G, c1) are the
 //    same bits alone or inside a call of any length.
+// A voxel range (a pixel shard: y [B][PL] holds global voxels [p_lo, p_lo
+// + PL), as the Pallas kernels' p_offset; the instances RANGE) walks only
+// the bricks the range meets and gives the voxels outside it in the two
+// bricks it cuts a zero fade: G and c1 are the sums over the shard's
+// voxels, whose sum over the shards is the whole volume's.  The rows
+// variant takes no range.
 // The products run in float32 FMA (the footprint exponent in direct
 // (psi - p)^2 form, never a matmul form): JAX's bf16 "split" dot is a TPU
 // emulation.
@@ -130,10 +136,11 @@ __device__ __forceinline__ bool tile_entry(int e, int a0, int b0, int na,
 }
 
 // This thread's pixels of brick br: deformed coordinates, fades (0 past
-// the brick) and video values, and the per-warp partials of the brick's
-// psi box in red.  ROWS reads psi and w from the rows (psi_b [P][3], w_b
-// [P] of this frame); otherwise brick_pixels evaluates the warp.
-template <bool ROWS, int NP>
+// the brick or, with RANGE, outside the voxel range) and video values,
+// and the per-warp partials of the brick's psi box in red.  ROWS reads psi
+// and w from the rows (psi_b [P][3], w_b [P] of this frame); otherwise
+// brick_pixels evaluates the warp.
+template <bool ROWS, int NP, bool RANGE>
 __device__ __forceinline__ void gram_pixels(
     const Brick& br, const Bricks& bk, const Geom& g, const int* s_off,
     float* coord, const float* beta, const float* __restrict__ psi_b,
@@ -162,11 +169,19 @@ __device__ __forceinline__ void gram_pixels(
     }
     box_partials(lo, hi, red);
   } else {
-    brick_pixels<true, NP>(br, bk, g, s_off, coord, beta, yb, psi, yv, red);
+    brick_pixels<true, NP, RANGE>(br, bk, g, s_off, coord, beta, yb, psi, yv,
+                                  red);
     const int npix = br.count();
+    const bool cut = brick_cut<RANGE>(br, g);
+    const bool full = brick_full(br, bk, cut);
 #pragma unroll
-    for (int i = 0; i < NP; ++i)
-      w[i] = threadIdx.x + i * THREADS < npix ? fade(psi[i], g) : 0.0f;
+    for (int i = 0; i < NP; ++i) {
+      int dm, dn, dz;
+      const bool in =
+          RANGE ? slot_in_range(br, full, cut, s_off, i, dm, dn, dz, g)
+                : threadIdx.x + i * THREADS < npix;
+      w[i] = in ? fade(psi[i], g) : 0.0f;
+    }
   }
 }
 
@@ -181,7 +196,7 @@ __device__ __forceinline__ void gram_pixels(
 // of table rows to windows [B][n_groups][2], and with counts ([B][n_bricks],
 // or null) the candidates each brick listed.  SPLIT (several splits)
 // adds the staged tiles, GSMEM floats of dynamic shared memory.
-template <bool ROWS, bool SPLIT, int NP>
+template <bool ROWS, bool SPLIT, int NP, bool RANGE>
 __global__ void __launch_bounds__(THREADS, 3)
 gram_bricks(const float* __restrict__ betas, const float* __restrict__ psi_rows,
             const float* __restrict__ w_rows, const float* __restrict__ table,
@@ -211,7 +226,7 @@ gram_bricks(const float* __restrict__ betas, const float* __restrict__ psi_rows,
   float* cp = cpart + part * k;
   const float* tab = table + (size_t)b * tab_stride;
   const float rm = *rmax;
-  const float* yb = y + (size_t)b * g.P;
+  const float* yb = y + (size_t)b * (RANGE ? g.PL : g.P);
   const float* psi_b = ROWS ? psi_rows + (size_t)b * g.P * 3 : nullptr;
   const float* w_b = ROWS ? w_rows + (size_t)b * g.P : nullptr;
   int lo = 0, hi = 0;  // the group's window of table rows so far
@@ -219,12 +234,12 @@ gram_bricks(const float* __restrict__ betas, const float* __restrict__ psi_rows,
   const int first = grp * bricks_per_group;
   const int last = min(first + bricks_per_group, n_bricks);
   for (int id = first; id < last; ++id) {
-    const Brick br = brick_at(id, bk, g);
+    const Brick br = brick_at<RANGE>(id, bk, g);
     float* coord = s_coord[(id - first) & 1];
     const int npix = br.count();
     float psi[NP][3], w[NP], yv[NP];
-    gram_pixels<ROWS, NP>(br, bk, g, s_off, coord, s_beta, psi_b, w_b, yb,
-                          psi, w, yv, s_red);
+    gram_pixels<ROWS, NP, RANGE>(br, bk, g, s_off, coord, s_beta, psi_b, w_b,
+                                 yb, psi, w, yv, s_red);
     candidate_window(tab, TROW, k, rm, s_red, s_box, s_range);
     const int i0 = s_range[0], i1 = s_range[1];
     int nc = 0;
@@ -447,11 +462,12 @@ int gram_launch(const float* betas, const float* psi, const float* w,
                 int* windows, float* g_out, float* c1_out, int* counts, int B,
                 const Geom& g, int k, int tracked, int bm, int bn, int bz,
                 int bricks_per_group, int n_split, cudaStream_t s) {
+  if (!range_ok(g)) return (int)cudaErrorInvalidValue;
   const Bricks bk = make_bricks(g, bm, bn, bz);
   if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS || n_split < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || k == 0) return (int)cudaSuccess;
-  const int n_bricks = bk.nbm * bk.nbn * bk.nbz;
+  const int n_bricks = bk.count;
   const int n_groups = (n_bricks + bricks_per_group - 1) / bricks_per_group;
   // Splits, and the staged tiles with their shared memory, only where a
   // volume has few groups: one with groups enough lists few candidates
@@ -467,11 +483,18 @@ int gram_launch(const float* betas, const float* psi, const float* w,
         windows, counts, g, bk, n_bricks, bricks_per_group, k);
     return cudaGetLastError();
   };
+  const bool ranged = g.p_lo != 0 || g.PL != g.P;
+  if (ROWS && ranged) return (int)cudaErrorInvalidValue;
   const cudaError_t e = with_slots(bm * bn * bz, [&](auto np) {
     constexpr int NP = decltype(np)::value;
-    return n_split > 1
-               ? launch(gram_bricks<ROWS, true, NP>, GSMEM * sizeof(float))
-               : launch(gram_bricks<ROWS, false, NP>, 0);
+    constexpr int STAGED = GSMEM * sizeof(float);
+    if constexpr (!ROWS) {
+      if (ranged)
+        return n_split > 1 ? launch(gram_bricks<false, true, NP, true>, STAGED)
+                           : launch(gram_bricks<false, false, NP, true>, 0);
+    }
+    return n_split > 1 ? launch(gram_bricks<ROWS, true, NP, false>, STAGED)
+                       : launch(gram_bricks<ROWS, false, NP, false>, 0);
   });
   if (e != cudaSuccess) return (int)e;
   gram_assemble<<<dim3((k + 31) / 32, (k + NWARPS - 1) / NWARPS, B),
@@ -485,9 +508,11 @@ int gram_launch(const float* betas, const float* psi, const float* w,
 
 // betas [B][10][3]; table [k][TROW] and order [k] (tracked 0) or one per
 // frame, [B][k][TROW] and [B][k] (tracked 1; table.cu, order int64), and
-// rmax (1 float) their largest m reach; y [B][P].  Outputs in the caller's
-// neuron order: g_out [B][k][k], c1_out [B][k]; counts (or null):
-// [B][n_bricks] candidates per brick.  Bricks of bm x bn x bz voxels,
+// rmax (1 float) their largest m reach; y [B][p_count]: the voxels [p_lo,
+// p_lo + p_count) of each frame (0 and M N Z: the whole volume).  Outputs
+// in the caller's neuron order: g_out [B][k][k], c1_out [B][k]; counts (or
+// null): [B][n_bricks] candidates per brick, for the n_bricks bricks that
+// the range meets (make_bricks).  Bricks of bm x bn x bz voxels,
 // bricks_per_group per group, n_split thread blocks per group.  Scratch:
 // gpart [B][n_groups][k (k + 1) / 2] and cpart [B][n_groups][k] floats,
 // windows [B][n_groups][2] ints.
@@ -497,12 +522,13 @@ extern "C" int dnmf_gram(const float* betas, const float* table,
                          int* windows, float* g_out, float* c1_out,
                          int* counts, int B, int M, int N, int Z,
                          int normalized, int k, int tracked, int bm, int bn,
-                         int bz, int bricks_per_group, int n_split,
-                         void* stream) {
+                         int bz, int bricks_per_group, int n_split, int p_lo,
+                         int p_count, void* stream) {
   return dnmf::gram_launch<false>(
       betas, nullptr, nullptr, table, order, rmax, y, gpart, cpart, windows,
-      g_out, c1_out, counts, B, dnmf::make_geom(M, N, Z, normalized), k,
-      tracked, bm, bn, bz, bricks_per_group, n_split, (cudaStream_t)stream);
+      g_out, c1_out, counts, B,
+      dnmf::make_geom(M, N, Z, normalized, p_lo, p_count), k, tracked, bm, bn,
+      bz, bricks_per_group, n_split, (cudaStream_t)stream);
 }
 
 // The same from precomputed rows of the volume M x N x Z: psi [B][P][3]

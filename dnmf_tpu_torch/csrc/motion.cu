@@ -41,6 +41,11 @@
 //    and normalization chain factors.  No float atomics: results repeat
 //    exactly, and the group count depends only on the volume, so a
 //    frame's result does not depend on the other frames of the call.
+// A voxel range (a pixel shard: y [B][PL] holds global voxels [p_lo, p_lo
+// + PL), as the Pallas kernels' p_offset; the instance RANGE) walks only
+// the bricks the range meets, skips the voxels outside it in the two
+// bricks it cuts, and divides by PL: each shard's mse and dbeta are means
+// over its own voxels, so the mean over the shards is the whole volume's.
 // The fade's derivative follows JAX's subgradients at ties (0.5 where
 // clip or min meet their bounds) exactly as the Pallas kernel does: on
 // thin volumes every face voxel sits on a tie.
@@ -59,7 +64,7 @@ constexpr int CAND = 2 * THREADS;  // candidate rows listed at a time
 // registers while the next brick's candidates are listed.  rmax: the
 // table's largest m reach; counts (or null): [B][n_bricks] candidates per
 // brick.
-template <int NP>
+template <int NP, bool RANGE>
 __global__ void __launch_bounds__(THREADS, 3)
 motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
               const float* __restrict__ rmax, const float* __restrict__ c_rows,
@@ -82,7 +87,7 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
   brick_slots<NP>(bk, s_off);
   const float rm = *rmax;
   const float* cb = c_rows + (size_t)b * k;
-  const float* yb = y + (size_t)b * g.P;
+  const float* yb = y + (size_t)b * (RANGE ? g.PL : g.P);
 
   float acc[NOUT];
 #pragma unroll
@@ -91,12 +96,14 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
   const int first = grp * bricks_per_group;
   const int last = min(first + bricks_per_group, n_bricks);
   for (int id = first; id < last; ++id) {
-    const Brick br = brick_at(id, bk, g);
+    const Brick br = brick_at<RANGE>(id, bk, g);
     float* coord = s_coord[(id - first) & 1];
-    const bool full = br.count() == bk.bm * bk.bn * bk.bz;
+    const bool cut = brick_cut<RANGE>(br, g);
+    const bool full = RANGE ? brick_full(br, bk, cut)
+                            : br.count() == bk.bm * bk.bn * bk.bz;
     float psi[NP][3], no_y[NP];  // the video is read per pixel below
-    brick_pixels<false, NP>(br, bk, g, s_off, coord, s_beta, yb, psi, no_y,
-                            s_red);
+    brick_pixels<false, NP, RANGE>(br, bk, g, s_off, coord, s_beta, yb, psi,
+                                   no_y, s_red);
     const int nc = list_candidates(
         table, table, TROW, k, rm, CAND, s_red, s_box, s_cand, s_warp_n,
         s_range,
@@ -111,7 +118,9 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
 #pragma unroll
           for (int i = 0; i < NP; ++i) {
             int dm, dn, dz;
-            if (!slot_voxel(br, full, s_off, i, dm, dn, dz)) continue;
+            if (!(RANGE ? slot_in_range(br, full, cut, s_off, i, dm, dn, dz, g)
+                        : slot_voxel(br, full, s_off, i, dm, dn, dz)))
+              continue;
             float* carry = s_carry + i * 4 * THREADS + tid;
             float S = 0.0f, T[3] = {0.0f, 0.0f, 0.0f};
             if (!first_chunk) {
@@ -147,7 +156,7 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
             for (int d = 0; d < 3; ++d) wd[d] = fade_axis(psi[i][d], g.hi[d]);
             const float w = wd[0] * wd[1] * wd[2];
             const float r = w * S - yb[((br.m0 + dm) * g.N + br.n0 + dn) * g.Z +
-                                       br.z0 + dz];
+                                       br.z0 + dz - (RANGE ? g.p_lo : 0)];
             acc[0] = fmaf(r, r, acc[0]);
             float phi[10];
             slot_basis(coord, bk, dm, dn, dz, phi);
@@ -182,7 +191,7 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
 
 // Per frame b (a block of 32 x 32 threads): warp w sums groups w, w + 32,
 // ... of each output, then the warps' sums are added in order; mse[b] =
-// sse / P, dbeta[b][j][d] = sum * chain_d / P.
+// sse / PL, dbeta[b][j][d] = sum * chain_d / PL (PL = P without a range).
 __global__ void __launch_bounds__(1024)
 motion_finish(const float* __restrict__ partial, float* __restrict__ mse,
               float* __restrict__ dbeta, int n_groups, Geom g) {
@@ -197,7 +206,7 @@ motion_finish(const float* __restrict__ partial, float* __restrict__ mse,
   if (i >= NOUT) return;
   float t = 0.0f;
   for (int w = 0; w < 32; ++w) t += s_part[w][i];
-  const float inv_p = 1.0f / (float)g.P;
+  const float inv_p = 1.0f / (float)g.PL;
   if (i == 0) {
     mse[b] = t * inv_p;
   } else {
@@ -211,34 +220,43 @@ motion_finish(const float* __restrict__ partial, float* __restrict__ mse,
 
 // betas [B][10][3]; table [k][TROW] (table.cu, shared anchors) and rmax
 // (1 float) its largest m reach; c_rows [B][k] the traces in table order,
-// y [B][P]; out [B + 30 B]:
+// y [B][p_count]: the voxels [p_lo, p_lo + p_count) of each frame (0 and
+// M N Z: the whole volume); out [B + 30 B]:
 // mse [B], then dbeta [B][10][3].  Bricks of bm x bn x bz voxels,
 // bricks_per_group per thread block; partial: [B][n_groups][32] floats of
-// scratch; counts (or null): [B][n_bricks] candidates per brick.
+// scratch; counts (or null): [B][n_bricks] candidates per brick, for the
+// n_bricks bricks that the range meets (make_bricks).
 extern "C" int dnmf_motion(const float* betas, const float* table,
                            const float* rmax, const float* c_rows,
                            const float* y, float* partial, float* out,
                            int* counts, int B, int M, int N, int Z,
                            int normalized, int k, int bm, int bn, int bz,
-                           int bricks_per_group, void* stream) {
+                           int bricks_per_group, int p_lo, int p_count,
+                           void* stream) {
   using namespace dnmf;
-  const Geom g = make_geom(M, N, Z, normalized);
+  const Geom g = make_geom(M, N, Z, normalized, p_lo, p_count);
+  if (!range_ok(g)) return (int)cudaErrorInvalidValue;
   const Bricks bk = make_bricks(g, bm, bn, bz);
   if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS)
     return (int)cudaErrorInvalidValue;
-  const int n_bricks = bk.nbm * bk.nbn * bk.nbz;
+  const int n_bricks = bk.count;
   const int n_groups = (n_bricks + bricks_per_group - 1) / bricks_per_group;
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = with_slots(bm * bn * bz, [&](auto np) {
-    constexpr int NP = decltype(np)::value;
-    const int carry = NP * 4 * THREADS * sizeof(float);
+  const auto launch = [&](auto kernel, int carry) {
     const cudaError_t err = cudaFuncSetAttribute(
-        motion_bricks<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, carry);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, carry);
     if (err != cudaSuccess) return err;
-    motion_bricks<NP><<<dim3(n_groups, B), THREADS, carry, s>>>(
+    kernel<<<dim3(n_groups, B), THREADS, carry, s>>>(
         betas, table, rmax, c_rows, y, partial, counts, g, bk, n_bricks,
         bricks_per_group, k);
     return cudaGetLastError();
+  };
+  const bool ranged = g.p_lo != 0 || g.PL != g.P;
+  const cudaError_t e = with_slots(bm * bn * bz, [&](auto np) {
+    constexpr int NP = decltype(np)::value;
+    const int carry = NP * 4 * THREADS * sizeof(float);
+    return ranged ? launch(motion_bricks<NP, true>, carry)
+                  : launch(motion_bricks<NP, false>, carry);
   });
   if (e != cudaSuccess) return (int)e;
   motion_finish<<<B, 1024, 0, s>>>(partial, out, out + B, n_groups, g);

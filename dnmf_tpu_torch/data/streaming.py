@@ -4,9 +4,10 @@ Counterpart of ``dnmf_tpu/data/streaming.py``.  A source holds a
 ``[T, M, N, Z]`` or ``[T, P]`` recording on the host (an array, a memmap
 or a raw float32 file) and hands the engine fixed-size frame blocks:
 ``blocks()`` yields ``(frames [block, P] on the source's device, start,
-valid)``, the last block zero-padded to the block size.  ``read`` gives
-clamped host frames (the NMF non-negativity clamp), ``read_raw`` the
-recording's own values (registration reads).
+valid)``, the last block zero-padded to the block size; a run of frames
+and of voxels (a rank's shard) narrows it.  ``read`` gives clamped host
+frames (the NMF non-negativity clamp), ``read_raw`` the recording's own
+values (registration reads).
 
 On a CUDA device each host block is staged in one of two pinned buffers
 and copied with ``non_blocking=True`` on a side stream, one block ahead of
@@ -24,9 +25,8 @@ import numpy as np
 import torch
 
 
-def _frame_range(num_frames: int, block: int):
-    return [(s, min(s + block, num_frames))
-            for s in range(0, num_frames, block)]
+def _frame_range(start: int, stop: int, block: int):
+    return [(s, min(s + block, stop)) for s in range(start, stop, block)]
 
 
 class _BlockSource:
@@ -44,30 +44,41 @@ class _BlockSource:
     def num_blocks(self) -> int:
         return -(-self.num_frames // self.block)
 
-    def _fill(self, start: int, stop: int, out: np.ndarray) -> None:
-        """Write clamped frames ``[start, stop)`` into ``out [n, P]``."""
+    def _fill(self, start: int, stop: int, out: np.ndarray,
+              voxels: slice) -> None:
+        """Write clamped frames ``[start, stop)``, voxels ``voxels`` only,
+        into ``out [n, voxels.stop - voxels.start]``."""
         raise NotImplementedError
 
     def _prefetch(self, start: int, stop: int) -> None:
-        """Hint that frames ``[start, stop)`` are read next."""
+        """Hint that whole frames ``[start, stop)`` are read next."""
 
-    def blocks(self) -> Iterator[Tuple[torch.Tensor, int, int]]:
-        """Yield ``(frames [block, P] on the device, start, valid)``."""
-        ranges = _frame_range(self.num_frames, self.block)
-        if ranges:
+    def blocks(self, start: int = 0, stop=None, voxels: slice = None
+               ) -> Iterator[Tuple[torch.Tensor, int, int]]:
+        """Yield ``(frames [block, P] on the device, start, valid)`` over
+        frames ``[start, stop)`` (default: all).  ``voxels`` (a slice of
+        the flat voxels) reads only that run: frames ``[block,
+        voxels.stop - voxels.start]``."""
+        ranges = _frame_range(start, self.num_frames if stop is None
+                              else stop, self.block)
+        voxels = voxels or slice(0, self.num_voxels)
+        # The prefetch reads whole frames; a run of voxels is read directly.
+        whole = voxels == slice(0, self.num_voxels)
+        if ranges and whole:
             self._prefetch(*ranges[0])
+        width = voxels.stop - voxels.start
         if self.device.type != "cuda":
             for i, (start, stop) in enumerate(ranges):
-                host = np.zeros((self.block, self.num_voxels), np.float32)
-                self._fill(start, stop, host[:stop - start])
-                if i + 1 < len(ranges):
+                host = np.zeros((self.block, width), np.float32)
+                self._fill(start, stop, host[:stop - start], voxels)
+                if i + 1 < len(ranges) and whole:
                     self._prefetch(*ranges[i + 1])
                 yield torch.from_numpy(host).to(self.device), start, stop - start
             return
-        yield from self._cuda_blocks(ranges)
+        yield from self._cuda_blocks(ranges, voxels, whole)
 
-    def _cuda_blocks(self, ranges):
-        shape = (self.block, self.num_voxels)
+    def _cuda_blocks(self, ranges, voxels, whole):
+        shape = (self.block, voxels.stop - voxels.start)
         pinned = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
                   for _ in range(min(2, len(ranges)))]
         copied = [None] * len(pinned)  # copy-done event per pinned buffer
@@ -79,9 +90,9 @@ class _BlockSource:
             if copied[slot] is not None:
                 copied[slot].synchronize()  # its last copy has left it
             host = pinned[slot].numpy()
-            self._fill(start, stop, host[:stop - start])
+            self._fill(start, stop, host[:stop - start], voxels)
             host[stop - start:] = 0.0
-            if i + 1 < len(ranges):
+            if i + 1 < len(ranges) and whole:
                 self._prefetch(*ranges[i + 1])
             with torch.cuda.stream(side):
                 frames = torch.empty(shape, dtype=torch.float32,
@@ -134,8 +145,11 @@ class StreamingVideo(_BlockSource):
         return np.asarray(self.array[start:stop],
                           dtype=np.float32).reshape(stop - start, -1)
 
-    def _fill(self, start, stop, out):
-        np.maximum(self.read_raw(start, stop), 0.0, out=out)
+    def _fill(self, start, stop, out, voxels):
+        # Sliced before the copy: a memmap reads just the run's bytes.
+        flat = self.array[start:stop].reshape(stop - start, -1)
+        np.maximum(np.asarray(flat[:, voxels], dtype=np.float32), 0.0,
+                   out=out)
 
 
 def open_memmap_video(path: str, shape, dtype=np.float32, block: int = 64,
@@ -176,11 +190,14 @@ class RawFileVideo(_BlockSource):
     def read_raw(self, start: int, stop: int) -> np.ndarray:
         """Unclamped host read for registration (the native reader clamps
         as it copies, so raw reads go through a memmap of the file)."""
+        return np.asarray(self._raw()[start:stop], dtype=np.float32)
+
+    def _raw(self) -> np.memmap:
         if self._raw_map is None:
             self._raw_map = np.memmap(self.path, dtype=np.float32, mode="r",
                                       shape=(self.num_frames,
                                              self.num_voxels))
-        return np.asarray(self._raw_map[start:stop], dtype=np.float32)
+        return self._raw_map
 
     def _drain(self) -> None:
         """Join a prefetch that no block will collect (an abandoned
@@ -195,7 +212,11 @@ class RawFileVideo(_BlockSource):
             self._reader.prefetch(start, stop)
             self._inflight = (start, stop)
 
-    def _fill(self, start, stop, out):
+    def _fill(self, start, stop, out, voxels):
+        if voxels != slice(0, self.num_voxels):
+            # A run of voxels (a pixel shard) reads through the memmap.
+            np.maximum(self._raw()[start:stop, voxels], 0.0, out=out)
+            return
         if self._inflight == (start, stop):
             self._reader.wait(start, stop, out=out)
             self._inflight = None

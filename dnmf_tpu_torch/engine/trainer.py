@@ -16,8 +16,16 @@ device as it is, not clamped again), or a host-streamed source
 device.  ``runtime.checkpoint_dir`` saves every round
 (:meth:`DeformableNMF.save` / :meth:`~DeformableNMF.restore`),
 ``runtime.profile_dir`` traces the last round with ``torch.profiler``.
-:class:`StaticFootprintNMF` is the static-footprint MU mode.  The mesh
-options raise ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+:class:`StaticFootprintNMF` is the static-footprint MU mode.
+
+``runtime.mesh_time`` / ``mesh_pixel`` (and ``mesh_batch`` beside
+``mesh_time``) shard the fit over the ranks of a process group
+(:mod:`dnmf_tpu_torch.parallel`; start it with
+:func:`~dnmf_tpu_torch.parallel.initialize_distributed` or ``torchrun``):
+every rank builds the same engine, passes the same (whole) video and runs
+the same calls; the engine keeps its rank's shard of the state
+(``engine.state``) and reads its own frames and voxels, and :meth:`fit`
+and :meth:`refine` return the whole state on every rank.
 """
 
 from __future__ import annotations
@@ -28,11 +36,12 @@ import json
 import os
 import time
 import warnings
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from dnmf_tpu_torch import parallel
 from dnmf_tpu_torch.config import ModelConfig, OptimizerConfig, RuntimeConfig
 from dnmf_tpu_torch.models import dnmf as model_lib
 from dnmf_tpu_torch.models import refine as refine_lib
@@ -40,6 +49,7 @@ from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import footprints as fp_ops
 from dnmf_tpu_torch.ops import gram_analytic as ga
 from dnmf_tpu_torch.ops import mu as mu_ops
+from dnmf_tpu_torch.parallel import mesh as mesh_lib
 from dnmf_tpu_torch.utils import checkpoint
 
 
@@ -57,18 +67,53 @@ class FitResult:
         return self.state.beta.detach().cpu().numpy()
 
 
+def _strongest_frame(severity: torch.Tensor, mesh) -> Tuple[int, int]:
+    """``(frame, local index or -1)``: the first frame of the largest
+    severity over the recording (``severity``: this rank's frames), and
+    its index in this rank's frames where the rank owns it."""
+    loc = int(torch.argmax(severity))
+    if mesh is None:
+        return loc, loc
+    t0 = mesh_lib.axis_index(mesh, mesh_lib.TIME_AXIS) * severity.shape[0]
+    best = torch.stack([severity[loc].double(),
+                        torch.tensor(float(t0 + loc), dtype=torch.float64,
+                                     device=severity.device)])
+    cands = [(float(c[0]), -int(c[1])) for c in mesh_lib.all_gather(
+        best, mesh, mesh_lib.TIME_AXIS)]
+    frame = -max(cands)[1]  # ties: the first frame, as argmax takes it
+    own = t0 <= frame < t0 + severity.shape[0]
+    return frame, frame - t0 if own else -1
+
+
 def audit_analytic_gram(state: model_lib.DNMFState, model: ModelConfig,
-                        window=None, use_kernels: bool = False) -> dict:
+                        window=None, use_kernels: bool = False,
+                        mesh=None) -> dict:
     """One-frame exact-vs-closed-form Gram comparison (the trust gate).
 
     Takes the frame whose beta deviates most from the identity warp and
     returns ``{"frame", "rel_err"}`` with ``rel_err = max|G_an - G_exact|
     / max|G_exact|``.  The Gram does not depend on the video, so a zero
-    frame feeds the exact pass.
+    frame feeds the exact pass.  On a mesh ``state`` is the rank's shard:
+    the frame is the recording's strongest, its owner on each time line
+    computes the comparison and a sum over the time axis hands it to the
+    others, so every rank takes the same decision.
     """
     ident = basis_ops.identity_beta(1, device=state.beta.device)[0]
     severity = torch.sum(torch.abs(state.beta - ident), dim=(1, 2))
-    t_idx = int(torch.argmax(severity))
+    t_idx, local = _strongest_frame(severity, mesh)
+    rel = 0.0
+    if local >= 0:
+        rel = _audit_frame(state, model, local, window, use_kernels)
+    if mesh is not None:
+        rel = float(mesh_lib.all_reduce(
+            torch.tensor([rel], dtype=torch.float64, device=state.beta.device),
+            mesh, mesh_lib.TIME_AXIS)[0])
+    return {"frame": t_idx, "rel_err": rel}
+
+
+def _audit_frame(state: model_lib.DNMFState, model: ModelConfig, t_idx: int,
+                 window, use_kernels: bool) -> float:
+    """The audit's relative error at frame ``t_idx`` of ``state``."""
     beta1 = state.beta[t_idx:t_idx + 1]
     state1 = state.replace(beta=beta1, c=state.c[:, :1])
     zeros = torch.zeros((1, model.num_voxels), dtype=torch.float32,
@@ -81,21 +126,14 @@ def audit_analytic_gram(state: model_lib.DNMFState, model: ModelConfig,
     g_an = ga.analytic_grams(beta1, state.pos, state.sigma, model.size,
                              scaling=model.deformation.basis_scaling,
                              window=window)
-    rel = float(torch.max(torch.abs(g_an - g_exact))
-                / torch.clamp_min(torch.max(torch.abs(g_exact)), 1e-30))
-    return {"frame": t_idx, "rel_err": rel}
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+    return float(torch.max(torch.abs(g_an - g_exact))
+                 / torch.clamp_min(torch.max(torch.abs(g_exact)), 1e-30))
 
 
 class DeformableNMF:
     """Alternating optimizer over a device-resident or streamed video.
 
     Usage::
-
         dnmf = DeformableNMF(model_cfg, opt_cfg, positions=pos0)
         result = dnmf.fit(video)   # [T, M, N, Z], [T, P], a dataset or
                                    # a streamed source
@@ -112,6 +150,11 @@ class DeformableNMF:
     plain; ``True`` with either of those raises ``ValueError``.  Parity
     mode draws each epoch's batch order from a ``torch.Generator``
     seeded with ``optimizer.seed``.
+
+    With ``runtime.mesh_time`` or ``mesh_pixel`` the engine is one rank of
+    a sharded fit (module docstring); ``gram_mode="auto"`` then takes the
+    closed form only without a pixel axis (its Gram is the whole
+    volume's, and the pixel shards' sum would count it once per shard).
     """
 
     def __init__(self, model: ModelConfig, optimizer: OptimizerConfig,
@@ -127,6 +170,16 @@ class DeformableNMF:
             model, positions=positions,
             generator=torch.Generator().manual_seed(optimizer.seed),
             device=self.device, beta0=beta0)
+        self._mesh = None
+        rt = self.runtime
+        if rt.mesh_time or rt.mesh_pixel:
+            self._mesh = parallel.make_mesh(num_time=rt.mesh_time or 1,
+                                   num_batch=rt.mesh_batch or 1,
+                                   num_pixel=rt.mesh_pixel or 1)
+            if model.num_frames % (rt.mesh_time or 1):
+                raise ValueError(
+                    "num_frames must divide evenly over mesh_time")
+            self.state = parallel.shard_state(self.state, self._mesh)
         self._batch_gen = torch.Generator().manual_seed(optimizer.seed)
         self.metrics: List[dict] = []
         self._base_sigma = self.state.sigma
@@ -140,9 +193,10 @@ class DeformableNMF:
             model_lib.check_kernels(model, self._use_kernels)
         mode = self.runtime.gram_mode
         if mode == "auto":
-            # The closed form wherever valid (analytic footprints; there
-            # is no pixel mesh on the ported path).
-            analytic = model.deformation.footprint_mode == "analytic"
+            # The closed form wherever valid: analytic footprints, no
+            # pixel axis.
+            analytic = (model.deformation.footprint_mode == "analytic"
+                        and (rt.mesh_pixel or 1) <= 1)
             mode = "analytic" if analytic else "exact"
         elif mode not in ("exact", "analytic"):
             raise ValueError(f"unknown gram_mode: {mode!r} "
@@ -151,11 +205,46 @@ class DeformableNMF:
         self._gram_audited = False
 
     def _check_options(self) -> None:
-        rt, opt = self.runtime, self.opt_config
+        rt, opt, model = self.runtime, self.opt_config, self.model
         if opt.motion_mode not in ("parallel", "parity"):
             raise ValueError(f"unknown motion_mode: {opt.motion_mode!r}")
-        if rt.mesh_time or rt.mesh_batch or rt.mesh_pixel:
-            raise _not_ported("mesh_time/mesh_batch/mesh_pixel", 10)
+        if rt.mesh_batch and not rt.mesh_time:
+            raise ValueError(
+                "mesh_batch partitions recordings, which a single "
+                "DeformableNMF does not have: use "
+                "dnmf_tpu_torch.parallel.batched for multi-recording runs "
+                "(set mesh_time for frame sharding)")
+        if (rt.mesh_time or rt.mesh_pixel) and opt.motion_mode == "parity":
+            raise ValueError(
+                "parity motion mode is batch-serial and bypasses the mesh; "
+                "use motion_mode='parallel' with mesh axes")
+        if rt.mesh_pixel and rt.mesh_pixel > 1:
+            if model.deformation.footprint_mode != "analytic":
+                raise ValueError("mesh_pixel (Gram tensor parallelism) "
+                                 "requires analytic footprints")
+            if model.num_voxels % rt.mesh_pixel:
+                raise ValueError(
+                    "voxel count must divide evenly over mesh_pixel")
+
+    # ------------------------------------------------------------------
+    def _rank0(self) -> bool:
+        """Whether this process writes the files of a fit (every
+        process without a mesh, global rank 0 on one)."""
+        return self._mesh is None or torch.distributed.get_rank() == 0
+
+    def _whole(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """A time-sharded tensor of this engine whole (as it is without a
+        mesh)."""
+        if self._mesh is None:
+            return x
+        return parallel.gather_time(x, self._mesh, dim)
+
+    def full_state(self) -> model_lib.DNMFState:
+        """The whole state: ``state`` itself, or on a mesh the ranks'
+        shards gathered (a collective: every rank calls it)."""
+        if self._mesh is None:
+            return self.state
+        return parallel.gather_state(self.state, self._mesh)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -179,14 +268,16 @@ class DeformableNMF:
         """A dataset's ``frames_flat()`` as it is (the simulated and
         NeuroPAL datasets clamp when they are built); a raw array or
         tensor flattened and clamped (NMF non-negativity), as the JAX
-        package does."""
-        if hasattr(video, "frames_flat"):
-            return torch.as_tensor(video.frames_flat(), dtype=torch.float32,
-                                   device=self.device).contiguous()
-        video = torch.as_tensor(video, dtype=torch.float32, device=self.device)
+        package does.  On a mesh, this rank's frames and voxels only
+        (sliced before they go to the device)."""
+        raw = not hasattr(video, "frames_flat")
+        video = torch.as_tensor(video if raw else video.frames_flat())
         if video.ndim == 4:
             video = video.reshape(video.shape[0], -1)
-        return torch.clamp_min(video, 0.0).contiguous()
+        if self._mesh is not None:
+            video = parallel.shard_video(video, self._mesh)
+        video = video.to(self.device, torch.float32)
+        return (torch.clamp_min(video, 0.0) if raw else video).contiguous()
 
     def _epoch_batches(self):
         """One parity epoch's ``(times, weights)``, ``[num_batches, B]``:
@@ -225,7 +316,8 @@ class DeformableNMF:
             return
         audit = audit_analytic_gram(self.state, self.model,
                                     window=self._gram_window(),
-                                    use_kernels=self._use_kernels)
+                                    use_kernels=self._use_kernels,
+                                    mesh=self._mesh)
         self.metrics.append({"phase": "gram_audit", "tol": tol, **audit})
         if audit["rel_err"] > tol:
             warnings.warn(
@@ -247,20 +339,22 @@ class DeformableNMF:
         epochs = epochs or self.opt_config.motion_epochs
         gamma = self.opt_config.gamma_motion
         last = {}
+        # The sharded steps run on one device where the mesh is None.
+        mesh = self._mesh
         for _ in range(epochs):
             if self._is_streaming(video):
-                self.state, m = model_lib.motion_epoch_streaming(
+                self.state, m = parallel.sharded_motion_epoch_streaming(
                     self.state, video, self.model, self.optimizer, gamma,
-                    use_kernels=self._use_kernels)
+                    mesh, use_kernels=self._use_kernels)
             elif self.opt_config.motion_mode == "parity":
                 times, weights = self._epoch_batches()
                 self.state, m = model_lib.motion_epoch_parity(
                     self.state, video, times, weights, self.model,
                     self.optimizer, gamma)
             else:
-                self.state, m = model_lib.motion_epoch_parallel(
+                self.state, m = parallel.sharded_motion_epoch(
                     self.state, video, self.model, self.optimizer, gamma,
-                    frame_block=self.runtime.frame_block,
+                    mesh, frame_block=self.runtime.frame_block,
                     use_kernels=self._use_kernels)
             last = {k: float(v) for k, v in m.items()}
             self.metrics.append({"phase": "motion", **last})
@@ -275,20 +369,30 @@ class DeformableNMF:
         self._maybe_audit_analytic()
         kw = dict(use_kernels=self._use_kernels, gram_mode=self._gram_mode,
                   gram_window=self._gram_window())
+        mesh = self._mesh  # None: the sharded steps on one device
         if self._is_streaming(video):
-            grams, c1 = model_lib.compute_grams_streaming(
-                self.state, video, self.model, **kw)
+            grams, c1 = parallel.sharded_compute_grams_streaming(
+                self.state, video, self.model, mesh, **kw)
         else:
-            grams, c1 = model_lib.compute_grams(
-                self.state, video, self.model,
+            grams, c1 = parallel.sharded_compute_grams(
+                self.state, video, self.model, mesh,
                 frame_block=self.runtime.frame_block, **kw)
-        self.state = model_lib.footprint_update(
-            self.state, grams, c1, iters=iters,
+        self.state = parallel.sharded_footprint_update(
+            self.state, grams, c1, mesh, iters=iters,
             gamma=self.opt_config.gamma_traces,
             solver=self.opt_config.trace_solver)
-        m = {"phase": "traces", "c_mean": float(torch.mean(self.state.c))}
+        m = {"phase": "traces", "c_mean": self._c_mean()}
         self.metrics.append(m)
         return m
+
+    def _c_mean(self) -> float:
+        """The mean trace value over the recording."""
+        if self._mesh is None:
+            return float(torch.mean(self.state.c))
+        total = mesh_lib.all_reduce(torch.sum(self.state.c).double(),
+                                    self._mesh, mesh_lib.TIME_AXIS)
+        return float(total) / (self.state.c.shape[0]
+                               * self.model.num_frames)
 
     def update_sigma(self, video, steps: Optional[int] = None) -> dict:
         """Fit per-neuron footprint widths on ``sigma_frames`` frames spread
@@ -308,11 +412,14 @@ class DeformableNMF:
             video_sub = torch.from_numpy(np.concatenate(
                 [video.read(int(i), int(i) + 1) for i in idx_np])).to(
                 self.device)
+        elif self._mesh is not None:
+            video_sub = self._gather_frames(video, idx_np)
         else:
             video_sub = video[idx]
+        # On a mesh every rank fits the widths on the same whole frames.
+        beta, c = self._whole(self.state.beta), self._whole(self.state.c, 1)
         sigma, mses = model_lib.sigma_fit(
-            self.state, video_sub, self.state.beta[idx],
-            self.state.c[:, idx].T, self.model,
+            self.state, video_sub, beta[idx], c[:, idx].T, self.model,
             steps=steps or cfg.sigma_steps, lr=cfg.sigma_lr,
             lo=cfg.sigma_bounds[0] * self.model.shape_std,
             hi=cfg.sigma_bounds[1] * self.model.shape_std,
@@ -327,11 +434,32 @@ class DeformableNMF:
         self.metrics.append(m)
         return m
 
+    def _gather_frames(self, video: torch.Tensor,
+                       idx: np.ndarray) -> torch.Tensor:
+        """Whole frames ``idx`` of a sharded video (``video``: this
+        rank's block): each owner's rows summed over the time axis, the
+        pixel shards' runs joined."""
+        sh = mesh_lib.video_sharding(self._mesh)
+        frames = sh.frames(self.model.num_frames)
+        rows = torch.zeros((len(idx), video.shape[1]), dtype=video.dtype,
+                           device=video.device)
+        for j, i in enumerate(idx):
+            if frames.start <= i < frames.stop:
+                rows[j] = video[i - frames.start]
+        rows = mesh_lib.all_reduce(rows, self._mesh, mesh_lib.TIME_AXIS)
+        return torch.cat(mesh_lib.all_gather(rows, self._mesh,
+                                             mesh_lib.PIXEL_AXIS), dim=1)
+
     def _check_finite(self, phase: str) -> None:
         if not self.runtime.check_finite:
             return
         for name, leaf in (("beta", self.state.beta), ("C", self.state.c)):
-            if not bool(torch.all(torch.isfinite(leaf))):
+            bad = torch.logical_not(torch.all(torch.isfinite(leaf)))
+            if self._mesh is not None:  # every rank raises, or none does
+                bad = mesh_lib.all_reduce(
+                    bad.to(torch.float32).reshape(1), self._mesh,
+                    mesh_lib.TIME_AXIS, op=torch.distributed.ReduceOp.MAX)
+            if bool(bad.any()):
                 raise FloatingPointError(
                     f"non-finite {name} after {phase} — check learning "
                     "rate / regularizer weights")
@@ -384,8 +512,10 @@ class DeformableNMF:
                 self._sync()
             if prof is not None:
                 os.makedirs(self.runtime.profile_dir, exist_ok=True)
+                rank = ("" if self._mesh is None else
+                        f".rank{torch.distributed.get_rank()}")
                 prof.export_chrome_trace(os.path.join(
-                    self.runtime.profile_dir, f"round_{r}.trace.json"))
+                    self.runtime.profile_dir, f"round_{r}{rank}.trace.json"))
             entry = {
                 "phase": "round", "round": r,
                 "seconds": time.perf_counter() - t0,
@@ -398,7 +528,7 @@ class DeformableNMF:
                                        f"round_{r}.pt"))
         # End on the base widths even when the anneal covers the last round.
         self.state = self.state.replace(sigma=self._base_sigma)
-        return FitResult(state=self.state, metrics=self.metrics)
+        return FitResult(state=self.full_state(), metrics=self.metrics)
 
     def fit_fused(self, video, rounds: Optional[int] = None) -> FitResult:
         """The alternation as one call of
@@ -409,7 +539,7 @@ class DeformableNMF:
         the whole call) and again after (a witness in the metrics).
         Parity mode, ``fit_sigma`` (its host-side cadence) and streamed
         sources raise ``ValueError``: use :meth:`fit`."""
-        if self._is_streaming(video):
+        if self._mesh is not None or self._is_streaming(video):
             raise ValueError(
                 "fit_fused supports the single-device, device-resident "
                 "path; use fit() for meshes and streamed videos")
@@ -466,7 +596,20 @@ class DeformableNMF:
         positions on ``self.pos_t`` (``[T, K, 3]``, model frame); a later
         call starts from them.  A streamed source runs the alternation
         block by block in one pass over the recording
-        (:func:`dnmf_tpu_torch.models.refine.refined_rounds_streaming`)."""
+        (:func:`dnmf_tpu_torch.models.refine.refined_rounds_streaming`).
+        On a time mesh each rank refines its own frames
+        (:func:`~dnmf_tpu_torch.parallel.sharded_refined_rounds`;
+        ``pos_t`` holds the rank's ``[T_loc, K, 3]``); pixel meshes and
+        streamed sources on a mesh raise ``NotImplementedError``, as in
+        the JAX package."""
+        if self._mesh is not None and (self.runtime.mesh_pixel or 1) > 1:
+            raise NotImplementedError(
+                "position refinement reduces over whole frames: "
+                "unsupported on a pixel-sharded mesh (use mesh_time)")
+        if self._mesh is not None and self._is_streaming(video):
+            raise NotImplementedError(
+                "streamed refinement is single-device (per-frame "
+                "independent: shard the recording across engines instead)")
         video = self._prepare(video)
         self._maybe_audit_analytic()
         t0 = time.perf_counter()
@@ -479,19 +622,22 @@ class DeformableNMF:
             self.state, self.pos_t, m = refine_lib.refined_rounds_streaming(
                 self.state, video, self.model, **kw)
         else:
-            self.state, self.pos_t, m = refine_lib.refined_rounds(
-                self.state, video, self.model,
+            self.state, self.pos_t, m = parallel.sharded_refined_rounds(
+                self.state, video, self.model, self._mesh,
                 frame_block=self.runtime.frame_block, **kw)
         self._check_finite("refine")
         self._sync()
+        recon = torch.atleast_1d(m["recon_mse"])
+        if self._mesh is not None:
+            recon = self._whole(recon)
         self._log({"phase": "refine", "rounds": rounds, "epochs": epochs,
                    "seconds": time.perf_counter() - t0,
-                   "recon_mse": float(torch.mean(m["recon_mse"]))})
-        return FitResult(state=self.state, metrics=self.metrics)
+                   "recon_mse": float(torch.mean(recon))})
+        return FitResult(state=self.full_state(), metrics=self.metrics)
 
     def _log(self, entry: dict) -> None:
         self.metrics.append(entry)
-        if self.runtime.metrics_path:
+        if self.runtime.metrics_path and self._rank0():
             with open(self.runtime.metrics_path, "a") as f:
                 f.write(json.dumps(entry) + "\n")
 
@@ -502,26 +648,39 @@ class DeformableNMF:
         (:mod:`dnmf_tpu_torch.utils.checkpoint`).  A fresh engine that restores it and fits the
         remaining rounds gives the unbroken run's factors, bit for bit;
         its ``fit`` counts the anneal schedule and the width-fitting
-        cadence from its own first round."""
+        cadence from its own first round.  On a mesh (a collective: every
+        rank calls it) rank 0 writes the whole state, and every rank
+        returns once the file is there."""
         extra = {"base_sigma": self._base_sigma,
                  "batch_rng": self._batch_gen.get_state()}
         if self.pos_t is not None:
-            extra["pos_t"] = self.pos_t
-        checkpoint.save_state(path, self.state, **extra)
+            extra["pos_t"] = self._whole(self.pos_t)
+        state = self.full_state()
+        if self._rank0():
+            checkpoint.save_state(path, state, **extra)
+        if self._mesh is not None:
+            torch.distributed.barrier()
 
     def restore(self, path: str) -> None:
-        """Load a checkpoint of :meth:`save` onto the engine's device.  A
-        checkpoint without refined positions clears ``pos_t``: positions
-        refined before the restore belong to the replaced factors."""
+        """Load a checkpoint of :meth:`save` onto the engine's device (on
+        a mesh, this rank's shard of it).  A checkpoint without refined
+        positions clears ``pos_t``: positions refined before the restore
+        belong to the replaced factors."""
         self.state, extra = checkpoint.load_state(path, self.device)
         self.pos_t = extra.get("pos_t")
+        if self._mesh is not None:
+            self.state = parallel.shard_state(self.state, self._mesh)
+            if self.pos_t is not None:
+                self.pos_t = self.pos_t[mesh_lib.video_sharding(
+                    self._mesh).frames(self.model.num_frames)].clone()
         self._base_sigma = extra.get("base_sigma", self.state.sigma)
         if "batch_rng" in extra:
             self._batch_gen.set_state(extra["batch_rng"].cpu())
 
     @property
     def traces(self) -> np.ndarray:
-        return self.state.c.detach().cpu().numpy()
+        """``C [K, T]`` of the whole recording (on a mesh a collective)."""
+        return self._whole(self.state.c, 1).detach().cpu().numpy()
 
     def positions_at(self, frame: int, iters: int = 3) -> np.ndarray:
         """Apparent positions ``warp_t^{-1}(p_k)`` ``[K, 3]`` at one
@@ -533,8 +692,8 @@ class DeformableNMF:
         every frame: ``[T, K, 3]``, by fixed-point iteration.  After
         :meth:`refine`, the refined per-frame positions ``pos_t`` take the
         anchors' place."""
-        beta = self.state.beta
-        pts = (self.pos_t if self.pos_t is not None else
+        beta = self._whole(self.state.beta)
+        pts = (self._whole(self.pos_t) if self.pos_t is not None else
                self.state.pos.expand((beta.shape[0],) + self.state.pos.shape))
         if self.model.deformation.basis_scaling == "normalized":
             p = basis_ops.normalize_points(pts, self.model.size)

@@ -366,9 +366,26 @@ def _blocks(t: int, frame_block: int):
     return [(s, min(s + fb, t)) for s in range(0, t, fb)]
 
 
+def _pixel_local(model: ModelConfig, p_offset, what: str) -> None:
+    """A pixel shard's footprints must be analytic."""
+    if (p_offset is not None
+            and model.deformation.footprint_mode != "analytic"):
+        raise ValueError(f"pixel-sharded {what} require analytic footprints")
+
+
+def _local_basis(model: ModelConfig, video: torch.Tensor, p_offset):
+    """The footprint ops' voxel basis of the frames' voxels: rows
+    ``[p_offset, p_offset + P_loc)`` of the model's (all of it without an
+    offset)."""
+    vb = model_voxel_basis(model, device=video.device)
+    if p_offset is None:
+        return vb
+    return vb[int(p_offset):int(p_offset) + video.shape[1]]
+
+
 def frame_grads_local(state: DNMFState, video: torch.Tensor,
                       model: ModelConfig, gamma: float, frame_block: int,
-                      use_kernels: bool = False):
+                      use_kernels: bool = False, p_offset=None):
     """Per-frame ``(grads [T, 10, 3], mses [T], regs [T])`` of
     ``mse_t + gamma * reg_t``.
 
@@ -378,8 +395,16 @@ def frame_grads_local(state: DNMFState, video: torch.Tensor,
     (its analytic gradient) where :func:`kernels_apply`, else from the
     footprint ops by autograd.  The corner regularizer and its gradient
     are computed for all frames at once.
+
+    A pixel shard (analytic footprints only): ``video [T, P_loc]`` holds
+    the global voxels ``[p_offset, p_offset + P_loc)``; the footprint ops
+    evaluate on the model's basis rows of that range and the fused passes
+    take ``p_offset``.  The data
+    terms are then means over the shard's voxels, whose mean over the
+    shards is the whole volume's.
     """
     check_kernels(model, use_kernels)
+    _pixel_local(model, p_offset, "gradients")
     scaling = model.deformation.basis_scaling
     regs, dregs = jac_ops.corner_regularizer_and_grad(
         state.beta, model.size, model.deformation.detach_regularizer, scaling)
@@ -388,9 +413,10 @@ def frame_grads_local(state: DNMFState, video: torch.Tensor,
 
         def data_term(s, e):
             return motion(state.beta[s:e], state.pos, state.sigma,
-                          state.c[:, s:e].T, video[s:e], model.size, scaling)
+                          state.c[:, s:e].T, video[s:e], model.size, scaling,
+                          p_offset=p_offset)
     else:
-        vb = model_voxel_basis(model, device=video.device)
+        vb = _local_basis(model, video, p_offset)
         stored_a = _maybe_stored_a(state, model)
 
         def data_term(s, e):
@@ -419,7 +445,7 @@ def motion_epoch_parallel(state: DNMFState, video: torch.Tensor,
 def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
                 frame_block: int, use_kernels: bool = False,
                 gram_mode: str = "exact", gram_window: Optional[int] = None,
-                pos_t: Optional[torch.Tensor] = None):
+                pos_t: Optional[torch.Tensor] = None, p_offset=None):
     """Per-frame MU statistics ``(grams [T, K, K], c1 [T, K])``.
 
     ``gram_mode="exact"`` runs the Gram pass; ``"analytic"`` evaluates
@@ -431,10 +457,23 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
     anchors (the tracked passes).  The passes are those of
     :mod:`~dnmf_tpu_torch.ops.fused` where :func:`kernels_apply`, else
     the footprint ops (with the stored volume in resample mode).
+
+    A pixel shard (``p_offset`` as :func:`frame_grads_local`'s,
+    shared anchors, exact Grams): the Grams and c1 are the sums over the
+    shard's voxels, whose sum over the shards is the whole volume's.
     """
     check_kernels(model, use_kernels)
+    _pixel_local(model, p_offset, "Grams")
     if gram_mode not in ("exact", "analytic"):
         raise ValueError(f"unknown gram_mode: {gram_mode!r}")
+    pixel_local = p_offset is not None
+    if gram_mode == "analytic" and pixel_local:
+        raise ValueError(
+            "gram_mode='analytic' computes the whole volume's Gram in closed "
+            "form: pixel-sharded partial sums would count it once per "
+            "shard; use gram_mode='exact' on pixel meshes")
+    if pixel_local and pos_t is not None:
+        raise ValueError("per-frame positions take no voxel range")
     if (gram_mode == "analytic"
             and model.deformation.footprint_mode != "analytic"):
         raise ValueError("gram_mode='analytic' requires analytic footprints")
@@ -445,8 +484,9 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
         c1_fn = fused.c1_block if use_kernels else fused.c1_block_plain
         gram_fn = fused.gram_block if use_kernels else fused.gram_block_plain
     else:
-        vb = model_voxel_basis(model, device=video.device)
+        vb = _local_basis(model, video, p_offset)
         stored_a = _maybe_stored_a(state, model)
+    kw = {} if p_offset is None else {"p_offset": p_offset}
     grams, c1s = [], []
     for s, e in _blocks(video.shape[0], frame_block):
         betas = state.beta[s:e]
@@ -454,7 +494,7 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
         exact = gram_mode == "exact"
         if fast and exact:
             g, c1 = gram_fn(betas, pos, state.sigma, video[s:e], model.size,
-                            scaling)
+                            scaling, **kw)
         elif fast:
             c1 = c1_fn(betas, pos, state.sigma, video[s:e], model.size,
                        scaling)

@@ -175,9 +175,3 @@ def refined_rounds_streaming(state: DNMFState, source, model: ModelConfig,
     return (state.replace(c=c_new), torch.cat(pos_out)[:t],
             {"recon_mse": torch.stack(sse).sum() / t})
 
-
-def sharded_refined_rounds(*args, **kwargs):
-    """Refinement over a time-sharded mesh: not ported yet."""
-    raise NotImplementedError(
-        "sharded_refined_rounds (mesh refinement) is not ported yet "
-        "(ROADMAP Queue 1 item 10)")

@@ -6,12 +6,15 @@ library with a plain C interface, loaded with :mod:`ctypes`; no PyTorch
 headers are involved, so a build takes seconds.  The library goes into
 ``dnmf_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags: editing a source rebuilds it, and an unchanged tree
-reuses the previous build.  Nothing here runs at import time.
+reuses the previous build.  Processes that build at once (the ranks of a
+process group) take turns on a file lock, so one of them runs ``nvcc``
+and the others load its library.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -31,8 +34,8 @@ _I = ctypes.c_int
 # Entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
     "dnmf_c1": [_P] * 8 + [_I] * 11 + [_P],
-    "dnmf_motion": [_P] * 8 + [_I] * 10 + [_P],
-    "dnmf_gram": [_P] * 11 + [_I] * 12 + [_P],
+    "dnmf_motion": [_P] * 8 + [_I] * 12 + [_P],
+    "dnmf_gram": [_P] * 11 + [_I] * 14 + [_P],
     "dnmf_gram_rows": [_P] * 12 + [_I] * 10 + [_P],
     "dnmf_refine": [_P] * 12 + [_I] * 12 + [_P],
     "dnmf_phasecorr": [_P] * 13 + [_I] * 11 + [_P],
@@ -88,6 +91,14 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not out.exists():  # another process may have built it meanwhile
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     cu, _ = _sources()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
@@ -96,8 +107,7 @@ def build() -> Path:
                   for src, obj in zip(cu, objs)])
         tmp = str(Path(tmp_dir) / out.name)
         _run_all([[nvcc, *LINK_FLAGS, "-o", tmp, *objs]])
-        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    return out
+        os.replace(tmp, out)  # atomic: a loader never sees a partial file
 
 
 def load():

@@ -25,6 +25,12 @@ the other.  Each wrapper counts its kernel launches in ``.launches``;
 :func:`launch_counts` also reads the registration kernels' counters
 (:mod:`~dnmf_tpu_torch.ops.phasecorr`, :mod:`~dnmf_tpu_torch.ops.warp`).
 
+``motion_block`` and ``gram_block`` (shared anchors) take a voxel range:
+with ``p_offset``, ``y [B, P_loc]`` holds the global voxels ``[p_offset,
+p_offset + P_loc)`` (a pixel shard of the volume, the JAX package's
+``p_offset``) and the results are over those voxels only: the Gram's
+sums, the motion pass's means over ``P_loc``.
+
 The plain versions stream the pixels in chunks (the footprint tensor
 ``[B, P, K]`` does not fit in memory at whole-brain size), compute in
 the inputs' dtype (float64 inputs give the oracle), and take gradients
@@ -94,18 +100,28 @@ def _footprints(betas, pos, sigma, size, scaling, start, stop):
     return fp_ops.evaluate_footprints(psi, pos, sigma, size=size)
 
 
+def _range_chunks(p_offset, p_loc: int, per_pixel: int):
+    """:func:`_chunks` of the global voxels ``[p_offset, p_offset +
+    p_loc)``: ``(start, stop)`` global, then ``(lo, hi)`` the same columns
+    of the local ``y [B, p_loc]``."""
+    p0 = int(p_offset or 0)
+    for lo, hi in _chunks(p_loc, per_pixel):
+        yield p0 + lo, p0 + hi, lo, hi
+
+
 def motion_block_plain(betas, pos, sigma, c_block, y, size,
-                       scaling: str = "normalized"):
+                       scaling: str = "normalized", p_offset=None):
     """Plain version of :func:`motion_block` (autograd gradient)."""
     bsz, p = y.shape
     sse = torch.zeros(bsz, dtype=betas.dtype, device=betas.device)
     grad = torch.zeros_like(betas)
     with torch.enable_grad():
         b = betas.detach().requires_grad_(True)
-        for start, stop in _chunks(p, bsz * pos.shape[0] * 3):
+        for start, stop, lo, hi in _range_chunks(p_offset, p,
+                                                 bsz * pos.shape[0] * 3):
             a = _footprints(b, pos, sigma, size, scaling, start, stop)
             recon = torch.bmm(a, c_block[:, :, None])[..., 0]
-            r = recon - y[:, start:stop]
+            r = recon - y[:, lo:hi]
             s = torch.sum(r * r, dim=1)
             (g,) = torch.autograd.grad(s.sum(), b)
             sse += s.detach()
@@ -124,17 +140,18 @@ def c1_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized"):
     return c1
 
 
-def gram_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized"):
+def gram_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized",
+                     p_offset=None):
     """Plain version of :func:`gram_block` (``pos [K, 3]`` or
     ``[B, K, 3]``)."""
     bsz, p = y.shape
     k = pos.shape[-2]
     g = torch.zeros((bsz, k, k), dtype=betas.dtype, device=betas.device)
     c1 = torch.zeros((bsz, k), dtype=betas.dtype, device=betas.device)
-    for start, stop in _chunks(p, bsz * k * 3):
+    for start, stop, lo, hi in _range_chunks(p_offset, p, bsz * k * 3):
         a = _footprints(betas, pos, sigma, size, scaling, start, stop)
         g += torch.bmm(a.transpose(1, 2), a)
-        c1 += torch.bmm(y[:, None, start:stop], a)[:, 0]
+        c1 += torch.bmm(y[:, None, lo:hi], a)[:, 0]
     return g, c1
 
 
@@ -287,7 +304,7 @@ def _n_chunks(p: int, tile: int, blocks_per_chunk: int,
     return min(n_tiles, max(1, -(-target // max(blocks_per_chunk, 1))))
 
 
-def _check(name, size, scaling, y, betas, pos, *tensors):
+def _check(name, size, scaling, y, betas, pos, *tensors, p_offset=None):
     dev = y.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
@@ -298,9 +315,15 @@ def _check(name, size, scaling, y, betas, pos, *tensors):
             raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
     if not y.is_contiguous():
         raise ValueError(f"{name}: y must be contiguous")
-    if y.shape[1] != size[0] * size[1] * size[2]:
+    p = size[0] * size[1] * size[2]
+    if p_offset is None and y.shape[1] != p:
         raise ValueError(f"{name}: y has {y.shape[1]} voxels, size "
-                         f"{tuple(size)} has {size[0] * size[1] * size[2]}")
+                         f"{tuple(size)} has {p}")
+    if p_offset is not None and not (
+            0 <= int(p_offset) and 1 <= y.shape[1] <= p - int(p_offset)):
+        raise ValueError(f"{name}: voxels [{p_offset}, {p_offset} + "
+                         f"{y.shape[1]}) do not lie in the {p} of size "
+                         f"{tuple(size)}")
     bsz = y.shape[0]
     if tuple(betas.shape) != (bsz, 10, 3):
         raise ValueError(f"{name}: betas {tuple(betas.shape)} for {bsz} "
@@ -323,70 +346,97 @@ def _stream() -> int:
 
 
 # -------------------------------------------------------------- wrappers
-def brick_groups(size, floats_per_group: int,
-                 budget=None) -> Tuple[int, int]:
+def brick_range(size, p_offset=None, p_count=None) -> Tuple[int, int]:
+    """``(first brick, bricks)`` that the voxel range ``[p_offset,
+    p_offset + p_count)`` meets (the whole volume without a range): a
+    range is a run of m rows, so its bricks are consecutive
+    (csrc/cull.cuh ``make_bricks``)."""
+    m, n, z = (int(s) for s in size)
+    if p_offset is None:
+        return 0, brick_count(size)
+    bm, bn, bz = refine_bricks(size)
+    nbn, nbz = -(-n // bn), -(-z // bz)
+    lo = int(p_offset)
+    im_lo = lo // (n * z) // bm
+    im_hi = (lo + int(p_count) - 1) // (n * z) // bm
+    return im_lo * nbn * nbz, (im_hi - im_lo + 1) * nbn * nbz
+
+
+def brick_groups(size, floats_per_group: int, budget=None,
+                 p_offset=None, p_count=None) -> Tuple[int, int]:
     """``(bricks per group, groups)`` of the brick kernels for a volume
     ``size``: at most ``BRICK_GROUPS`` groups per frame, and at most
     ``budget`` partial floats per frame (default ``P / PART_SHARE``) for
     groups that write ``floats_per_group`` each (32 for the motion kernel,
-    K for c1; :func:`gram_groups`).  The count depends on the volume and K
-    only, so a frame's result does not depend on the other frames of the
-    call."""
+    K for c1; :func:`gram_groups`).  With a voxel range, of the bricks it
+    meets and its ``p_count`` voxels.  The count depends on the volume
+    (and range) and K only, so a frame's result does not depend on the
+    other frames of the call."""
     m, n, z = (int(s) for s in size)
-    n_bricks = brick_count(size)
-    budget = m * n * z // PART_SHARE if budget is None else int(budget)
+    _, n_bricks = brick_range(size, p_offset, p_count)
+    p = m * n * z if p_offset is None else int(p_count)
+    budget = p // PART_SHARE if budget is None else int(budget)
     cap = max(1, min(BRICK_GROUPS, budget // max(1, floats_per_group)))
     per_group = -(-n_bricks // cap)
     return per_group, -(-n_bricks // per_group)
 
 
-def _plain_counts(out, betas, pos, sigma, size, scaling):
+def _plain_counts(out, betas, pos, sigma, size, scaling, p_offset=None,
+                  p_count=None):
     """``out`` with the plain rule's candidate count per brick appended:
     what ``brick_counts=True`` gives on CPU tensors."""
-    counts = brick_candidates_plain(betas, pos, sigma, size, scaling)
+    counts = brick_candidates_plain(betas, pos, sigma, size, scaling,
+                                    p_offset=p_offset, p_count=p_count)
     out = out if isinstance(out, tuple) else (out,)
     return out + (counts.sum(-1).to(torch.int32),)
 
 
-def _counts_out(bsz, size, device, wanted):
+def _counts_out(bsz, n_bricks, device, wanted):
     """``(counts [B, n_bricks] int32 or None, its pointer or None)``."""
     if not wanted:
         return None, None
-    counts = torch.empty((bsz, brick_count(size)), dtype=torch.int32,
-                         device=device)
+    counts = torch.empty((bsz, n_bricks), dtype=torch.int32, device=device)
     return counts, counts.data_ptr()
 
 
 def motion_block(betas, pos, sigma, c_block, y, size,
-                 scaling: str = "normalized", brick_counts: bool = False):
+                 scaling: str = "normalized", brick_counts: bool = False,
+                 p_offset=None):
     """Per-frame ``mse [B]`` and analytic ``dbeta [B, 10, 3]`` for
     ``betas [B, 10, 3]``, ``c_block [B, K]`` and ``y [B, P]``.
 
-    ``brick_counts`` appends the kernel's candidate count of every brick,
-    ``[B, n_bricks]`` int32 (on CPU tensors: from
+    ``p_offset``: ``y [B, P_loc]`` holds the voxels ``[p_offset, p_offset
+    + P_loc)``, and ``mse``, ``dbeta`` are means over them.
+    ``brick_counts`` appends the kernel's candidate count of every brick
+    (of the range), ``[B, n_bricks]`` int32 (on CPU tensors: from
     :func:`brick_candidates_plain`)."""
     if y.device.type == "cpu":
-        out = motion_block_plain(betas, pos, sigma, c_block, y, size, scaling)
-        return (_plain_counts(out, betas, pos, sigma, size, scaling)
-                if brick_counts else out)
-    _check("motion_block", size, scaling, y, betas, pos, sigma, c_block)
+        out = motion_block_plain(betas, pos, sigma, c_block, y, size, scaling,
+                                 p_offset)
+        return (_plain_counts(out, betas, pos, sigma, size, scaling, p_offset,
+                              y.shape[1]) if brick_counts else out)
+    _check("motion_block", size, scaling, y, betas, pos, sigma, c_block,
+           p_offset=p_offset)
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
-    bsz = y.shape[0]
+    bsz, p_loc = y.shape
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
     table, order, rmax = neuron_table(pos[None], sigma)
     c_rows = c_block.index_select(1, order[0])  # the traces in table order
-    per_group, n_groups = brick_groups(size, 32)
+    per_group, n_groups = brick_groups(size, 32, p_offset=p_offset,
+                                       p_count=p_loc)
     partial = torch.empty(bsz * n_groups * 32, dtype=torch.float32,
                           device=y.device)
     out = torch.empty(bsz * 31, dtype=torch.float32, device=y.device)
-    counts, counts_ptr = _counts_out(bsz, size, y.device, brick_counts)
+    counts, counts_ptr = _counts_out(
+        bsz, brick_range(size, p_offset, p_loc)[1], y.device, brick_counts)
     err = lib.dnmf_motion(
         beta_rows.data_ptr(), table.data_ptr(), rmax.data_ptr(),
         c_rows.data_ptr(), y.data_ptr(), partial.data_ptr(), out.data_ptr(),
         counts_ptr, bsz, m, n, z, norm, pos.shape[0],
-        *refine_bricks(size), per_group, _stream())
+        *refine_bricks(size), per_group, int(p_offset or 0), p_loc,
+        _stream())
     _build.check(err, "dnmf_motion")
     motion_block.launches += 1
     res = (out[:bsz], out[bsz:].view(bsz, 10, 3))
@@ -408,7 +458,8 @@ def _c1_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts):
     partial = torch.empty(bsz * n_groups * k, dtype=torch.float32,
                           device=y.device)
     c1 = torch.empty((bsz, k), dtype=torch.float32, device=y.device)
-    counts, counts_ptr = _counts_out(bsz, size, y.device, brick_counts)
+    counts, counts_ptr = _counts_out(bsz, brick_count(size), y.device,
+                                     brick_counts)
     err = lib.dnmf_c1(
         beta_rows.data_ptr(), table.data_ptr(), order.data_ptr(),
         rmax.data_ptr(), y.data_ptr(), partial.data_ptr(), c1.data_ptr(),
@@ -448,42 +499,47 @@ def c1_block_tracked(betas, pos_t, sigma, y, size,
                       scaling, brick_counts)
 
 
-def gram_groups(size, k: int) -> Tuple[int, int]:
+def gram_groups(size, k: int, p_offset=None,
+                p_count=None) -> Tuple[int, int]:
     """``(bricks per group, groups)`` of the Gram kernel for a volume
-    ``size`` and ``k`` neurons: each group keeps the upper triangle of a
-    ``k x k`` partial in table order (``k (k + 1) / 2`` floats, of which it
-    touches only its window of table rows), at most ``GRAM_PART_FLOATS``
-    per frame where a group per frame allows it; the count depends on the
-    volume and K only."""
-    return brick_groups(size, k * (k + 1) // 2, GRAM_PART_FLOATS)
+    ``size`` (the bricks of a voxel range) and ``k`` neurons: each group
+    keeps the upper triangle of a ``k x k`` partial in table order (``k (k
+    + 1) / 2`` floats, of which it touches only its window of table rows),
+    at most ``GRAM_PART_FLOATS`` per frame where a group per frame allows
+    it; the count depends on the volume (and range) and K only."""
+    return brick_groups(size, k * (k + 1) // 2, GRAM_PART_FLOATS, p_offset,
+                        p_count)
 
 
-def gram_splits(size, k: int) -> int:
+def gram_splits(size, k: int, p_offset=None, p_count=None) -> int:
     """Thread blocks per group of the Gram kernel: where the ``K x K``
     partials leave fewer than ``GRAM_SPLIT_BLOCKS`` groups per frame (large
     K), enough splits to make up the difference, at most one per
     ``GRAM_ROWS`` table rows and ``GRAM_SPLITS``.  A split walks the
     group's bricks and takes the pairs whose first row lies in its own
-    blocks of rows.  The count depends on the volume and K only."""
-    _, n_groups = gram_groups(size, k)
+    blocks of rows.  The count depends on the volume (and range) and K
+    only."""
+    _, n_groups = gram_groups(size, k, p_offset, p_count)
     return max(1, min(GRAM_SPLITS, -(-int(k) // GRAM_ROWS),
                       -(-GRAM_SPLIT_BLOCKS // n_groups)))
 
 
 def _gram_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts,
-                 rows=None):
+                 rows=None, p_offset=None):
     """Run csrc/gram.cu for the wrapper ``fn`` on shared anchors ``pos [K,
-    3]`` or per-frame positions ``[B, K, 3]``, from the warp (``betas``) or
-    from precomputed ``rows = (psi, w)``: ``(G [B, K, K], c1 [B, K])`` in
-    the caller's order (and the candidate count per brick)."""
+    3]`` or per-frame positions ``[B, K, 3]``, from the warp (``betas``,
+    over the voxel range of ``p_offset`` and ``y``'s columns) or from
+    precomputed ``rows = (psi, w)``: ``(G [B, K, K], c1 [B, K])`` in the
+    caller's order (and the candidate count per brick)."""
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
     bsz, k = y.shape[0], pos.shape[-2]
+    p_loc = y.shape[1]
     m, n, z = (int(s) for s in size)
     tracked = pos.ndim == 3
     table, order, rmax = neuron_table(pos if tracked else pos[None], sigma)
-    per_group, n_groups = gram_groups(size, k)
+    per_group, n_groups = gram_groups(size, k, p_offset, p_loc)
     f32 = dict(dtype=torch.float32, device=y.device)
     gpart = torch.empty(bsz * n_groups * (k * (k + 1) // 2), **f32)
     cpart = torch.empty(bsz * n_groups * k, **f32)
@@ -491,7 +547,8 @@ def _gram_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts,
                           device=y.device)
     g = torch.empty((bsz, k, k), **f32)
     c1 = torch.empty((bsz, k), **f32)
-    counts, counts_ptr = _counts_out(bsz, size, y.device, brick_counts)
+    counts, counts_ptr = _counts_out(
+        bsz, brick_range(size, p_offset, p_loc)[1], y.device, brick_counts)
     scratch = (table.data_ptr(), order.data_ptr(), rmax.data_ptr(),
                y.data_ptr(), gpart.data_ptr(), cpart.data_ptr(),
                windows.data_ptr(), g.data_ptr(), c1.data_ptr(), counts_ptr)
@@ -499,7 +556,8 @@ def _gram_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts,
         beta_rows, _, _, _, norm = _common(betas, size, scaling)
         err = lib.dnmf_gram(beta_rows.data_ptr(), *scratch, bsz, m, n, z,
                             norm, k, int(tracked), *refine_bricks(size),
-                            per_group, gram_splits(size, k), _stream())
+                            per_group, gram_splits(size, k, p_offset, p_loc),
+                            int(p_offset or 0), p_loc, _stream())
         _build.check(err, "dnmf_gram")
     else:
         psi, w = rows
@@ -513,9 +571,13 @@ def _gram_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts,
 
 def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized",
                psi_source: str = "kernel", rows=None,
-               brick_counts: bool = False):
+               brick_counts: bool = False, p_offset=None):
     """``(G [B, K, K], c1 [B, K])`` for ``betas [B, 10, 3]``, ``y [B, P]``;
     ``pos [B, K, 3]`` goes to :func:`gram_block_tracked`.
+
+    ``p_offset`` (shared anchors, ``psi_source="kernel"``): ``y [B, P_loc]``
+    holds the voxels ``[p_offset, p_offset + P_loc)``, and ``G``, ``c1``
+    are the sums over them.
 
     ``psi_source="stream"`` computes the deformed coordinates and fades
     outside the kernel (:func:`psi_rows`, or ``rows = (psi [B, P, 3], w
@@ -526,6 +588,10 @@ def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized",
     sums the ``n (n + 1) / 2`` pairs of its ``n`` candidates
     (:func:`gram_block_bricks_plain`).
     """
+    if p_offset is not None and (psi_source != "kernel" or pos.ndim == 3):
+        raise ValueError(
+            "p_offset takes shared anchors and psi_source='kernel' (the rows "
+            "and per-frame-position variants sum over the whole volume)")
     if psi_source == "stream":
         if pos.ndim == 3:
             raise ValueError("psi_source='stream' takes shared anchors "
@@ -538,12 +604,13 @@ def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized",
         return gram_block_tracked(betas, pos, sigma, y, size, scaling,
                                   brick_counts)
     if y.device.type == "cpu":
-        out = gram_block_plain(betas, pos, sigma, y, size, scaling)
-        return (_plain_counts(out, betas, pos, sigma, size, scaling)
-                if brick_counts else out)
-    _check("gram_block", size, scaling, y, betas, pos, sigma)
+        out = gram_block_plain(betas, pos, sigma, y, size, scaling, p_offset)
+        return (_plain_counts(out, betas, pos, sigma, size, scaling, p_offset,
+                              y.shape[1]) if brick_counts else out)
+    _check("gram_block", size, scaling, y, betas, pos, sigma,
+           p_offset=p_offset)
     return _gram_launch(gram_block, betas, pos, sigma, y, size, scaling,
-                        brick_counts)
+                        brick_counts, p_offset=p_offset)
 
 
 def gram_block_rows(psi, w, pos, sigma, y, size,
@@ -622,7 +689,8 @@ def brick_ids(size, device=None) -> Tuple[torch.Tensor, int]:
 
 def brick_candidates_plain(betas, pos, sigma, size,
                            scaling: str = "normalized",
-                           psi=None) -> torch.Tensor:
+                           psi=None, p_offset=None,
+                           p_count=None) -> torch.Tensor:
     """The brick kernels' culling rule in plain torch: ``[B, n_bricks,
     K]``, True where neuron k's per-axis box ``pos[k] +- 6 sigma_k`` meets
     the exact per-axis range of frame b's deformed coordinates over the
@@ -630,8 +698,15 @@ def brick_candidates_plain(betas, pos, sigma, size,
     per-frame positions ``pos [B, K, 3]``.  Any other neuron's footprint
     is below ``exp(-36)`` at every voxel of the brick.  ``psi [B, P, 3]``
     gives the deformed coordinates in place of ``betas``' warp (the Gram
-    from rows)."""
+    from rows).  With a voxel range ``[p_offset, p_offset + p_count)``: the
+    bricks that it meets (:func:`brick_range`), each over its voxels in the
+    range (a brick with none has no candidates)."""
     ids, nb = brick_ids(size, pos.device)
+    if p_offset is not None:
+        first, nb = brick_range(size, p_offset, p_count)
+        lo, hi = int(p_offset), int(p_offset) + int(p_count)
+        ids = ids[lo:hi] - first
+        psi = _warped(betas, size, scaling, lo, hi)
     if psi is None:
         psi = _warped(betas, size, scaling, 0, ids.numel())  # [B, P, 3]
     bsz = psi.shape[0]

@@ -24,23 +24,33 @@ def mu_grams(a_t: torch.Tensor,
     return a_t.T @ a_t, a_t.T @ y_t
 
 
-def _neighbor_sum(c: torch.Tensor) -> torch.Tensor:
-    """Edge-replicated +-1-frame neighbor sum along the time axis."""
-    left = torch.cat([c[:, :1], c[:, :-1]], dim=1)
-    right = torch.cat([c[:, 1:], c[:, -1:]], dim=1)
+def _neighbor_sum(c: torch.Tensor, halo=None) -> torch.Tensor:
+    """+-1-frame neighbor sum along the time axis: edge-replicated, or
+    with ``halo = (left_col, right_col)`` (each ``[K]``) the columns just
+    outside ``c``'s frames (a time shard's neighbours)."""
+    if halo is None:
+        left_col, right_col = c[:, 0], c[:, -1]
+    else:
+        left_col, right_col = halo
+    left = torch.cat([left_col[:, None], c[:, :-1]], dim=1)
+    right = torch.cat([c[:, 1:], right_col[:, None]], dim=1)
     return left + right
 
 
 def mu_temporal_step(c: torch.Tensor, grams: torch.Tensor, c1: torch.Tensor,
-                     gamma: Optional[float] = None) -> torch.Tensor:
+                     gamma: Optional[float] = None,
+                     halo: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                     ) -> torch.Tensor:
     """One multiplicative update of ``c [K, T]`` given ``grams
     [T, K, K]`` and ``c1 [T, K]``; ``gamma`` weights the temporal
-    smoothing (None or 0 disables it)."""
+    smoothing (None or 0 disables it).  ``halo`` (a time shard): the
+    neighbouring shards' edge columns ``(left_col, right_col)``, used in
+    place of edge replication."""
     c2 = torch.einsum("tkl,lt->kt", grams, c)
     num = c1.T
     den = c2
     if gamma is not None and gamma != 0.0:
-        num = num + gamma * _neighbor_sum(c)
+        num = num + gamma * _neighbor_sum(c, halo)
         den = den + 2.0 * gamma * c
     return c * num / (den + EPS)
 
@@ -73,17 +83,23 @@ def gram_lipschitz(grams: torch.Tensor, gamma: Optional[float] = None,
 
 def nnls_temporal(c: torch.Tensor, grams: torch.Tensor, c1: torch.Tensor,
                   iters: int, gamma: Optional[float] = None,
-                  lipschitz: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  lipschitz: Optional[torch.Tensor] = None,
+                  halo_fn=None) -> torch.Tensor:
     """FISTA (accelerated projected gradient) on the convex trace
     subproblem ``sum_t (1/2 c_t^T G_t c_t - c1_t^T c_t)`` (+ smoothing)
-    over ``C >= 0`` — the objective the multiplicative rule descends."""
+    over ``C >= 0`` — the objective the multiplicative rule descends.
+
+    ``halo_fn`` (a time shard): given the iterate ``[K, T_loc]``, the
+    neighbouring shards' edge columns (:func:`mu_temporal_step`'s
+    ``halo``); ``lipschitz`` is then the whole recording's constant."""
     lv = lipschitz if lipschitz is not None else gram_lipschitz(grams, gamma)
     inv_l = 1.0 / lv
 
     def grad(x):
         g = torch.einsum("tkl,lt->kt", grams, x) - c1.T
         if gamma is not None and gamma != 0.0:
-            g = g + gamma * (2.0 * x - _neighbor_sum(x))
+            halo = halo_fn(x) if halo_fn is not None else None
+            g = g + gamma * (2.0 * x - _neighbor_sum(x, halo))
         return g
 
     c_prev, y_c = c, c

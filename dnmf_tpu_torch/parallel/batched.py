@@ -1,0 +1,87 @@
+"""Several recordings demixed together (one state per recording).
+
+Counterpart of ``dnmf_tpu/parallel/batched.py``.  The JAX package stacks
+the recordings' states along a leading axis and ``vmap``s the round; here
+the states stack the same way (:func:`stack_states`) and
+:func:`batched_round` loops over the recordings: each kernel launch is
+one recording's, since each has its own positions.  On a mesh with a
+``batch`` axis the recordings split over it: each rank runs its own run
+of them and one ``all_gather`` over the axis gives every rank all the
+results.  All recordings share (size, K, T).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from dnmf_tpu_torch.config import ModelConfig
+from dnmf_tpu_torch.models import dnmf as model_lib
+from dnmf_tpu_torch.parallel.mesh import (BATCH_AXIS, all_gather, axis_index,
+                                          axis_size)
+
+
+def stack_states(states) -> model_lib.DNMFState:
+    """Per-recording states stacked into one state with a leading
+    recordings axis on every field."""
+    return model_lib.DNMFState(**{
+        name: torch.stack([getattr(s, name) for s in states])
+        for name in model_lib.STATE_FIELDS})
+
+
+def unstack_states(batched: model_lib.DNMFState):
+    """A stacked state split back into per-recording states."""
+    return [model_lib.DNMFState(**{name: getattr(batched, name)[i]
+                                   for name in model_lib.STATE_FIELDS})
+            for i in range(batched.beta.shape[0])]
+
+
+def batched_round(states: model_lib.DNMFState, videos: torch.Tensor,
+                  model: ModelConfig, optimizer: model_lib.Adam, gamma: float,
+                  mu_iters: int, mu_gamma: float = 0.0, frame_block: int = 8,
+                  use_kernels: bool = False, gram_mode: str = "exact",
+                  gram_window=None, mesh=None
+                  ) -> Tuple[model_lib.DNMFState, dict]:
+    """One alternation round (a motion epoch, the Grams, ``mu_iters``
+    trace updates) of every recording.
+
+    Args:
+      states: stacked state (leading recordings axis on every field).
+      videos: ``[R, T, P]`` flattened frames.
+      mesh: with a ``batch`` axis of ``nb`` ranks, ``R / nb`` recordings
+        per rank, the results gathered on every rank.
+
+    Returns:
+      The stacked updated states and the per-recording metrics ``[R]``.
+    """
+    r = videos.shape[0]
+    nb, ib = axis_size(mesh, BATCH_AXIS), axis_index(mesh, BATCH_AXIS)
+    if r % nb:
+        raise ValueError(f"{r} recordings must divide evenly over mesh "
+                         f"batch={nb}")
+    per = r // nb
+    out, mses, regs = [], [], []
+    for i in range(ib * per, (ib + 1) * per):
+        state = model_lib.DNMFState(**{
+            name: getattr(states, name)[i] for name in model_lib.STATE_FIELDS})
+        state, m = model_lib.motion_epoch_parallel(
+            state, videos[i], model, optimizer, gamma, frame_block,
+            use_kernels)
+        grams, c1 = model_lib.compute_grams(
+            state, videos[i], model, frame_block, use_kernels, gram_mode,
+            gram_window)
+        out.append(model_lib.footprint_update(state, grams, c1, mu_iters,
+                                              mu_gamma))
+        mses.append(m["recon_mse"])
+        regs.append(m["reg"])
+    local = stack_states(out)
+    metrics = {"recon_mse": torch.stack(mses), "reg": torch.stack(regs)}
+    if nb > 1:
+        local = model_lib.DNMFState(**{
+            name: torch.cat(all_gather(getattr(local, name), mesh,
+                                       BATCH_AXIS))
+            for name in model_lib.STATE_FIELDS})
+        metrics = {k: torch.cat(all_gather(v, mesh, BATCH_AXIS))
+                   for k, v in metrics.items()}
+    return local, metrics

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (motion, c1, Gram, refine; c1 and Gram also at
 per-frame positions; the Gram from precomputed coordinate rows, C4;
 phase correlation F and the fused warp G) against their plain PyTorch
-versions on the card, and the streamed pipeline on the card.  The brick
+versions on the card, and the streamed pipeline on the card.  The motion
+and Gram kernels also over voxel ranges (pixel shards).  The brick
 kernels (motion, c1, Gram, refine) also at odd shapes, at K = 6000 and
 20000 crowding a small volume, repeated bit for bit, frame for frame
 alone or inside a 16-frame call, and with their candidate counts held to
@@ -91,6 +92,49 @@ def test_kernels_match_float64(dev, shape, scaling):
         "refine_block": 0, "c1_block_tracked": 0, "gram_block_tracked": 0,
         "gram_block_rows": 0,
         "phase_corr_block": 0, "fused_separable_warp": 0}
+
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("npix", [3, 5])
+def test_voxel_range_kernels_match_float64(dev, shape, npix):
+    """Kernels A and C over voxel ranges (pixel shards, unequal when
+    ``npix`` does not divide P, cutting rows of m mid-row) against the
+    plain versions over the same range in float64; the Grams summed over
+    the shards, and A's means weighted by the shards' voxels, against the
+    whole volume's; the candidate counts are the plain rule's over the
+    bricks of the range."""
+    size, k = SHAPES[shape]
+    betas, pos, sigma, c, y = _inputs(size, k, dev)
+    d = [t.double() for t in (betas, pos, sigma, c, y)]
+    p = y.shape[1]
+    g_sum = c1_sum = mse_sum = db_sum = 0.0
+    for i in range(npix):
+        lo, hi = i * p // npix, (i + 1) * p // npix
+        ys = y[:, lo:hi].contiguous()
+        mse, db, cnt = fused.motion_block(betas, pos, sigma, c, ys, size,
+                                          brick_counts=True, p_offset=lo)
+        mse_o, db_o = fused.motion_block_plain(*d[:4], d[4][:, lo:hi], size,
+                                               p_offset=lo)
+        g, c1g, gcnt = fused.gram_block(betas, pos, sigma, ys, size,
+                                        brick_counts=True, p_offset=lo)
+        g_o, c1_o = fused.gram_block_plain(d[0], d[1], d[2], d[4][:, lo:hi],
+                                           size, p_offset=lo)
+        mask = fused.brick_candidates_plain(betas, pos, sigma, size,
+                                            p_offset=lo, p_count=hi - lo)
+        torch.cuda.synchronize()
+        for got, ref in ((mse, mse_o), (db, db_o), (g, g_o), (c1g, c1_o)):
+            assert rel_err(got, ref) <= 1e-4
+        assert torch.equal(cnt, mask.sum(-1).to(torch.int32))
+        assert torch.equal(gcnt, cnt)
+        g_sum, c1_sum = g_sum + g.double(), c1_sum + c1g.double()
+        mse_sum = mse_sum + mse.double() * (hi - lo) / p
+        db_sum = db_sum + db.double() * (hi - lo) / p
+    g_o, c1_o = fused.gram_block_plain(d[0], d[1], d[2], d[4], size)
+    mse_o, db_o = fused.motion_block_plain(*d, size)
+    for got, ref in ((g_sum, g_o), (c1_sum, c1_o), (mse_sum, mse_o),
+                     (db_sum, db_o)):
+        assert rel_err(got, ref) <= 1e-4
 
 
 def test_anisotropic_widths(dev):

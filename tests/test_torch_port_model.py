@@ -251,8 +251,12 @@ def test_check_finite_raises(rng):
     ({}, {}, dict(mask_out_of_bounds=False), 11),
 ])
 def test_outside_the_slice_raises(opt, rt, model, item, tmp_path):
-    """The mesh options (ROADMAP item 10) raise; item 11's options are
-    ported, and the engine takes them."""
+    """The mesh options (ROADMAP item 10) keep the JAX package's guards:
+    ``mesh_batch`` alone raises ``ValueError`` (a single engine has no
+    recordings to split), and ``mesh_time``/``mesh_pixel`` need a process
+    group, whose absence raises a ``RuntimeError`` that names
+    ``initialize_distributed``; item 11's options are ported, and the
+    engine takes them."""
     m = tcfg.ModelConfig(size=SIZE, num_neurons=K, num_frames=T,
                          deformation=tcfg.DeformationConfig(**model))
     rt = {k: str(tmp_path / v) if k.endswith("_dir") else v
@@ -262,8 +266,11 @@ def test_outside_the_slice_raises(opt, rt, model, item, tmp_path):
         return ttr.DeformableNMF(m, tcfg.OptimizerConfig(**opt),
                                  tcfg.RuntimeConfig(**rt), device="cpu")
 
-    if item == 10:
-        with pytest.raises(NotImplementedError, match="item 10"):
+    if item == 10 and "mesh_batch" in rt:
+        with pytest.raises(ValueError, match="mesh_batch partitions"):
+            make()
+    elif item == 10:
+        with pytest.raises(RuntimeError, match="initialize_distributed"):
             make()
     else:
         assert not make()._use_kernels

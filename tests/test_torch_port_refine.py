@@ -29,6 +29,7 @@ from dnmf_tpu.ops import basis as jB
 from dnmf_tpu.ops import gram_analytic as jGA
 from dnmf_tpu.ops import pallas_culled as pc
 from dnmf_tpu_torch import config as tcfg
+from dnmf_tpu_torch import parallel as tparallel
 from dnmf_tpu_torch.engine import trainer as ttr
 from dnmf_tpu_torch.models import dnmf as tM
 from dnmf_tpu_torch.models import refine as tR
@@ -434,8 +435,14 @@ def test_streamed_and_sharded_refine_raise(rng):
         tt.refine(Streamed())
     # Datasets feed refine (tests/test_torch_port_datasets.py).
     tt.refine(Dataset(), rounds=1, epochs=1, mu_iters=1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tR.sharded_refined_rounds(tt.state, video, tt.model, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # Mesh refinement needs a process group (the sharded runs are held
+    # against JAX in tests/test_torch_port_parallel.py); parity mode
+    # refuses a mesh before it looks for one.
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
+        tparallel.make_mesh(num_time=2)
+    with pytest.raises(RuntimeError, match="initialize_distributed"):
         ttr.DeformableNMF(tt.model, tcfg.OptimizerConfig(),
+                          tcfg.RuntimeConfig(mesh_time=2), device="cpu")
+    with pytest.raises(ValueError, match="parity motion mode"):
+        ttr.DeformableNMF(tt.model, tcfg.OptimizerConfig(motion_mode="parity"),
                           tcfg.RuntimeConfig(mesh_time=2), device="cpu")
