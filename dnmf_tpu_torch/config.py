@@ -100,7 +100,10 @@ class RuntimeConfig:
 
     # Frames per kernel launch in the motion and Gram passes.
     frame_block: int = 8
-    # Mesh axis sizes (not ported yet: None is the only accepted value).
+    # Mesh axis sizes; None => single device.  mesh_time (frames) and
+    # mesh_pixel (voxels; analytic footprints) shard the fit over the
+    # process group of :mod:`dnmf_tpu_torch.parallel`; mesh_batch sizes
+    # the mesh's batch axis beside them.
     mesh_time: Optional[int] = None
     mesh_batch: Optional[int] = None
     mesh_pixel: Optional[int] = None
@@ -110,10 +113,11 @@ class RuntimeConfig:
     # the plain versions everywhere; True raises for resampled or unfaded
     # footprints, whose function the kernels do not compute.
     use_kernels: Optional[bool] = None
-    # MU Gram computation: "auto" (closed form wherever valid, guarded
-    # by the per-fit trust audit), "exact" (the O(P K^2) pixel
-    # reduction) or "analytic" (closed form, O(K^2); only the c1 video
-    # pass remains).
+    # MU Gram computation: "auto" (closed form wherever valid: analytic
+    # footprints and no pixel mesh; guarded by the per-fit trust audit),
+    # "exact" (the O(P K^2) pixel reduction; the only mode on pixel
+    # meshes) or "analytic" (closed form, O(K^2); only the c1 video pass
+    # remains; not on pixel meshes).
     gram_mode: str = "auto"
     # Trust gate for analytic Grams: the strongest-warp frame's exact
     # Gram is compared with the closed form once per fit; a larger max

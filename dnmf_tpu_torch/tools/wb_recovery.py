@@ -189,12 +189,14 @@ def warp_error_px(beta_a: torch.Tensor, beta_b: torch.Tensor,
 
 
 def recovery_fixture(size, k: int, t: int, sigma_aniso: bool = False,
-                     seed: int = 0, device="cuda") -> dict:
+                     seed: int = 0, device="cuda",
+                     sigma_spread: float = 0.0) -> dict:
     """The ground-truth recording of :func:`seeded_recovery`, drawn from
     ``torch.Generator(device).manual_seed(seed)``: interior positions,
     widths (``shape_std`` 3; per axis with ``sigma_aniso``,
     ``shape_std * U(1 - SIGMA_SPREAD, 1 + SIGMA_SPREAD)`` and z times
-    0.6), then :func:`synthesize`."""
+    0.6; else, with ``sigma_spread > 0``, one width per neuron, ``shape_std
+    * U(1 - sigma_spread, 1 + sigma_spread)``), then :func:`synthesize`."""
     size = tuple(int(s) for s in size)
     gen = torch.Generator(torch.device(device)).manual_seed(seed)
     shape_std = 3.0
@@ -203,6 +205,9 @@ def recovery_fixture(size, k: int, t: int, sigma_aniso: bool = False,
         sigma_gt = shape_std * (1.0 + SIGMA_SPREAD * (
             2.0 * _uniform(gen, (k, 3), device) - 1.0))
         sigma_gt[:, 2] *= 0.6  # z-flattened cells
+    elif sigma_spread > 0.0:
+        sigma_gt = shape_std * (1.0 + sigma_spread * (
+            2.0 * _uniform(gen, (k,), device) - 1.0))
     else:
         sigma_gt = torch.full((k,), shape_std, device=device)
     model = ModelConfig(size=size, num_neurons=k, num_frames=t,
@@ -262,7 +267,8 @@ def recover(fixture: dict, rounds: int, epochs: int, mu_iters: int,
             sigma_steps: int = 2, sigma_frames: int = 8,
             use_kernels: Optional[bool] = None,
             beta0: Optional[torch.Tensor] = None,
-            state: Optional[model_lib.DNMFState] = None) -> dict:
+            state: Optional[model_lib.DNMFState] = None,
+            gram_mode: str = "analytic") -> dict:
     """The fit half of :func:`seeded_recovery` on a fixture (the dict of
     :func:`recovery_fixture`: ``size``, ``video [T, P]``, ``c_gt``,
     ``pos_gt``, ``betas_gt``, ``sigma_gt``, ``sigma_aniso``, ``seed``).
@@ -270,12 +276,13 @@ def recover(fixture: dict, rounds: int, epochs: int, mu_iters: int,
     Registration seeds the warps (:func:`registration_seed`; ``beta0``
     replaces it), the state starts from :func:`initial_state` (``state``
     replaces it), then ``rounds`` x (``epochs`` motion epochs, with
-    ``fit_sigma`` a width fit every ``sigma_every``-th round, the
-    analytic Grams and ``mu_iters`` MU iterations).  ``use_kernels``
+    ``fit_sigma`` a width fit every ``sigma_every``-th round, the Grams
+    of ``gram_mode`` and ``mu_iters`` MU iterations).  ``use_kernels``
     defaults to whether the video is on the card.
 
     Returns ``reg_s``, ``corr`` (per neuron), ``warp_err_px``,
-    ``round_s_steady`` (median of the rounds after the first),
+    ``round_s_steady`` (median of the rounds after the first), ``round_s``
+    (every round's seconds),
     ``sigma_err`` (mean ``|sigma - sigma_gt|``, px; an isotropic fit on
     per-axis truth is held against every axis), ``shifts`` (None when
     ``beta0`` is given), ``state``, ``model`` and ``gram_window``.
@@ -323,7 +330,7 @@ def recover(fixture: dict, rounds: int, epochs: int, mu_iters: int,
             state = state.replace(sigma=sigma)
         grams, c1 = model_lib.compute_grams(
             state, video, model, frame_block=frame_block,
-            use_kernels=use_kernels, gram_mode="analytic",
+            use_kernels=use_kernels, gram_mode=gram_mode,
             gram_window=gram_window)
         state = model_lib.footprint_update(state, grams, c1, iters=mu_iters)
         _sync(dev)
@@ -339,6 +346,7 @@ def recover(fixture: dict, rounds: int, epochs: int, mu_iters: int,
         "warp_err_px": warp_error_px(state.beta, fixture["betas_gt"],
                                      pos_gt, model),
         "round_s_steady": steady,
+        "round_s": round_times,
         "sigma_err": float(torch.mean(torch.abs(sigma - sigma_gt))),
         "shifts": shifts,
         "state": state,
