@@ -12,7 +12,9 @@ frames), and of the Gram kernel (C at shared anchors, E at per-frame
 positions, C4 from rows), the motion kernel A, the c1 kernel B (shared
 anchors and per-frame positions) and the refine kernel D (with and
 without dsigma) at the whole-brain shape with 2 and 16 frames, each
-beside its time per call and the host's share of it, and stops.
+beside its time per call and the host's share of it, then by kernel
+name of phase 29's round of 8 whole-brain recordings, batched and as
+the loop of single-recording rounds, and stops.
 
 Phases, each of which exits non-zero on failure:
 
@@ -168,10 +170,26 @@ Phases, each of which exits non-zero on failure:
    schedule with one warm-up and one timed repetition, each printing its
    JSON line: no section may err, launch none of the kernels its path
    should launch or miss a gate (``factors_match``, the pipeline
-   witness's trace corr mean >= 0.9).
+   witness's trace corr mean >= 0.9);
+29. batched recordings at full width: ``BATCH_RECORDINGS`` seeded
+   recordings of 512x512x20, K=200, T=64 (``bench.demix_fixture(seed +
+   i, ...)`` as ``config_runs --config5`` draws them; each recording's
+   widths scaled by its own seeded factor within +-10%) demixed together
+   by ``parallel.batched_round``, frame block 8.  The motion, c1 and Gram
+   kernels over every recording's first frame block, one launch each,
+   equal per recording, bit for bit, the same kernel launched on that
+   recording alone, and one frame of each recording lies within
+   ``KERNEL_TOL`` of the plain version in float64; two rounds with exact
+   Grams and one with closed-form Grams against the loop of
+   single-recording rounds (beta within rtol 1e-5 / atol 1e-7, C within
+   rtol 1e-4 / atol 1e-6); per round the launch counters show the motion
+   kernel and the Gram (exact) or c1 (closed form) kernel launched once
+   per frame block for all recordings; the batched round's seconds
+   beside the loop's, and the peak device memory.
 
 Every phase prints its seconds with the card's name and power limit.
-The last two lines are a JSON object of per-kernel results and
+The last two lines are a JSON object of per-kernel results (the motion,
+c1 and Gram kernels' errors and launches take in phase 29's) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -203,7 +221,7 @@ from dnmf_tpu_torch.tools import wb_recovery
 from dnmf_tpu_torch.tools.kernel_check import (
     BENCH_PW, KERNEL_TOL, PIPE_REG, REG_BLOCK, REG_NOISE, REG_SHAPES, SEED,
     SHAPES, KernelCheckError, active_pairs, bound, footprint_flops,
-    kernel_inputs, kernel_phase, nbytes, registration_inputs,
+    host_seconds, kernel_inputs, kernel_phase, nbytes, registration_inputs,
     registration_kernel_phase, rel_err, rows_kernel_phase, say, textured,
     time_ms, tracked_kernel_phase, warp_shifts)
 
@@ -576,7 +594,9 @@ def profile_kernels(dev):
     per-frame positions) and D (refine, with and without dsigma) at the
     whole-brain shape with 2 and 16 frames (16: the pipeline's frame
     block), after one serial Adam step of the parity epoch at the ROI
-    shape (plain PyTorch): ``python3 chip_smoke.py --profile``."""
+    shape (plain PyTorch), and last of phase 29's round, batched and as
+    the loop of single-recording rounds: ``python3 chip_smoke.py
+    --profile``."""
     roi, _ = tcfg.baseline_workload("roi")
     model = tcfg.ModelConfig(size=roi.size, num_neurons=roi.num_neurons,
                              num_frames=PARITY_FRAMES,
@@ -646,6 +666,21 @@ def profile_kernels(dev):
     ms = time_ms(lambda: fused.gram_block(betas, pos, sigma, y, size), 1)
     say(f"profile C crowded ({size}, K={k}, 2 frames): {ms:.4f} ms per call "
         "(CUDA events)")
+    # Phase 29's round of 8 whole-brain recordings, batched and as the loop
+    # of single-recording rounds.
+    del betas, pos, sigma, y
+    model, states, batched, videos = batched_inputs(dev)
+    run_batched, single = batched_runs(model)
+    for mode in ("exact", "analytic"):
+        device_breakdown(
+            f"batched round {mode} ({BATCH_RECORDINGS} recordings)",
+            lambda: run_batched(batched, videos, mode), reps=3,
+            each_launch=False)
+        device_breakdown(
+            f"loop of {BATCH_RECORDINGS} single rounds {mode}",
+            lambda: [single(st, videos[r], mode)
+                     for r, st in enumerate(states)], reps=3,
+            each_launch=False)
 
 
 
@@ -2102,6 +2137,188 @@ def bench_phase():
              "line's gates_failed)")
 
 
+BATCH_RECORDINGS = 8  # recordings of phase 29
+BATCH_FRAMES = 64  # frames per recording
+BATCH_BLOCK = 8  # frame block of the batched round
+BATCH_SIGMA_SPREAD = 0.1  # each recording's widths within +-10% of 3 px
+BATCH_TOL = {"beta": (1e-5, 1e-7), "c": (1e-4, 1e-6)}  # rtol, atol
+BATCH_KERNELS = ("motion_block", "c1_block", "gram_block")
+
+
+def batched_inputs(dev):
+    """The recordings of phase 29: a stacked state and videos ``[R, T,
+    P]``, their model and the per-recording states."""
+    from dnmf_tpu_torch.parallel import stack_states
+    from dnmf_tpu_torch.tools import bench
+
+    wb, _ = tcfg.baseline_workload("whole_brain")
+    size, k = wb.size, wb.num_neurons
+    gen = torch.Generator().manual_seed(SEED)
+    states = []
+    videos = torch.empty((BATCH_RECORDINGS, BATCH_FRAMES,
+                          size[0] * size[1] * size[2]), device=dev)
+    for i in range(BATCH_RECORDINGS):
+        fx = bench.demix_fixture(SEED + i, dev, size, k, BATCH_FRAMES, 10.0)
+        scale = 1.0 + BATCH_SIGMA_SPREAD * (2.0 * torch.rand(
+            (), generator=gen).item() - 1.0)
+        states.append(fx["state"].replace(sigma=fx["state"].sigma * scale))
+        videos[i] = fx.pop("video")
+    return fx["model"], states, stack_states(states), videos
+
+
+def batched_kernels(dev, states, batched, videos, size):
+    """Phase 29's kernel checks on the first frame block: one batched
+    launch each of A, B and C, per recording bit-equal to the kernel
+    launched on that recording, and frame ``r % BATCH_BLOCK`` of recording
+    r within ``KERNEL_TOL`` of the float64 plain version.  Returns the
+    kernels-line entries and the times (batched, per-recording sum)."""
+    blk = slice(0, BATCH_BLOCK)
+    betas, y = batched.beta[:, blk], videos[:, blk]  # y: a strided view
+    c_blk = batched.c[..., blk].transpose(-1, -2)
+
+    def args(kn, r=None, dt=None, sl=slice(None)):
+        if r is None:
+            a = [betas, batched.pos, batched.sigma] + (
+                [c_blk] if kn == "motion_block" else []) + [y]
+            return a
+        st = states[r]
+        a = [st.beta[blk][sl], st.pos, st.sigma] + (
+            [st.c[:, blk].T[sl]] if kn == "motion_block" else []) + [
+            videos[r, blk][sl]]
+        return [t.to(dt) for t in a] if dt is not None else a
+
+    kernels = {kn: getattr(fused, kn) for kn in BATCH_KERNELS}
+    plains = {kn: getattr(fused, f"{kn}_plain") for kn in BATCH_KERNELS}
+    out, times = {}, {}
+    for kn, fn in kernels.items():
+        fused.reset_launch_counts()
+        got = fn(*args(kn), size)
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        if fn.launches != 1:
+            fail(f"{kn} over {BATCH_RECORDINGS} recordings: {fn.launches} "
+                 "launches, want 1")
+        worst_abs = worst_rel = 0.0
+        for r in range(BATCH_RECORDINGS):
+            one = fn(*args(kn, r), size)
+            one = one if isinstance(one, tuple) else (one,)
+            f = r % BATCH_BLOCK
+            ref = plains[kn](*args(kn, r, torch.float64, slice(f, f + 1)),
+                             size)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for g, o, q in zip(got, one, ref):
+                if not torch.equal(g[r], o):
+                    fail(f"{kn}: recording {r} of the batched launch differs "
+                         "from the kernel launched on it alone (max "
+                         f"{float((g[r] - o).abs().max()):.3e})")
+                e = rel_err(g[r, f:f + 1], q)
+                worst_rel = max(worst_rel, e)
+                worst_abs = max(worst_abs,
+                                float((g[r, f:f + 1].double() - q).abs()
+                                      .max()))
+                if not e <= KERNEL_TOL:
+                    fail(f"{kn}: recording {r}, frame {f} of the batched "
+                         f"launch vs float64 {e:.3e} > {KERNEL_TOL}")
+        times[kn] = (time_ms(lambda: fn(*args(kn), size)),
+                     time_ms(lambda: [fn(*args(kn, r), size)
+                                      for r in range(BATCH_RECORDINGS)]))
+        say(f"kernel {kn} over {BATCH_RECORDINGS} recordings x "
+            f"{BATCH_BLOCK} frames at {size[0]}x{size[1]}x{size[2]}: one "
+            f"launch, bit-equal per recording to its own launch; float64 "
+            f"{worst_rel:.3e}; {times[kn][0]:.4f} ms batched, "
+            f"{times[kn][1]:.4f} ms for the {BATCH_RECORDINGS} "
+            "per-recording launches")
+        out[f"{kn}[batched]"] = {"max_abs_err": worst_abs,
+                                 "max_rel_err": worst_rel}
+    return out
+
+
+def batched_runs(model):
+    """Phase 29's two ways to run a round: ``batched(states, videos,
+    gram_mode)`` (``batched_round`` with the kernels) and
+    ``single(state, video, gram_mode)`` (one recording's round)."""
+    from dnmf_tpu_torch.parallel import batched_round
+    from dnmf_tpu_torch.tools import bench
+
+    adam = bench.motion_optimizer()
+
+    def batched(states, videos, gram_mode):
+        return batched_round(states, videos, model, adam, bench.GAMMA,
+                             bench.MU_ITERS, frame_block=BATCH_BLOCK,
+                             use_kernels=True, gram_mode=gram_mode)[0]
+
+    def single(st, video, gram_mode):
+        st, _ = model_lib.motion_epoch_parallel(
+            st, video, model, adam, bench.GAMMA, BATCH_BLOCK, True)
+        g, c1 = model_lib.compute_grams(st, video, model, BATCH_BLOCK, True,
+                                        gram_mode)
+        return model_lib.footprint_update(st, g, c1, bench.MU_ITERS)
+
+    return batched, single
+
+
+def batched_rounds(dev, card, model, states, batched, videos):
+    """Phase 29's rounds: two exact rounds and one closed-form round of
+    ``batched_round`` against the loop of single-recording rounds, with
+    the launch gates; returns the batched rounds' launch counts."""
+    from dnmf_tpu_torch.parallel import unstack_states
+
+    run_batched, single = batched_runs(model)
+    n_blocks = -(-BATCH_FRAMES // BATCH_BLOCK)
+
+    launches = {kn: 0 for kn in BATCH_KERNELS}
+    for label, gram_mode, rounds in (("exact", "exact", 2),
+                                     ("closed form", "analytic", 1)):
+        got, refs = batched, list(states)
+        for i in range(rounds):
+            fused.reset_launch_counts()
+            got = run_batched(got, videos, gram_mode)
+            counts = fused.launch_counts()
+            pass_name = "gram_block" if gram_mode == "exact" else "c1_block"
+            for kn in ("motion_block", pass_name):
+                if counts[kn] != n_blocks:
+                    fail(f"batched round {i + 1} ({label}): {kn} launched "
+                         f"{counts[kn]} times, want {n_blocks} (once per "
+                         f"frame block for all {BATCH_RECORDINGS} "
+                         "recordings)")
+            for kn in BATCH_KERNELS:
+                launches[kn] += counts[kn]
+            refs = [single(st, videos[r], gram_mode)
+                    for r, st in enumerate(refs)]
+        for r, (g, ref) in enumerate(zip(unstack_states(got), refs)):
+            for key, (rtol, atol) in BATCH_TOL.items():
+                a, b = getattr(g, key), getattr(ref, key)
+                if not torch.allclose(a, b, rtol=rtol, atol=atol):
+                    fail(f"batched round ({label}), recording {r}: {key} "
+                         f"differs from the single-recording round by "
+                         f"{float((a - b).abs().max()):.3e} (rtol {rtol}, "
+                         f"atol {atol})")
+        # Seconds per round from the same state, after a warm-up call.
+        batch_s = host_seconds(lambda: run_batched(batched, videos,
+                                                   gram_mode), 3, dev)
+        loop_s = host_seconds(lambda: [
+            single(st, videos[r], gram_mode) for r, st in enumerate(states)],
+            3, dev)
+        say(f"batched_round ({label}), {BATCH_RECORDINGS} recordings: "
+            f"{rounds} round(s) equal the single-recording loop; seconds "
+            f"per batched round {[round(t, 4) for t in batch_s]}, per loop "
+            f"of {BATCH_RECORDINGS} single-recording rounds "
+            f"{[round(t, 4) for t in loop_s]} ({card})")
+    return launches
+
+
+def batched_path(dev, card):
+    """Phase 29 (module docstring): the kernels' and the rounds' checks;
+    returns the kernels-line entries and the rounds' launch counts."""
+    torch.cuda.reset_peak_memory_stats()
+    model, states, batched, videos = batched_inputs(dev)
+    entries = batched_kernels(dev, states, batched, videos, model.size)
+    launches = batched_rounds(dev, card, model, states, batched, videos)
+    say(f"batched recordings: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+    return entries, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -2178,13 +2395,20 @@ def main() -> int:
     t0 = time.perf_counter()
     bench_phase()
     say(f"bench --quick: {time.perf_counter() - t0:.3f} s ({card})")
+    t0 = time.perf_counter()
+    batched, batched_launches = batched_path(dev, card)
+    ranged.update(batched)
+    for kname, n in batched_launches.items():
+        launches[kname] += n
+    say(f"batched recordings: {time.perf_counter() - t0:.3f} s ({card})")
     say(f"chip_smoke: {time.perf_counter() - started:.3f} s in all")
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():
         at = results["roi"][kname]
         # The worst error over a kernel's variants (refine: dsigma, [K, 3];
-        # motion and Gram: over voxel ranges of the whole-brain volume).
+        # motion and Gram: over voxel ranges of the whole-brain volume;
+        # motion, c1 and Gram: over a recordings axis).
         variants = [r for label, r in list(results["roi"].items())
                     + list(ranged.items()) if label.split("[")[0] == kname]
         kernels.append({"name": kname, "route": "cuda", "source": source,

@@ -5,7 +5,10 @@
 // _c1_kernel_pipe :611, calls at :723 and :764), the video pass of the
 // closed-form-Gram default at every K, with shared anchors pos [K,3] (one
 // neuron table) or per-frame positions pos [B,K,3] (the refinement phase;
-// one table per frame, sorted by that frame's own m).
+// one table per frame, sorted by that frame's own m), and over a
+// recordings axis (parallel.batched_round: one table per recording, with
+// its own widths, and every recording's frames in one launch, as the
+// JAX package's vmap prepends the recordings axis to the Pallas grid).
 //
 // What bounds it on this card: operations.  Per pixel and frame the warp
 // (basis, 30 FMAs) and the fade; per neuron within reach (6 sigma: a few
@@ -45,13 +48,14 @@ constexpr int CH = 8;              // candidates per reduction chunk
 constexpr int CAND = 2 * THREADS;  // candidate rows listed at a time
 
 // A candidate's shared row, two float4s: p (3), log2e / s^2 (3), 0, 0.
-// rmax: the largest m reach of the tables; counts (or null): [B][n_bricks]
-// candidates per brick.
+// Frame b reads table frame_table(b, fpt) and its video at
+// frame_video(b, fpt, y_rec, P) (cull.cuh).  rmax: the largest m reach of
+// the tables; counts (or null): [B][n_bricks] candidates per brick.
 template <int NP>
 __global__ void __launch_bounds__(THREADS, 4)
 c1_bricks(const float* __restrict__ betas, const float* __restrict__ table,
-          int tab_stride, const float* __restrict__ rmax,
-          const float* __restrict__ y,
+          int fpt, const float* __restrict__ rmax,
+          const float* __restrict__ y, long long y_rec,
           float* __restrict__ partial, int* __restrict__ counts, Geom g,
           Bricks bk, int n_bricks, int bricks_per_group, int k) {
   const int grp = blockIdx.x, n_groups = gridDim.x, b = blockIdx.y;
@@ -69,9 +73,9 @@ c1_bricks(const float* __restrict__ betas, const float* __restrict__ table,
   brick_slots<NP>(bk, s_off);
   float* out = partial + ((size_t)b * n_groups + grp) * k;
   for (int i = tid; i < k; i += THREADS) out[i] = 0.0f;
-  const float* tab = table + (size_t)b * tab_stride;
+  const float* tab = table + frame_table(b, fpt) * k * TROW;
   const float rm = *rmax;
-  const float* yb = y + (size_t)b * g.P;
+  const float* yb = y + frame_video(b, fpt, y_rec, g.P);
 
   const int first = grp * bricks_per_group;
   const int last = min(first + bricks_per_group, n_bricks);
@@ -133,12 +137,12 @@ c1_bricks(const float* __restrict__ betas, const float* __restrict__ table,
 
 // c1 of 32 table rows (blockIdx.x) of frame b (blockIdx.y), a block of 32
 // x 32 threads: warp w sums groups w, w + 32, ... of each row, then the
-// warps' sums are added in order; written at the row's neuron index,
-// order[b * order_stride + row].
+// warps' sums are added in order; written at the row's neuron index in
+// the frame's table's order, order[frame_table(b, fpt) * k + row].
 __global__ void __launch_bounds__(1024)
 c1_finish(const float* __restrict__ partial,
           const long long* __restrict__ order,
-          int order_stride, float* __restrict__ c1, int n_groups, int k) {
+          int fpt, float* __restrict__ c1, int n_groups, int k) {
   __shared__ float s_part[32][33];
   const int b = blockIdx.y, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int i = blockIdx.x * 32 + lane;
@@ -151,28 +155,29 @@ c1_finish(const float* __restrict__ partial,
   if (w != 0 || i >= k) return;
   float t = 0.0f;
   for (int r = 0; r < 32; ++r) t += s_part[r][lane];
-  c1[(size_t)b * k + order[(size_t)b * order_stride + i]] = t;
+  c1[(size_t)b * k + order[frame_table(b, fpt) * k + i]] = t;
 }
 
 }  // namespace dnmf
 
-// betas [B][10][3]; table [k][TROW] and order [k] (tracked 0) or one per
-// frame, [B][k][TROW] and [B][k] (tracked 1; table.cu, order int64), and
-// rmax (1 float) their largest m reach; y
-// [B][P]; c1 [B][k] in the caller's neuron order.  Bricks of bm x bn x bz
-// voxels, bricks_per_group per thread block; partial: [B][n_groups][k]
-// floats of scratch; counts (or null): [B][n_bricks] candidates per brick.
+// betas [B][10][3]; tables [B / fpt][k][TROW] and orders [B / fpt][k]
+// (table.cu, order int64), frame b's at b / fpt (fpt = B: shared anchors,
+// 1: per-frame positions, the frames of a recording: a recordings axis),
+// and rmax (1 float) their largest m reach; y: frame b's P voxels at
+// frame_video(b, fpt, y_rec, P) (y_rec = fpt P: [B][P]); c1 [B][k] in the
+// caller's neuron order.  Bricks of bm x bn x bz voxels, bricks_per_group
+// per thread block; partial: [B][n_groups][k] floats of scratch; counts
+// (or null): [B][n_bricks] candidates per brick.
 extern "C" int dnmf_c1(const float* betas, const float* table,
                        const long long* order, const float* rmax,
-                       const float* y,
-                       float* partial,
+                       const float* y, long long y_rec, float* partial,
                        float* c1, int* counts, int B, int M, int N, int Z,
-                       int normalized, int k, int tracked, int bm, int bn,
+                       int normalized, int k, int fpt, int bm, int bn,
                        int bz, int bricks_per_group, void* stream) {
   using namespace dnmf;
-  const Geom g = make_geom(M, N, Z, normalized);
-  const Bricks bk = make_bricks(g, bm, bn, bz);
-  if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS)
+  const RangedGeom g = make_geom(M, N, Z, normalized);
+  const RangedBricks bk = make_bricks(g, bm, bn, bz);
+  if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS || fpt < 1)
     return (int)cudaErrorInvalidValue;
   const int n_bricks = bk.nbm * bk.nbn * bk.nbz;
   const int n_groups = (n_bricks + bricks_per_group - 1) / bricks_per_group;
@@ -180,12 +185,12 @@ extern "C" int dnmf_c1(const float* betas, const float* table,
   const cudaError_t e = with_slots(bm * bn * bz, [&](auto np) {
     constexpr int NP = decltype(np)::value;
     c1_bricks<NP><<<dim3(n_groups, B), THREADS, 0, s>>>(
-        betas, table, tracked ? k * TROW : 0, rmax, y, partial, counts, g,
-        bk, n_bricks, bricks_per_group, k);
+        betas, table, fpt, rmax, y, y_rec, partial, counts, g, bk, n_bricks,
+        bricks_per_group, k);
     return cudaGetLastError();
   });
   if (e != cudaSuccess) return (int)e;
   c1_finish<<<dim3((k + 31) / 32, B), 1024, 0, s>>>(
-      partial, order, tracked ? k : 0, c1, n_groups, k);
+      partial, order, fpt, c1, n_groups, k);
   return (int)cudaGetLastError();
 }

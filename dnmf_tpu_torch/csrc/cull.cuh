@@ -36,14 +36,40 @@ constexpr float LOG2E_F = 1.44269504088896341f;
 // ends cut (brick_cut), its voxels outside it are past the brick
 // (slot_in_range).  The range is a template parameter (RANGE) of the
 // kernels that take one (motion.cu, gram.cu), and their whole-volume
-// instances run the code without it.
+// instances run the code without it and take Geom and Bricks, without
+// the range's fields, by value (GeomOf, BricksOf).
 struct Bricks {
   int bm, bn, bz;     // brick extent (bm * bn * bz <= THREADS * PPT)
   int nbm, nbn, nbz;  // bricks per axis
+};
+
+struct RangedBricks : Bricks {
   int id0, count;     // the bricks that the voxel range meets
 };
 
+template <bool RANGE>
+using GeomOf = std::conditional_t<RANGE, RangedGeom, Geom>;
+template <bool RANGE>
+using BricksOf = std::conditional_t<RANGE, RangedBricks, Bricks>;
+
 constexpr int PPT = 8;  // pixels per thread of a brick, at most
+
+// The frames of a launch of the motion, c1 and Gram kernels and their
+// tables: frame f reads table f / fpt (fpt = 1: a table per frame, for
+// per-frame positions; fpt = the launch's frames: one table, for shared
+// anchors; fpt = the frames of one recording: a table per recording, for
+// a recordings axis), and its video row starts at frame_video(f, ...):
+// the recordings (runs of fpt frames) y_rec floats apart, their frames
+// `row` floats apart, so a block of frames cut from every recording's
+// video [R][T][P] is read in place.
+__device__ __forceinline__ size_t frame_table(int f, int fpt) {
+  return (size_t)(f / fpt);
+}
+
+__device__ __forceinline__ size_t frame_video(int f, int fpt,
+                                              long long y_rec, int row) {
+  return (size_t)(f / fpt) * y_rec + (size_t)(f % fpt) * row;
+}
 
 // Calls launch(std::integral_constant<int, NP>()) with the fewest pixel
 // slots per thread NP, of 3, 5 and PPT, that hold a brick of n pixels:
@@ -65,8 +91,9 @@ struct Brick {
 
 // The brick layout, and the bricks that the voxel range of g meets (all
 // of them without a range).
-inline Bricks make_bricks(const Geom& g, int bm, int bn, int bz) {
-  Bricks bk;
+inline RangedBricks make_bricks(const RangedGeom& g, int bm, int bn,
+                                int bz) {
+  RangedBricks bk;
   bk.bm = bm; bk.bn = bn; bk.bz = bz;
   bk.nbm = (g.M + bm - 1) / bm;
   bk.nbn = (g.N + bn - 1) / bn;
@@ -80,15 +107,15 @@ inline Bricks make_bricks(const Geom& g, int bm, int bn, int bz) {
 }
 
 // Whether a voxel range fits the volume (and is not empty).
-inline bool range_ok(const Geom& g) {
+inline bool range_ok(const RangedGeom& g) {
   return g.p_lo >= 0 && g.PL >= 1 && g.p_lo <= g.P - g.PL;
 }
 
 // Local brick id (0 .. bk.count - 1) to its brick.
-template <bool RANGE = false>
-__device__ __forceinline__ Brick brick_at(int id, const Bricks& bk,
+template <bool RANGE = false, class BK>
+__device__ __forceinline__ Brick brick_at(int id, const BK& bk,
                                           const Geom& g) {
-  if (RANGE) id += bk.id0;
+  if constexpr (RANGE) id += bk.id0;
   const int iz = id % bk.nbz, rest = id / bk.nbz;
   const int in = rest % bk.nbn, im = rest / bk.nbn;
   Brick b;
@@ -103,14 +130,28 @@ __device__ __forceinline__ Brick brick_at(int id, const Bricks& bk,
 
 // Whether the voxel range cuts brick b (some of its voxels lie outside
 // it); never without a range.
-template <bool RANGE>
-__device__ __forceinline__ bool brick_cut(const Brick& b, const Geom& g) {
-  if (!RANGE) return false;
-  // p grows with m, n and z: the brick's first and last voxels bound it.
-  const int p_first = (b.m0 * g.N + b.n0) * g.Z + b.z0;
-  const int p_last =
-      ((b.m0 + b.wm - 1) * g.N + b.n0 + b.wn - 1) * g.Z + b.z0 + b.wz - 1;
-  return p_first < g.p_lo || p_last >= g.p_lo + g.PL;
+template <bool RANGE, class G>
+__device__ __forceinline__ bool brick_cut(const Brick& b, const G& g) {
+  if constexpr (!RANGE) {
+    return false;
+  } else {
+    // p grows with m, n and z: the brick's first and last voxels bound it.
+    const int p_first = (b.m0 * g.N + b.n0) * g.Z + b.z0;
+    const int p_last =
+        ((b.m0 + b.wm - 1) * g.N + b.n0 + b.wn - 1) * g.Z + b.z0 + b.wz - 1;
+    return p_first < g.p_lo || p_last >= g.p_lo + g.PL;
+  }
+}
+
+// The first voxel of y's rows and their count: the range's, or 0 and P.
+template <bool RANGE, class G>
+__device__ __forceinline__ int range_lo(const G& g) {
+  if constexpr (RANGE) return g.p_lo; else return 0;
+}
+
+template <bool RANGE, class G>
+__device__ __forceinline__ int range_voxels(const G& g) {
+  if constexpr (RANGE) return g.PL; else return g.P;
 }
 
 // Whether every slot of the per-block slot table is a voxel of brick b: a
@@ -244,11 +285,22 @@ __device__ __forceinline__ bool slot_voxel(const Brick& br, bool full,
 __device__ __forceinline__ bool slot_in_range(const Brick& br, bool full,
                                               bool cut, const int* s_off,
                                               int i, int& dm, int& dn,
-                                              int& dz, const Geom& g) {
+                                              int& dz, const RangedGeom& g) {
   if (!slot_voxel(br, full, s_off, i, dm, dn, dz)) return false;
   if (!cut) return true;
   const int p = ((br.m0 + dm) * g.N + br.n0 + dn) * g.Z + br.z0 + dz;
   return p >= g.p_lo && p < g.p_lo + g.PL;
+}
+
+// slot_in_range with RANGE, else slot_voxel.
+template <bool RANGE, class G>
+__device__ __forceinline__ bool slot_at(const Brick& br, bool full, bool cut,
+                                        const int* s_off, int i, int& dm,
+                                        int& dn, int& dz, const G& g) {
+  if constexpr (RANGE)
+    return slot_in_range(br, full, cut, s_off, i, dm, dn, dz, g);
+  else
+    return slot_voxel(br, full, s_off, i, dm, dn, dz);
 }
 
 // The basis at a brick-local voxel from the brick's coordinate table.
@@ -268,9 +320,9 @@ __device__ __forceinline__ void slot_basis(const float* coord,
 // dividing.  Slots past the brick get psi = 0.  red: shared scratch of
 // NWARPS * 6 floats; coord: COORDS shared floats that no thread reads
 // until the next barrier (alternate two tables between bricks).
-template <bool LOAD_Y, int NP = PPT, bool RANGE = false>
+template <bool LOAD_Y, int NP = PPT, bool RANGE = false, class G>
 __device__ __forceinline__ void brick_pixels(const Brick& br,
-                                             const Bricks& bk, const Geom& g,
+                                             const Bricks& bk, const G& g,
                                              const int* s_off, float* coord,
                                              const float* beta,
                                              const float* __restrict__ yb,
@@ -294,12 +346,11 @@ __device__ __forceinline__ void brick_pixels(const Brick& br,
     psi[i][0] = psi[i][1] = psi[i][2] = 0.0f;
     yv[i] = 0.0f;
     int dm, dn, dz;
-    if (RANGE ? slot_in_range(br, full, cut, s_off, i, dm, dn, dz, g)
-              : slot_voxel(br, full, s_off, i, dm, dn, dz)) {
+    if (slot_at<RANGE>(br, full, cut, s_off, i, dm, dn, dz, g)) {
       float phi[10];
       if (LOAD_Y)
         yv[i] = yb[((br.m0 + dm) * g.N + br.n0 + dn) * g.Z + br.z0 + dz -
-                   (RANGE ? g.p_lo : 0)];
+                   range_lo<RANGE>(g)];
       slot_basis(coord, bk, dm, dn, dz, phi);
       warp_psi(beta, phi, g, psi[i]);
 #pragma unroll

@@ -10,7 +10,10 @@
 // Pixel index p = (m * N + n) * Z + z.  The kernels cull by spatial
 // bricks (cull.cuh).  A voxel range [p_lo, p_lo + PL) (a pixel shard of
 // the volume: y then holds only those voxels, PL per frame) restricts
-// every sum to its voxels; without one it is the whole volume.
+// every sum to its voxels; without one it is the whole volume.  The range
+// lives in RangedGeom, which only the host code and the ranged kernel
+// instances take: the whole-volume instances take Geom by value, without
+// it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,10 +27,13 @@ constexpr unsigned FULL = 0xffffffffu;
 
 struct Geom {
   int M, N, Z, P;
-  int p_lo, PL;     // the voxel range [p_lo, p_lo + PL) of y's rows
   int normalized;   // beta acts on [-1, 1] coordinates
   float hi[3];      // size_d - 1 (fade bounds)
   float den[3];     // max(size_d - 1, 1) (normalization scale)
+};
+
+struct RangedGeom : Geom {
+  int p_lo, PL;     // the voxel range [p_lo, p_lo + PL) of y's rows
 };
 
 // The basis coordinate of voxel index v on axis d: v itself, or its
@@ -116,9 +122,9 @@ __device__ __forceinline__ void block_sum(const float* vals, float* red,
   }
 }
 
-inline Geom make_geom(int M, int N, int Z, int normalized, int p_lo = 0,
-                      int p_count = -1) {
-  Geom g;
+inline RangedGeom make_geom(int M, int N, int Z, int normalized,
+                            int p_lo = 0, int p_count = -1) {
+  RangedGeom g;
   g.M = M; g.N = N; g.Z = Z; g.P = M * N * Z;
   g.p_lo = p_lo;
   g.PL = p_count < 0 ? g.P : p_count;

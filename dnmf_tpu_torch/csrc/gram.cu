@@ -7,7 +7,10 @@
 // math behind a TPU DMA ring).  It serves the analytic-Gram trust audit and
 // gram_mode="exact".  With one neuron table per frame (per-frame positions
 // pos [B,K,3]) it replaces :944 gram_block_tracked, the exact MU statistics
-// of the position-refinement phase.  With ROWS (entry dnmf_gram_rows) it
+// of the position-refinement phase.  Over a recordings axis
+// (parallel.batched_round) a table per recording, each with its own
+// widths, serves every recording's frames in one launch, as the JAX
+// package's vmap prepends the recordings axis to the Pallas grid.  With ROWS (entry dnmf_gram_rows) it
 // replaces the streamed-row variant of gram_block_culled
 // (psi_source="stream", _gram_kernel_streamed :1263): each pixel's deformed
 // coordinates psi [B][P][3] (pixel space) and fade w [B][P] were computed
@@ -140,9 +143,9 @@ __device__ __forceinline__ bool tile_entry(int e, int a0, int b0, int na,
 // and the per-warp partials of the brick's psi box in red.  ROWS reads psi
 // and w from the rows (psi_b [P][3], w_b [P] of this frame); otherwise
 // brick_pixels evaluates the warp.
-template <bool ROWS, int NP, bool RANGE>
+template <bool ROWS, int NP, bool RANGE, class G>
 __device__ __forceinline__ void gram_pixels(
-    const Brick& br, const Bricks& bk, const Geom& g, const int* s_off,
+    const Brick& br, const Bricks& bk, const G& g, const int* s_off,
     float* coord, const float* beta, const float* __restrict__ psi_b,
     const float* __restrict__ w_b, const float* __restrict__ yb,
     float psi[NP][3], float w[NP], float yv[NP], float* red) {
@@ -177,19 +180,22 @@ __device__ __forceinline__ void gram_pixels(
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       int dm, dn, dz;
-      const bool in =
-          RANGE ? slot_in_range(br, full, cut, s_off, i, dm, dn, dz, g)
-                : threadIdx.x + i * THREADS < npix;
+      bool in;
+      if constexpr (RANGE)
+        in = slot_in_range(br, full, cut, s_off, i, dm, dn, dz, g);
+      else
+        in = threadIdx.x + i * THREADS < npix;
       w[i] = in ? fade(psi[i], g) : 0.0f;
     }
   }
 }
 
 // Grid (brick group, split, frame).  table: [k][TROW] rows sorted by m,
-// one set per frame tab_stride floats apart (0 for shared anchors); rmax
-// their largest m reach.  The splits of a group walk the same bricks; split
-// s takes the pairs whose first row lies in a block of GROWS table rows
-// that it owns (row_owner), so no two thread blocks add to one cell.
+// frame b's at frame_table(b, fpt) (cull.cuh), and its video at
+// frame_video(b, fpt, y_rec, PL); rmax the tables' largest m reach.  The
+// splits of a group walk the same bricks; split s takes the pairs whose
+// first row lies in a block of GROWS table rows that it owns (row_owner),
+// so no two thread blocks add to one cell.
 // Writes the group's partial (the upper triangle of a k x k
 // matrix in table order at gpart + group * k (k + 1) / 2, and a k row of
 // c1 at cpart + group * k; only the window's cells), its window [lo, hi)
@@ -200,11 +206,12 @@ template <bool ROWS, bool SPLIT, int NP, bool RANGE>
 __global__ void __launch_bounds__(THREADS, 3)
 gram_bricks(const float* __restrict__ betas, const float* __restrict__ psi_rows,
             const float* __restrict__ w_rows, const float* __restrict__ table,
-            int tab_stride, const float* __restrict__ rmax,
-            const float* __restrict__ y, float* __restrict__ gpart,
+            int fpt, const float* __restrict__ rmax,
+            const float* __restrict__ y, long long y_rec,
+            float* __restrict__ gpart,
             float* __restrict__ cpart, int* __restrict__ windows,
-            int* __restrict__ counts, Geom g, Bricks bk, int n_bricks,
-            int bricks_per_group, int k) {
+            int* __restrict__ counts, GeomOf<RANGE> g, BricksOf<RANGE> bk,
+            int n_bricks, int bricks_per_group, int k) {
   const int grp = blockIdx.x, n_groups = gridDim.x;
   const int split = SPLIT ? blockIdx.y : 0, n_split = SPLIT ? gridDim.y : 1;
   const int b = blockIdx.z;
@@ -224,9 +231,9 @@ gram_bricks(const float* __restrict__ betas, const float* __restrict__ psi_rows,
   const size_t part = (size_t)b * n_groups + grp;
   float* gp = gpart + part * ((size_t)k * (k + 1) / 2);
   float* cp = cpart + part * k;
-  const float* tab = table + (size_t)b * tab_stride;
+  const float* tab = table + frame_table(b, fpt) * k * TROW;
   const float rm = *rmax;
-  const float* yb = y + (size_t)b * (RANGE ? g.PL : g.P);
+  const float* yb = y + frame_video(b, fpt, y_rec, range_voxels<RANGE>(g));
   const float* psi_b = ROWS ? psi_rows + (size_t)b * g.P * 3 : nullptr;
   const float* w_b = ROWS ? w_rows + (size_t)b * g.P : nullptr;
   int lo = 0, hi = 0;  // the group's window of table rows so far
@@ -416,13 +423,13 @@ gram_bricks(const float* __restrict__ betas, const float* __restrict__ psi_rows,
 // a thread per entry (i, j) of table rows with i <= j (blocks wholly below
 // the diagonal return at once).  The entry is the sum, in group order, of
 // the partials of the groups whose window holds both rows (0 if none),
-// written at (order[i], order[j]) and its mirror; order[b * order_stride
-// + i] is table row i's neuron.  The first row of blocks also writes c1.
-// Dynamic shared memory: n_groups * 2 ints.
+// written at (order[i], order[j]) and its mirror; order[frame_table(b,
+// fpt) * k + i] is table row i's neuron.  The first row of blocks also
+// writes c1.  Dynamic shared memory: n_groups * 2 ints.
 __global__ void __launch_bounds__(THREADS)
 gram_assemble(const float* __restrict__ gpart, const float* __restrict__ cpart,
               const int* __restrict__ windows,
-              const long long* __restrict__ order, int order_stride,
+              const long long* __restrict__ order, int fpt,
               float* __restrict__ G, float* __restrict__ c1, int n_groups,
               int k) {
   extern __shared__ int s_win[];
@@ -433,7 +440,7 @@ gram_assemble(const float* __restrict__ gpart, const float* __restrict__ cpart,
     s_win[gi] = windows[fb * 2 + gi];
   __syncthreads();
   const size_t tri = (size_t)k * (k + 1) / 2;
-  const long long* ob = order + (size_t)b * order_stride;
+  const long long* ob = order + frame_table(b, fpt) * k;
   const int j = j0 + (threadIdx.x & 31), i = i0 + (threadIdx.x >> 5);
   if (i < k && j < k && i <= j) {
     const float* cell = gpart + fb * tri + tri_row(i, k) + j;
@@ -458,13 +465,15 @@ gram_assemble(const float* __restrict__ gpart, const float* __restrict__ cpart,
 template <bool ROWS>
 int gram_launch(const float* betas, const float* psi, const float* w,
                 const float* table, const long long* order,
-                const float* rmax, const float* y, float* gpart, float* cpart,
-                int* windows, float* g_out, float* c1_out, int* counts, int B,
-                const Geom& g, int k, int tracked, int bm, int bn, int bz,
-                int bricks_per_group, int n_split, cudaStream_t s) {
+                const float* rmax, const float* y, long long y_rec,
+                float* gpart, float* cpart, int* windows, float* g_out,
+                float* c1_out, int* counts, int B, const RangedGeom& g, int k,
+                int fpt, int bm, int bn, int bz, int bricks_per_group,
+                int n_split, cudaStream_t s) {
   if (!range_ok(g)) return (int)cudaErrorInvalidValue;
-  const Bricks bk = make_bricks(g, bm, bn, bz);
-  if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS || n_split < 1)
+  const RangedBricks bk = make_bricks(g, bm, bn, bz);
+  if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS || n_split < 1 ||
+      fpt < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || k == 0) return (int)cudaSuccess;
   const int n_bricks = bk.count;
@@ -479,8 +488,8 @@ int gram_launch(const float* betas, const float* psi, const float* w,
       if (err != cudaSuccess) return err;
     }
     kernel<<<dim3(n_groups, n_split, B), THREADS, smem, s>>>(
-        betas, psi, w, table, tracked ? k * TROW : 0, rmax, y, gpart, cpart,
-        windows, counts, g, bk, n_bricks, bricks_per_group, k);
+        betas, psi, w, table, fpt, rmax, y, y_rec, gpart, cpart, windows,
+        counts, g, bk, n_bricks, bricks_per_group, k);
     return cudaGetLastError();
   };
   const bool ranged = g.p_lo != 0 || g.PL != g.P;
@@ -499,17 +508,18 @@ int gram_launch(const float* betas, const float* psi, const float* w,
   if (e != cudaSuccess) return (int)e;
   gram_assemble<<<dim3((k + 31) / 32, (k + NWARPS - 1) / NWARPS, B),
                   THREADS, 2 * n_groups * sizeof(int), s>>>(
-      gpart, cpart, windows, order, tracked ? k : 0, g_out, c1_out, n_groups,
-      k);
+      gpart, cpart, windows, order, fpt, g_out, c1_out, n_groups, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace dnmf
 
-// betas [B][10][3]; table [k][TROW] and order [k] (tracked 0) or one per
-// frame, [B][k][TROW] and [B][k] (tracked 1; table.cu, order int64), and
-// rmax (1 float) their largest m reach; y [B][p_count]: the voxels [p_lo,
-// p_lo + p_count) of each frame (0 and M N Z: the whole volume).  Outputs
+// betas [B][10][3]; tables [B / fpt][k][TROW] and orders [B / fpt][k]
+// (table.cu, order int64), frame b's at b / fpt (fpt = B: shared anchors,
+// 1: per-frame positions, the frames of a recording: a recordings axis),
+// and rmax (1 float) their largest m reach; y: frame b's voxels [p_lo,
+// p_lo + p_count) (0 and M N Z: the whole volume) at frame_video(b, fpt,
+// y_rec, p_count) (y_rec = fpt p_count: [B][p_count]).  Outputs
 // in the caller's neuron order: g_out [B][k][k], c1_out [B][k]; counts (or
 // null): [B][n_bricks] candidates per brick, for the n_bricks bricks that
 // the range meets (make_bricks).  Bricks of bm x bn x bz voxels,
@@ -518,16 +528,16 @@ int gram_launch(const float* betas, const float* psi, const float* w,
 // windows [B][n_groups][2] ints.
 extern "C" int dnmf_gram(const float* betas, const float* table,
                          const long long* order, const float* rmax,
-                         const float* y, float* gpart, float* cpart,
-                         int* windows, float* g_out, float* c1_out,
-                         int* counts, int B, int M, int N, int Z,
-                         int normalized, int k, int tracked, int bm, int bn,
+                         const float* y, long long y_rec, float* gpart,
+                         float* cpart, int* windows, float* g_out,
+                         float* c1_out, int* counts, int B, int M, int N,
+                         int Z, int normalized, int k, int fpt, int bm, int bn,
                          int bz, int bricks_per_group, int n_split, int p_lo,
                          int p_count, void* stream) {
   return dnmf::gram_launch<false>(
-      betas, nullptr, nullptr, table, order, rmax, y, gpart, cpart, windows,
-      g_out, c1_out, counts, B,
-      dnmf::make_geom(M, N, Z, normalized, p_lo, p_count), k, tracked, bm, bn,
+      betas, nullptr, nullptr, table, order, rmax, y, y_rec, gpart, cpart,
+      windows, g_out, c1_out, counts, B,
+      dnmf::make_geom(M, N, Z, normalized, p_lo, p_count), k, fpt, bm, bn,
       bz, bricks_per_group, n_split, (cudaStream_t)stream);
 }
 
@@ -543,7 +553,8 @@ extern "C" int dnmf_gram_rows(const float* psi, const float* w,
                               int bricks_per_group, int n_split,
                               void* stream) {
   return dnmf::gram_launch<true>(
-      nullptr, psi, w, table, order, rmax, y, gpart, cpart, windows, g_out,
-      c1_out, counts, B, dnmf::make_geom(M, N, Z, 0), k, 0, bm, bn, bz,
+      nullptr, psi, w, table, order, rmax, y, (long long)B * M * N * Z,
+      gpart, cpart, windows, g_out, c1_out, counts, B,
+      dnmf::make_geom(M, N, Z, 0), k, B > 0 ? B : 1, bm, bn, bz,
       bricks_per_group, n_split, (cudaStream_t)stream);
 }

@@ -21,8 +21,11 @@
 // pixel evaluating the 48-64 Gaussians of every block whose m band it
 // met.  The design here (cull.cuh, as refine.cu):
 //  * the neuron table is sorted by m once per call (table.cu; shared
-//    anchors, one table) and stays in global memory, where it is L1- and
-//    L2-resident;
+//    anchors, one table; with a recordings axis, parallel.batched_round,
+//    one per recording, each with its own widths, and every recording's
+//    frames in one launch, as the JAX package's vmap prepends the
+//    recordings axis to the Pallas grid) and stays in global memory, where
+//    it is L1- and L2-resident;
 //  * one launch, grid (brick group, frame).  A thread block walks its
 //    group's bricks (8 m x 8 n x up to 32 z), keeping each pixel's warp
 //    in registers (basis coordinates from a per-brick table, pixel slots
@@ -61,16 +64,18 @@ constexpr int CAND = 2 * THREADS;  // candidate rows listed at a time
 // in several chunks carries each pixel's S and T from chunk to chunk in
 // s_carry (dynamic, NP * 4 * THREADS floats); the last chunk finishes the
 // pixel (residual, dpsi, the 31 sums), so nothing per pixel stays in
-// registers while the next brick's candidates are listed.  rmax: the
-// table's largest m reach; counts (or null): [B][n_bricks] candidates per
-// brick.
+// registers while the next brick's candidates are listed.  Frame b reads
+// table frame_table(b, fpt) and its video at frame_video(b, fpt, y_rec,
+// PL) (cull.cuh).  rmax: the tables' largest m reach; counts (or null):
+// [B][n_bricks] candidates per brick.
 template <int NP, bool RANGE>
 __global__ void __launch_bounds__(THREADS, 3)
 motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
-              const float* __restrict__ rmax, const float* __restrict__ c_rows,
-              const float* __restrict__ y,
-              float* __restrict__ partial, int* __restrict__ counts, Geom g,
-              Bricks bk, int n_bricks, int bricks_per_group, int k) {
+              int fpt, const float* __restrict__ rmax,
+              const float* __restrict__ c_rows, const float* __restrict__ y,
+              long long y_rec, float* __restrict__ partial,
+              int* __restrict__ counts, GeomOf<RANGE> g, BricksOf<RANGE> bk,
+              int n_bricks, int bricks_per_group, int k) {
   const int grp = blockIdx.x, n_groups = gridDim.x, b = blockIdx.y;
   extern __shared__ float s_carry[];  // [NP * 4][THREADS]
   __shared__ float4 s_rows[CAND * 3];
@@ -86,8 +91,9 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
   if (tid < 30) s_beta[tid] = betas[b * 30 + tid];
   brick_slots<NP>(bk, s_off);
   const float rm = *rmax;
+  const float* tab = table + frame_table(b, fpt) * k * TROW;
   const float* cb = c_rows + (size_t)b * k;
-  const float* yb = y + (size_t)b * (RANGE ? g.PL : g.P);
+  const float* yb = y + frame_video(b, fpt, y_rec, range_voxels<RANGE>(g));
 
   float acc[NOUT];
 #pragma unroll
@@ -105,7 +111,7 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
     brick_pixels<false, NP, RANGE>(br, bk, g, s_off, coord, s_beta, yb, psi,
                                    no_y, s_red);
     const int nc = list_candidates(
-        table, table, TROW, k, rm, CAND, s_red, s_box, s_cand, s_warp_n,
+        tab, tab, TROW, k, rm, CAND, s_red, s_box, s_cand, s_warp_n,
         s_range,
         [&](int slot, int kk, const float* row) {
           const float c = cb[kk];
@@ -118,8 +124,7 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
 #pragma unroll
           for (int i = 0; i < NP; ++i) {
             int dm, dn, dz;
-            if (!(RANGE ? slot_in_range(br, full, cut, s_off, i, dm, dn, dz, g)
-                        : slot_voxel(br, full, s_off, i, dm, dn, dz)))
+            if (!slot_at<RANGE>(br, full, cut, s_off, i, dm, dn, dz, g))
               continue;
             float* carry = s_carry + i * 4 * THREADS + tid;
             float S = 0.0f, T[3] = {0.0f, 0.0f, 0.0f};
@@ -156,7 +161,7 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
             for (int d = 0; d < 3; ++d) wd[d] = fade_axis(psi[i][d], g.hi[d]);
             const float w = wd[0] * wd[1] * wd[2];
             const float r = w * S - yb[((br.m0 + dm) * g.N + br.n0 + dn) * g.Z +
-                                       br.z0 + dz - (RANGE ? g.p_lo : 0)];
+                                       br.z0 + dz - range_lo<RANGE>(g)];
             acc[0] = fmaf(r, r, acc[0]);
             float phi[10];
             slot_basis(coord, bk, dm, dn, dz, phi);
@@ -191,10 +196,11 @@ motion_bricks(const float* __restrict__ betas, const float* __restrict__ table,
 
 // Per frame b (a block of 32 x 32 threads): warp w sums groups w, w + 32,
 // ... of each output, then the warps' sums are added in order; mse[b] =
-// sse / PL, dbeta[b][j][d] = sum * chain_d / PL (PL = P without a range).
+// sse / pl, dbeta[b][j][d] = sum * chain_d / pl (pl: the voxels summed, P
+// without a range).
 __global__ void __launch_bounds__(1024)
 motion_finish(const float* __restrict__ partial, float* __restrict__ mse,
-              float* __restrict__ dbeta, int n_groups, Geom g) {
+              float* __restrict__ dbeta, int n_groups, Geom g, int pl) {
   __shared__ float s_part[32][33];
   const int b = blockIdx.x, col = threadIdx.x & 31, row = threadIdx.x >> 5;
   float s = 0.0f;
@@ -206,7 +212,7 @@ motion_finish(const float* __restrict__ partial, float* __restrict__ mse,
   if (i >= NOUT) return;
   float t = 0.0f;
   for (int w = 0; w < 32; ++w) t += s_part[w][i];
-  const float inv_p = 1.0f / (float)g.PL;
+  const float inv_p = 1.0f / (float)pl;
   if (i == 0) {
     mse[b] = t * inv_p;
   } else {
@@ -218,26 +224,29 @@ motion_finish(const float* __restrict__ partial, float* __restrict__ mse,
 
 }  // namespace dnmf
 
-// betas [B][10][3]; table [k][TROW] (table.cu, shared anchors) and rmax
-// (1 float) its largest m reach; c_rows [B][k] the traces in table order,
-// y [B][p_count]: the voxels [p_lo, p_lo + p_count) of each frame (0 and
-// M N Z: the whole volume); out [B + 30 B]:
+// betas [B][10][3]; tables [B / fpt][k][TROW] (table.cu), frame b's at b
+// / fpt (fpt = B: shared anchors; the frames of a recording: a recordings
+// axis), and rmax (1 float) their largest m reach; c_rows [B][k] each
+// frame's traces in its table's order; y: frame b's voxels [p_lo, p_lo +
+// p_count) (0 and M N Z: the whole volume) at frame_video(b, fpt, y_rec,
+// p_count) (y_rec = fpt p_count: [B][p_count]); out [B + 30 B]:
 // mse [B], then dbeta [B][10][3].  Bricks of bm x bn x bz voxels,
 // bricks_per_group per thread block; partial: [B][n_groups][32] floats of
 // scratch; counts (or null): [B][n_bricks] candidates per brick, for the
 // n_bricks bricks that the range meets (make_bricks).
 extern "C" int dnmf_motion(const float* betas, const float* table,
                            const float* rmax, const float* c_rows,
-                           const float* y, float* partial, float* out,
-                           int* counts, int B, int M, int N, int Z,
-                           int normalized, int k, int bm, int bn, int bz,
+                           const float* y, long long y_rec, float* partial,
+                           float* out, int* counts, int B, int M, int N,
+                           int Z, int normalized, int k, int fpt, int bm,
+                           int bn, int bz,
                            int bricks_per_group, int p_lo, int p_count,
                            void* stream) {
   using namespace dnmf;
-  const Geom g = make_geom(M, N, Z, normalized, p_lo, p_count);
+  const RangedGeom g = make_geom(M, N, Z, normalized, p_lo, p_count);
   if (!range_ok(g)) return (int)cudaErrorInvalidValue;
-  const Bricks bk = make_bricks(g, bm, bn, bz);
-  if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS)
+  const RangedBricks bk = make_bricks(g, bm, bn, bz);
+  if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS || fpt < 1)
     return (int)cudaErrorInvalidValue;
   const int n_bricks = bk.count;
   const int n_groups = (n_bricks + bricks_per_group - 1) / bricks_per_group;
@@ -247,8 +256,8 @@ extern "C" int dnmf_motion(const float* betas, const float* table,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, carry);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(n_groups, B), THREADS, carry, s>>>(
-        betas, table, rmax, c_rows, y, partial, counts, g, bk, n_bricks,
-        bricks_per_group, k);
+        betas, table, fpt, rmax, c_rows, y, y_rec, partial, counts, g, bk,
+        n_bricks, bricks_per_group, k);
     return cudaGetLastError();
   };
   const bool ranged = g.p_lo != 0 || g.PL != g.P;
@@ -259,6 +268,6 @@ extern "C" int dnmf_motion(const float* betas, const float* table,
                   : launch(motion_bricks<NP, false>, carry);
   });
   if (e != cudaSuccess) return (int)e;
-  motion_finish<<<B, 1024, 0, s>>>(partial, out, out + B, n_groups, g);
+  motion_finish<<<B, 1024, 0, s>>>(partial, out, out + B, n_groups, g, g.PL);
   return (int)cudaGetLastError();
 }

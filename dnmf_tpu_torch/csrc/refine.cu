@@ -279,8 +279,8 @@ extern "C" int dnmf_refine(const float* betas, const float* table,
                            int bm, int bn, int bz, int bricks_per_group,
                            int want_dsigma, int aniso, void* stream) {
   using namespace dnmf;
-  const Geom g = make_geom(M, N, Z, normalized);
-  const Bricks bk = make_bricks(g, bm, bn, bz);
+  const RangedGeom g = make_geom(M, N, Z, normalized);
+  const RangedBricks bk = make_bricks(g, bm, bn, bz);
   if (bm * bn * bz > THREADS * PPT || bm + bn + bz > COORDS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -8,6 +8,16 @@ the per-neuron width fit :func:`sigma_fit` and the diagnostic
 :func:`spatial_pushforward`.  The state is a dataclass of tensors;
 functions run eagerly and loop over frame blocks in Python.
 
+A stacked state (a leading recordings axis on every field: several
+recordings of one size, K and T, :func:`dnmf_tpu_torch.parallel.
+batched.stack_states`) with videos ``[R, T, P]`` goes through the same
+round functions (:func:`frame_grads_local`, :func:`motion_epoch_parallel`,
+:func:`grams_local`, :func:`footprint_update`, ``Adam.step``): each frame
+block covers every recording, so each video pass is one launch for all
+of them, and the Adam step, the corner regularizer and the trace updates
+take the recordings axis as a leading batch axis.  Models that no kernel
+computes take the footprint ops recording by recording.
+
 Analytic footprints with the border fade (the production configuration)
 take the video passes of :mod:`dnmf_tpu_torch.ops.fused`: with
 ``use_kernels`` their CUDA kernel wrappers (which run the plain versions
@@ -96,13 +106,17 @@ class Adam:
 
     def update(self, param: torch.Tensor, grad: torch.Tensor,
                count: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor):
-        """One step on any tensor: ``(param, count, mu, nu)`` after it."""
+        """One step on any tensor: ``(param, count, mu, nu)`` after it.
+        ``count`` may carry leading axes of ``param`` (a stacked state's
+        ``[R]``: each recording's own step count, as the JAX package's
+        ``vmap``-ed optax steps)."""
         mu = (1 - self.b1) * grad + self.b1 * mu
         nu = (1 - self.b2) * (grad * grad) + self.b2 * nu
         count = count + 1
         f32 = dict(dtype=torch.float32, device=count.device)
-        mu_hat = mu / (1 - torch.tensor(self.b1, **f32) ** count)
-        nu_hat = nu / (1 - torch.tensor(self.b2, **f32) ** count)
+        n = count.reshape(count.shape + (1,) * (param.ndim - count.ndim))
+        mu_hat = mu / (1 - torch.tensor(self.b1, **f32) ** n)
+        nu_hat = nu / (1 - torch.tensor(self.b2, **f32) ** n)
         step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
         return param + step * (-self.learning_rate), count, mu, nu
 
@@ -361,6 +375,20 @@ def motion_epoch_parity(state: DNMFState, video: torch.Tensor,
                    "reg": torch.stack(regs).mean()}
 
 
+def _recording(state: DNMFState, r: int) -> DNMFState:
+    return DNMFState(**{name: getattr(state, name)[r]
+                        for name in STATE_FIELDS})
+
+
+def _each_recording(fn, state: DNMFState, video: torch.Tensor, *args,
+                    **kwargs):
+    """``fn`` on each recording of a stacked state, the outputs stacked:
+    the footprint ops' path for the models that no kernel computes."""
+    outs = [fn(_recording(state, r), video[r], *args, **kwargs)
+            for r in range(video.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
 def _blocks(t: int, frame_block: int):
     fb = max(1, min(frame_block, t))
     return [(s, min(s + fb, t)) for s in range(0, t, fb)]
@@ -402,18 +430,30 @@ def frame_grads_local(state: DNMFState, video: torch.Tensor,
     take ``p_offset``.  The data
     terms are then means over the shard's voxels, whose mean over the
     shards is the whole volume's.
+
+    A stacked state and ``video [R, T, P]`` (no voxel range) give ``[R,
+    T, ...]``: each frame block is one motion pass over every recording.
     """
     check_kernels(model, use_kernels)
     _pixel_local(model, p_offset, "gradients")
+    batched = state.beta.ndim == 4
+    if batched and not kernels_apply(model):
+        return _each_recording(frame_grads_local, state, video, model, gamma,
+                               frame_block, use_kernels, p_offset)
     scaling = model.deformation.basis_scaling
+    # The regularizer is per frame: every recording's frames in one call.
     regs, dregs = jac_ops.corner_regularizer_and_grad(
-        state.beta, model.size, model.deformation.detach_regularizer, scaling)
+        state.beta.reshape(-1, basis_ops.NUM_BASIS, 3), model.size,
+        model.deformation.detach_regularizer, scaling)
+    regs = regs.view(state.beta.shape[:-2])
+    dregs = dregs.view(state.beta.shape)
     if kernels_apply(model):
         motion = fused.motion_block if use_kernels else fused.motion_block_plain
 
         def data_term(s, e):
-            return motion(state.beta[s:e], state.pos, state.sigma,
-                          state.c[:, s:e].T, video[s:e], model.size, scaling,
+            return motion(state.beta[..., s:e, :, :], state.pos, state.sigma,
+                          state.c[..., s:e].transpose(-1, -2),
+                          video[..., s:e, :], model.size, scaling,
                           p_offset=p_offset)
     else:
         vb = _local_basis(model, video, p_offset)
@@ -426,8 +466,9 @@ def frame_grads_local(state: DNMFState, video: torch.Tensor,
             return sse / video.shape[1], dsse / video.shape[1]
 
     mses, dbetas = zip(*(data_term(s, e)
-                         for s, e in _blocks(video.shape[0], frame_block)))
-    return torch.cat(dbetas) + gamma * dregs, torch.cat(mses), regs
+                         for s, e in _blocks(video.shape[-2], frame_block)))
+    return (torch.cat(dbetas, dim=-3) + gamma * dregs,
+            torch.cat(mses, dim=-1), regs)
 
 
 def motion_epoch_parallel(state: DNMFState, video: torch.Tensor,
@@ -435,11 +476,12 @@ def motion_epoch_parallel(state: DNMFState, video: torch.Tensor,
                           frame_block: int = 16, use_kernels: bool = False
                           ) -> Tuple[DNMFState, dict]:
     """One epoch: one Adam step with per-frame gradients (frames are
-    independent given C, and Adam is elementwise)."""
+    independent given C, and Adam is elementwise).  A stacked state gives
+    per-recording metrics ``[R]``."""
     grads, mses, regs = frame_grads_local(state, video, model, gamma,
                                           frame_block, use_kernels)
     state = optimizer.step(state, grads)
-    return state, {"recon_mse": mses.mean(), "reg": regs.mean()}
+    return state, {"recon_mse": mses.mean(-1), "reg": regs.mean(-1)}
 
 
 def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
@@ -461,11 +503,23 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
     A pixel shard (``p_offset`` as :func:`frame_grads_local`'s,
     shared anchors, exact Grams): the Grams and c1 are the sums over the
     shard's voxels, whose sum over the shards is the whole volume's.
+
+    A stacked state and ``video [R, T, P]`` (shared anchors, no voxel
+    range) give ``(grams [R, T, K, K], c1 [R, T, K])``: each frame block
+    is one Gram (or c1) pass over every recording, and the closed form
+    takes every recording's frames in one call.
     """
     check_kernels(model, use_kernels)
     _pixel_local(model, p_offset, "Grams")
     if gram_mode not in ("exact", "analytic"):
         raise ValueError(f"unknown gram_mode: {gram_mode!r}")
+    batched = state.beta.ndim == 4
+    if batched and (pos_t is not None or p_offset is not None):
+        raise ValueError("a recordings axis takes neither per-frame "
+                         "positions nor a voxel range")
+    if batched and not kernels_apply(model):
+        return _each_recording(grams_local, state, video, model, frame_block,
+                               use_kernels, gram_mode, gram_window)
     pixel_local = p_offset is not None
     if gram_mode == "analytic" and pixel_local:
         raise ValueError(
@@ -488,16 +542,16 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
         stored_a = _maybe_stored_a(state, model)
     kw = {} if p_offset is None else {"p_offset": p_offset}
     grams, c1s = [], []
-    for s, e in _blocks(video.shape[0], frame_block):
-        betas = state.beta[s:e]
+    for s, e in _blocks(video.shape[-2], frame_block):
+        betas = state.beta[..., s:e, :, :]
         pos = state.pos if pos_t is None else pos_t[s:e]
+        frames = video[..., s:e, :]
         exact = gram_mode == "exact"
         if fast and exact:
-            g, c1 = gram_fn(betas, pos, state.sigma, video[s:e], model.size,
+            g, c1 = gram_fn(betas, pos, state.sigma, frames, model.size,
                             scaling, **kw)
         elif fast:
-            c1 = c1_fn(betas, pos, state.sigma, video[s:e], model.size,
-                       scaling)
+            c1 = c1_fn(betas, pos, state.sigma, frames, model.size, scaling)
         else:
             g, c1 = _footprint_grams(betas, pos, state.sigma, video[s:e],
                                      model, vb, stored_a, exact)
@@ -506,7 +560,7 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
                                   scaling=scaling, window=window)
         grams.append(g)
         c1s.append(c1)
-    return torch.cat(grams), torch.cat(c1s)
+    return torch.cat(grams, dim=-3), torch.cat(c1s, dim=-2)
 
 
 compute_grams = grams_local
@@ -516,8 +570,13 @@ def footprint_update(state: DNMFState, grams: torch.Tensor, c1: torch.Tensor,
                      iters: int, gamma: float = 0.0,
                      solver: str = "mu") -> DNMFState:
     """``iters`` trace updates on precomputed Grams: the multiplicative
-    rule (``"mu"``) or FISTA (``"fista"``)."""
+    rule (``"mu"``) or FISTA (``"fista"``).  The multiplicative rule
+    updates a stacked state's ``c [R, K, T]`` from ``grams [R, T, K, K]``
+    and ``c1 [R, T, K]``, every recording at once; FISTA takes one
+    recording."""
     g = gamma if gamma else None
+    if solver == "fista" and state.c.ndim != 2:
+        raise ValueError("FISTA takes one recording's traces c [K, T]")
     if solver == "mu":
         c = mu_ops.run_mu_temporal(state.c, grams, c1, iters=iters, gamma=g)
     elif solver == "fista":

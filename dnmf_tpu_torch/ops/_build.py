@@ -31,16 +31,18 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Entry point -> argument types (pointers and the stream as c_void_p).
+_L = ctypes.c_longlong
+# Entry point -> argument types (pointers and the stream as c_void_p; a
+# video's recording stride as c_longlong).
 SIGNATURES = {
-    "dnmf_c1": [_P] * 8 + [_I] * 11 + [_P],
-    "dnmf_motion": [_P] * 8 + [_I] * 12 + [_P],
-    "dnmf_gram": [_P] * 11 + [_I] * 14 + [_P],
+    "dnmf_c1": [_P] * 5 + [_L] + [_P] * 3 + [_I] * 11 + [_P],
+    "dnmf_motion": [_P] * 5 + [_L] + [_P] * 3 + [_I] * 13 + [_P],
+    "dnmf_gram": [_P] * 5 + [_L] + [_P] * 6 + [_I] * 14 + [_P],
     "dnmf_gram_rows": [_P] * 12 + [_I] * 10 + [_P],
     "dnmf_refine": [_P] * 12 + [_I] * 12 + [_P],
     "dnmf_phasecorr": [_P] * 13 + [_I] * 11 + [_P],
     "dnmf_warp": [_P] * 7 + [_I] * 14 + [ctypes.c_float, _P],
-    "dnmf_table": [_P] * 5 + [_I] * 3 + [_P],
+    "dnmf_table": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 _lib = None

@@ -19,6 +19,19 @@ per-frame positions ``pos [B, K, 3]``; the latter go to
 ``c1_block_tracked`` and ``gram_block_tracked``, which launch the same
 kernels with one neuron table per frame.
 
+``motion_block``, ``c1_block`` and ``gram_block`` also take a leading
+recordings axis (several recordings of one size and K demixed together,
+:func:`dnmf_tpu_torch.parallel.batched_round`): ``betas [R, B, 10, 3]``,
+``pos [R, K, 3]``, ``sigma [R, K]`` or ``[R, K, 3]``, ``c_block [R, B,
+K]`` (motion) and ``y [R, B, P]``, whose frames need only be contiguous
+rows (a block ``videos[:, s:e]`` of ``[R, T, P]`` is read in place);
+the outputs gain the leading ``R``.  One launch covers every recording's
+frames, each recording with its own neuron table, as the JAX package's
+``vmap`` prepends the recordings axis to the Pallas grid; a frame's bits
+are those of the same frame launched alone.  Their plain versions take
+the same axis (the single-recording plain version per recording).  A
+recordings axis takes no voxel range and not the rows variant.
+
 A CUDA tensor launches the hand-written kernel of ``csrc/`` (or raises);
 a CPU tensor takes the plain version.  There is no fallback from one to
 the other.  Each wrapper counts its kernel launches in ``.launches``;
@@ -109,9 +122,23 @@ def _range_chunks(p_offset, p_loc: int, per_pixel: int):
         yield p0 + lo, p0 + hi, lo, hi
 
 
+def _per_recording(plain, tensors, *args, **kwargs):
+    """``plain`` on each recording of tensors with a leading recordings
+    axis, the outputs stacked: the plain versions' recordings axis."""
+    outs = [plain(*(t[r] for t in tensors), *args, **kwargs)
+            for r in range(tensors[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
 def motion_block_plain(betas, pos, sigma, c_block, y, size,
                        scaling: str = "normalized", p_offset=None):
     """Plain version of :func:`motion_block` (autograd gradient)."""
+    if betas.ndim == 4:
+        return _per_recording(motion_block_plain,
+                              (betas, pos, sigma, c_block, y), size, scaling,
+                              p_offset)
     bsz, p = y.shape
     sse = torch.zeros(bsz, dtype=betas.dtype, device=betas.device)
     grad = torch.zeros_like(betas)
@@ -130,7 +157,11 @@ def motion_block_plain(betas, pos, sigma, c_block, y, size,
 
 
 def c1_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized"):
-    """Plain version of :func:`c1_block` (``pos [K, 3]`` or ``[B, K, 3]``)."""
+    """Plain version of :func:`c1_block` (``pos [K, 3]`` or ``[B, K, 3]``,
+    or a recordings axis)."""
+    if betas.ndim == 4:
+        return _per_recording(c1_block_plain, (betas, pos, sigma, y), size,
+                              scaling)
     bsz, p = y.shape
     k = pos.shape[-2]
     c1 = torch.zeros((bsz, k), dtype=betas.dtype, device=betas.device)
@@ -143,7 +174,10 @@ def c1_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized"):
 def gram_block_plain(betas, pos, sigma, y, size, scaling: str = "normalized",
                      p_offset=None):
     """Plain version of :func:`gram_block` (``pos [K, 3]`` or
-    ``[B, K, 3]``)."""
+    ``[B, K, 3]``, or a recordings axis)."""
+    if betas.ndim == 4:
+        return _per_recording(gram_block_plain, (betas, pos, sigma, y), size,
+                              scaling, p_offset)
     bsz, p = y.shape
     k = pos.shape[-2]
     g = torch.zeros((bsz, k, k), dtype=betas.dtype, device=betas.device)
@@ -335,6 +369,68 @@ def _check(name, size, scaling, y, betas, pos, *tensors, p_offset=None):
         raise ValueError(f"{name}: unknown scaling {scaling!r}")
 
 
+def _check_recordings(name, size, y, betas, pos, sigma, c_block=None):
+    """Shapes of a recordings axis (``ValueError`` where they differ from
+    one recording to the next or from each other): ``betas [R, B, 10,
+    3]``, ``pos [R, K, 3]``, ``sigma [R, K]`` or ``[R, K, 3]``, ``c_block
+    [R, B, K]``, ``y [R, B, P]``."""
+    if y.ndim != 3:
+        raise ValueError(f"{name}: a recordings axis takes y [R, B, P], got "
+                         f"{tuple(y.shape)}")
+    r, bsz, p = y.shape
+    k = pos.shape[-2] if pos.ndim == 3 else -1
+    want = {"betas": (betas, [(r, bsz, 10, 3)]), "pos": (pos, [(r, k, 3)]),
+            "sigma": (sigma, [(r, k), (r, k, 3)])}
+    if c_block is not None:
+        want["c_block"] = (c_block, [(r, bsz, k)])
+    for what, (t, shapes) in want.items():
+        if tuple(t.shape) not in shapes:
+            raise ValueError(
+                f"{name}: a recordings axis needs equal shapes in every "
+                f"recording: {what} {tuple(t.shape)} for y {tuple(y.shape)} "
+                f"and {k} neurons (want {' or '.join(map(str, shapes))})")
+    if int(size[0]) * int(size[1]) * int(size[2]) != p:
+        raise ValueError(f"{name}: y has {p} voxels, size {tuple(size)} has "
+                         f"{int(size[0]) * int(size[1]) * int(size[2])}")
+
+
+def _check_recordings_cuda(name, scaling, y, betas, pos, sigma, *tensors):
+    """The kernels' demands on a recordings axis beyond its shapes: CUDA
+    float32 tensors on one device, each frame's voxels one contiguous row
+    (the recordings may lie anywhere)."""
+    dev = y.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
+    for t in (y, betas, pos, sigma) + tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: all inputs must be on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if y.stride(2) != 1 or y.stride(1) != y.shape[2]:
+        raise ValueError(f"{name}: each recording's frames must be "
+                         f"contiguous rows of y, got strides {y.stride()}")
+    if scaling not in ("normalized", "pixel"):
+        raise ValueError(f"{name}: unknown scaling {scaling!r}")
+
+
+def _no_range(name, p_offset) -> None:
+    if p_offset is not None:
+        raise ValueError(f"{name}: a recordings axis takes no p_offset (the "
+                         "voxel-range instances sum one recording's shard)")
+
+
+def _layout(betas, pos, y, batched: bool):
+    """A launch's frames as recordings of frames that share a neuron table:
+    ``(betas [R, F, 10, 3], pos [R, K, 3], y [R, F, P])``.  Shared anchors
+    are one recording, per-frame positions ``pos [B, K, 3]`` are B
+    recordings of one frame, and a recordings axis is itself."""
+    if batched:
+        return betas, pos, y
+    if pos.ndim == 3:
+        return betas[:, None], pos, y[:, None]
+    return betas[None], pos[None], y[None]
+
+
 def _common(betas, size, scaling):
     m, n, z = (int(s) for s in size)
     return (betas.reshape(-1, 30).contiguous(), m, n, z,
@@ -384,11 +480,17 @@ def brick_groups(size, floats_per_group: int, budget=None,
 def _plain_counts(out, betas, pos, sigma, size, scaling, p_offset=None,
                   p_count=None):
     """``out`` with the plain rule's candidate count per brick appended:
-    what ``brick_counts=True`` gives on CPU tensors."""
-    counts = brick_candidates_plain(betas, pos, sigma, size, scaling,
-                                    p_offset=p_offset, p_count=p_count)
+    what ``brick_counts=True`` gives on CPU tensors (per recording of a
+    recordings axis)."""
+    def count(betas, pos, sigma):
+        return brick_candidates_plain(
+            betas, pos, sigma, size, scaling, p_offset=p_offset,
+            p_count=p_count).sum(-1).to(torch.int32)
+
+    counts = (_per_recording(count, (betas, pos, sigma)) if betas.ndim == 4
+              else count(betas, pos, sigma))
     out = out if isinstance(out, tuple) else (out,)
-    return out + (counts.sum(-1).to(torch.int32),)
+    return out + (counts,)
 
 
 def _counts_out(bsz, n_bricks, device, wanted):
@@ -409,21 +511,37 @@ def motion_block(betas, pos, sigma, c_block, y, size,
     + P_loc)``, and ``mse``, ``dbeta`` are means over them.
     ``brick_counts`` appends the kernel's candidate count of every brick
     (of the range), ``[B, n_bricks]`` int32 (on CPU tensors: from
-    :func:`brick_candidates_plain`)."""
+    :func:`brick_candidates_plain`).
+
+    A recordings axis (module docstring) gives ``mse [R, B]``, ``dbeta
+    [R, B, 10, 3]`` (and counts ``[R, B, n_bricks]``) in one launch."""
+    batched = betas.ndim == 4
+    if batched:
+        _no_range("motion_block", p_offset)
+        _check_recordings("motion_block", size, y, betas, pos, sigma,
+                          c_block)
     if y.device.type == "cpu":
         out = motion_block_plain(betas, pos, sigma, c_block, y, size, scaling,
                                  p_offset)
         return (_plain_counts(out, betas, pos, sigma, size, scaling, p_offset,
-                              y.shape[1]) if brick_counts else out)
-    _check("motion_block", size, scaling, y, betas, pos, sigma, c_block,
-           p_offset=p_offset)
+                              y.shape[-1]) if brick_counts else out)
+    if batched:
+        _check_recordings_cuda("motion_block", scaling, y, betas, pos, sigma,
+                               c_block)
+    else:
+        _check("motion_block", size, scaling, y, betas, pos, sigma, c_block,
+               p_offset=p_offset)
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
-    bsz, p_loc = y.shape
+    betas, pos, y = _layout(betas, pos, y, batched)
+    c_block = c_block if batched else c_block[None]
+    r, fpt, p_loc = y.shape
+    bsz = r * fpt
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
-    table, order, rmax = neuron_table(pos[None], sigma)
-    c_rows = c_block.index_select(1, order[0])  # the traces in table order
+    table, order, rmax = neuron_table(pos, sigma, per_table=batched)
+    # Each frame's traces in its own table's order.
+    c_rows = torch.gather(c_block, 2, order[:, None, :].expand(r, fpt, -1))
     per_group, n_groups = brick_groups(size, 32, p_offset=p_offset,
                                        p_count=p_loc)
     partial = torch.empty(bsz * n_groups * 32, dtype=torch.float32,
@@ -433,48 +551,65 @@ def motion_block(betas, pos, sigma, c_block, y, size,
         bsz, brick_range(size, p_offset, p_loc)[1], y.device, brick_counts)
     err = lib.dnmf_motion(
         beta_rows.data_ptr(), table.data_ptr(), rmax.data_ptr(),
-        c_rows.data_ptr(), y.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        counts_ptr, bsz, m, n, z, norm, pos.shape[0],
+        c_rows.data_ptr(), y.data_ptr(), y.stride(0), partial.data_ptr(),
+        out.data_ptr(), counts_ptr, bsz, m, n, z, norm, pos.shape[1], fpt,
         *refine_bricks(size), per_group, int(p_offset or 0), p_loc,
         _stream())
     _build.check(err, "dnmf_motion")
     motion_block.launches += 1
-    res = (out[:bsz], out[bsz:].view(bsz, 10, 3))
-    return res + (counts,) if brick_counts else res
+    lead = (r, fpt) if batched else (fpt,)
+    res = (out[:bsz].view(lead), out[bsz:].view(lead + (10, 3)))
+    if brick_counts:
+        res += (counts.view(lead + (-1,)),)
+    return res
 
 
-def _c1_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts):
+def _c1_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts,
+               batched=False):
     """Run csrc/c1.cu for the wrapper ``fn`` on shared anchors ``pos [K,
-    3]`` or per-frame positions ``[B, K, 3]``: ``c1 [B, K]`` (and the
+    3]``, per-frame positions ``[B, K, 3]`` or a recordings axis
+    (``batched``): ``c1`` of the leading shape of ``y`` by ``K`` (and the
     candidate count per brick)."""
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
-    bsz, k = y.shape[0], pos.shape[-2]
+    lead, k = tuple(y.shape[:-1]), pos.shape[-2]
+    betas, pos, y = _layout(betas, pos, y, batched)
+    fpt = y.shape[1]
+    bsz = y.shape[0] * fpt
     beta_rows, m, n, z, norm = _common(betas, size, scaling)
-    tracked = pos.ndim == 3
-    table, order, rmax = neuron_table(pos if tracked else pos[None], sigma)
+    table, order, rmax = neuron_table(pos, sigma, per_table=batched)
     per_group, n_groups = brick_groups(size, k)
     partial = torch.empty(bsz * n_groups * k, dtype=torch.float32,
                           device=y.device)
-    c1 = torch.empty((bsz, k), dtype=torch.float32, device=y.device)
+    c1 = torch.empty(lead + (k,), dtype=torch.float32, device=y.device)
     counts, counts_ptr = _counts_out(bsz, brick_count(size), y.device,
                                      brick_counts)
     err = lib.dnmf_c1(
         beta_rows.data_ptr(), table.data_ptr(), order.data_ptr(),
-        rmax.data_ptr(), y.data_ptr(), partial.data_ptr(), c1.data_ptr(),
-        counts_ptr, bsz, m, n, z, norm, k, int(tracked), *refine_bricks(size),
-        per_group, _stream())
+        rmax.data_ptr(), y.data_ptr(), y.stride(0), partial.data_ptr(),
+        c1.data_ptr(), counts_ptr, bsz, m, n, z, norm, k, fpt,
+        *refine_bricks(size), per_group, _stream())
     _build.check(err, "dnmf_c1")
     fn.launches += 1
-    return (c1, counts) if brick_counts else c1
+    return (c1, counts.view(lead + (-1,))) if brick_counts else c1
 
 
 def c1_block(betas, pos, sigma, y, size, scaling: str = "normalized",
              brick_counts: bool = False):
     """``c1 [B, K] = sum_p w A y`` for ``betas [B, 10, 3]``, ``y [B, P]``;
     ``pos [B, K, 3]`` goes to :func:`c1_block_tracked`.  ``brick_counts``
-    as in :func:`motion_block`."""
+    as in :func:`motion_block`.  A recordings axis (module docstring)
+    gives ``c1 [R, B, K]`` in one launch."""
+    if betas.ndim == 4:
+        _check_recordings("c1_block", size, y, betas, pos, sigma)
+        if y.device.type == "cpu":
+            out = c1_block_plain(betas, pos, sigma, y, size, scaling)
+            return (_plain_counts(out, betas, pos, sigma, size, scaling)
+                    if brick_counts else out)
+        _check_recordings_cuda("c1_block", scaling, y, betas, pos, sigma)
+        return _c1_launch(c1_block, betas, pos, sigma, y, size, scaling,
+                          brick_counts, batched=True)
     if pos.ndim == 3:
         return c1_block_tracked(betas, pos, sigma, y, size, scaling,
                                 brick_counts)
@@ -525,48 +660,62 @@ def gram_splits(size, k: int, p_offset=None, p_count=None) -> int:
 
 
 def _gram_launch(fn, betas, pos, sigma, y, size, scaling, brick_counts,
-                 rows=None, p_offset=None):
+                 rows=None, p_offset=None, batched=False):
     """Run csrc/gram.cu for the wrapper ``fn`` on shared anchors ``pos [K,
-    3]`` or per-frame positions ``[B, K, 3]``, from the warp (``betas``,
-    over the voxel range of ``p_offset`` and ``y``'s columns) or from
-    precomputed ``rows = (psi, w)``: ``(G [B, K, K], c1 [B, K])`` in the
-    caller's order (and the candidate count per brick)."""
+    3]``, per-frame positions ``[B, K, 3]`` or a recordings axis
+    (``batched``), from the warp (``betas``, over the voxel range of
+    ``p_offset`` and ``y``'s columns) or from precomputed ``rows = (psi,
+    w)``: ``(G, c1)`` of the leading shape of ``y`` by ``(K, K)`` and
+    ``K``, in the caller's order (and the candidate count per brick).
+    The scratch holds every frame's groups: ``k (k + 1) / 2`` floats per
+    group, up to ``GRAM_PART_FLOATS`` per frame (1.07 GB for the 64 frames
+    of 8 recordings' blocks of 8 at whole-brain, K = 200); a frame block of
+    the recordings is one launch."""
     from dnmf_tpu_torch.ops import _build
 
     lib = _build.load()
-    bsz, k = y.shape[0], pos.shape[-2]
-    p_loc = y.shape[1]
+    lead, k = tuple(y.shape[:-1]), pos.shape[-2]
+    p_loc = y.shape[-1]
     m, n, z = (int(s) for s in size)
-    tracked = pos.ndim == 3
-    table, order, rmax = neuron_table(pos if tracked else pos[None], sigma)
+    if rows is None:
+        betas, pos, y = _layout(betas, pos, y, batched)
+    else:
+        pos, y = pos[None], y[None]
+    fpt = y.shape[1]
+    bsz = y.shape[0] * fpt
+    table, order, rmax = neuron_table(pos, sigma, per_table=batched)
     per_group, n_groups = gram_groups(size, k, p_offset, p_loc)
     f32 = dict(dtype=torch.float32, device=y.device)
     gpart = torch.empty(bsz * n_groups * (k * (k + 1) // 2), **f32)
     cpart = torch.empty(bsz * n_groups * k, **f32)
     windows = torch.empty(bsz * n_groups * 2, dtype=torch.int32,
                           device=y.device)
-    g = torch.empty((bsz, k, k), **f32)
-    c1 = torch.empty((bsz, k), **f32)
+    g = torch.empty(lead + (k, k), **f32)
+    c1 = torch.empty(lead + (k,), **f32)
     counts, counts_ptr = _counts_out(
         bsz, brick_range(size, p_offset, p_loc)[1], y.device, brick_counts)
     scratch = (table.data_ptr(), order.data_ptr(), rmax.data_ptr(),
-               y.data_ptr(), gpart.data_ptr(), cpart.data_ptr(),
-               windows.data_ptr(), g.data_ptr(), c1.data_ptr(), counts_ptr)
+               y.data_ptr())
+    outs = (gpart.data_ptr(), cpart.data_ptr(), windows.data_ptr(),
+            g.data_ptr(), c1.data_ptr(), counts_ptr)
     if rows is None:
         beta_rows, _, _, _, norm = _common(betas, size, scaling)
-        err = lib.dnmf_gram(beta_rows.data_ptr(), *scratch, bsz, m, n, z,
-                            norm, k, int(tracked), *refine_bricks(size),
-                            per_group, gram_splits(size, k, p_offset, p_loc),
+        err = lib.dnmf_gram(beta_rows.data_ptr(), *scratch, y.stride(0),
+                            *outs, bsz, m, n, z, norm, k, fpt,
+                            *refine_bricks(size), per_group,
+                            gram_splits(size, k, p_offset, p_loc),
                             int(p_offset or 0), p_loc, _stream())
         _build.check(err, "dnmf_gram")
     else:
         psi, w = rows
-        err = lib.dnmf_gram_rows(psi.data_ptr(), w.data_ptr(), *scratch, bsz,
-                                 m, n, z, k, *refine_bricks(size), per_group,
-                                 gram_splits(size, k), _stream())
+        err = lib.dnmf_gram_rows(psi.data_ptr(), w.data_ptr(), *scratch,
+                                 *outs, bsz, m, n, z, k, *refine_bricks(size),
+                                 per_group, gram_splits(size, k), _stream())
         _build.check(err, "dnmf_gram_rows")
     fn.launches += 1
-    return (g, c1, counts) if brick_counts else (g, c1)
+    if brick_counts:
+        return g, c1, counts.view(lead + (-1,))
+    return g, c1
 
 
 def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized",
@@ -587,7 +736,24 @@ def gram_block(betas, pos, sigma, y, size, scaling: str = "normalized",
     int32 (on CPU tensors: from :func:`brick_candidates_plain`); a brick
     sums the ``n (n + 1) / 2`` pairs of its ``n`` candidates
     (:func:`gram_block_bricks_plain`).
+
+    A recordings axis (module docstring) gives ``(G [R, B, K, K], c1 [R,
+    B, K])`` in one launch; it takes neither ``p_offset`` nor the rows.
     """
+    if betas.ndim == 4:
+        _no_range("gram_block", p_offset)
+        if psi_source != "kernel" or rows is not None:
+            raise ValueError("gram_block: a recordings axis takes "
+                             "psi_source='kernel' (the rows variant sums one "
+                             "recording's frames)")
+        _check_recordings("gram_block", size, y, betas, pos, sigma)
+        if y.device.type == "cpu":
+            out = gram_block_plain(betas, pos, sigma, y, size, scaling)
+            return (_plain_counts(out, betas, pos, sigma, size, scaling)
+                    if brick_counts else out)
+        _check_recordings_cuda("gram_block", scaling, y, betas, pos, sigma)
+        return _gram_launch(gram_block, betas, pos, sigma, y, size, scaling,
+                            brick_counts, batched=True)
     if p_offset is not None and (psi_source != "kernel" or pos.ndim == 3):
         raise ValueError(
             "p_offset takes shared anchors and psi_source='kernel' (the rows "
@@ -619,7 +785,11 @@ def gram_block_rows(psi, w, pos, sigma, y, size,
     deformed coordinates ``psi [B, P, 3]`` and fades ``w [B, P]`` of
     ``y [B, P]``, for shared anchors ``pos [K, 3]``; the kernel culls by
     the bricks of the volume ``size`` the rows come from.
-    ``brick_counts`` as in :func:`gram_block`."""
+    ``brick_counts`` as in :func:`gram_block`.  It takes no recordings
+    axis."""
+    if y.ndim != 2:
+        raise ValueError(f"gram_block_rows takes no recordings axis: y "
+                         f"{tuple(y.shape)}, want [B, P]")
     bsz, p = y.shape
     size = tuple(int(s) for s in size)
     if y.device.type == "cpu":
@@ -744,40 +914,49 @@ def gram_block_bricks_plain(betas, pos, sigma, y, size,
             torch.bmm(y[:, None], a)[:, 0])
 
 
-def neuron_table_plain(pos_t, sigma):
+def neuron_table_plain(pos_t, sigma, per_table: bool = False):
     """Plain version of :func:`neuron_table`."""
     order = torch.argsort(pos_t[:, :, 0], dim=1, stable=True)
     sig = sigma.to(torch.float32)
-    reach = REACH_SIGMAS * (sig if sig.ndim == 2
-                            else sig[:, None].expand(-1, 3))
-    inv_s2 = per_axis_inv_s2(sigma)
-    zero = torch.zeros_like(reach[:, :1])
+    sig = sig if per_table else sig[None]
+    sig3 = sig if sig.ndim == 3 else sig[..., None].expand(sig.shape + (3,))
+    reach = REACH_SIGMAS * sig3  # [F or 1, K, 3]
+    inv_s2 = 1.0 / (sig3 * sig3)
+    zero = torch.zeros_like(reach[..., :1])
     rows = torch.cat([zero, zero, zero, inv_s2 * LOG2E, zero, zero, reach,
-                      zero, inv_s2, zero], dim=1)[order]  # [F, K, 16]
+                      zero, inv_s2, zero], dim=-1)
+    rows = torch.take_along_dim(rows.expand(pos_t.shape[0], -1, -1),
+                                order[..., None], dim=1)  # [F, K, 16]
     rows[..., :3] = torch.take_along_dim(pos_t, order[..., None], dim=1)
-    rmax = reach[:, 0].amax().clamp(min=0.0).reshape(1)
+    rmax = reach[..., 0].amax().clamp(min=0.0).reshape(1)
     return rows, order, rmax
 
 
-def neuron_table(pos_t, sigma):
+def neuron_table(pos_t, sigma, per_table: bool = False):
     """The brick kernels' neuron tables, one per frame of positions
-    ``pos_t [F, K, 3]`` (shared anchors: ``F = 1``), each sorted by the
-    frame's own m coordinate (stable): ``(table [F, K, 16], order [F, K]
-    int64, rmax [1])``; rows ``(p_m, p_n, p_z, log2e/s_m^2, log2e/s_n^2,
-    log2e/s_z^2, 0, 0, 6 s_m, 6 s_n, 6 s_z, 0, 1/s_m^2, 1/s_n^2, 1/s_z^2,
-    0)`` for ``sigma [K]`` or ``[K, 3]``; ``order[f, i]`` is row i's
-    neuron; ``rmax`` the largest m reach ``6 s_m`` (on the device: no
-    sync).  CUDA tensors: ``build_table`` (csrc/table.cu), which the
-    motion, c1 and refine wrappers launch before their kernel."""
+    ``pos_t [F, K, 3]`` (shared anchors: ``F = 1``; a recordings axis: one
+    per recording), each sorted by the frame's own m coordinate (stable):
+    ``(table [F, K, 16], order [F, K] int64, rmax [1])``; rows ``(p_m,
+    p_n, p_z, log2e/s_m^2, log2e/s_n^2, log2e/s_z^2, 0, 0, 6 s_m, 6 s_n, 6
+    s_z, 0, 1/s_m^2, 1/s_n^2, 1/s_z^2, 0)`` for ``sigma [K]`` or ``[K,
+    3]``, or with ``per_table`` each table's own, ``sigma [F, K]`` or
+    ``[F, K, 3]``; ``order[f, i]`` is row i's neuron; ``rmax`` the largest
+    m reach ``6 s_m`` of all the tables (on the device: no sync).  CUDA
+    tensors: ``build_table`` (csrc/table.cu), which the motion, c1, Gram
+    and refine wrappers launch before their kernel."""
+    f, k = pos_t.shape[0], pos_t.shape[1]
+    widths = (f, k) if per_table else (k,)
+    if tuple(sigma.shape) not in (widths, widths + (3,)):
+        raise ValueError(f"neuron_table: sigma {tuple(sigma.shape)} for "
+                         f"{f} tables of {k} neurons (per_table={per_table})")
     if pos_t.device.type == "cpu":
-        return neuron_table_plain(pos_t, sigma)
+        return neuron_table_plain(pos_t, sigma, per_table)
     for t in (pos_t, sigma):
         if t.device != pos_t.device or t.dtype != torch.float32:
             raise TypeError("neuron_table: the kernel takes float32 tensors "
                             f"on one device, got {t.dtype} on {t.device}")
     from dnmf_tpu_torch.ops import _build
 
-    f, k = pos_t.shape[0], pos_t.shape[1]
     pos_t, sigma = pos_t.contiguous(), sigma.contiguous()
     buf = torch.empty(f * k * REFINE_ROW + 1, dtype=torch.float32,
                       device=pos_t.device)
@@ -785,8 +964,8 @@ def neuron_table(pos_t, sigma):
     order = torch.empty((f, k), dtype=torch.int64, device=pos_t.device)
     err = _build.load().dnmf_table(
         pos_t.data_ptr(), sigma.data_ptr(), table.data_ptr(),
-        order.data_ptr(), buf[-1:].data_ptr(), f, k, int(sigma.ndim == 2),
-        _stream())
+        order.data_ptr(), buf[-1:].data_ptr(), f, k,
+        int(sigma.ndim == 2 + int(per_table)), int(per_table), _stream())
     _build.check(err, "dnmf_table")
     return table, order, buf[-1:]
 

@@ -14,7 +14,9 @@ warp's own-axis curvature exactly); a thin axis of at most
 cross-quadratic warp term, which the trainer's trust audit bounds.
 
 Counterpart of ``dnmf_tpu/ops/gram_analytic.py`` (XLA code there, plain
-PyTorch here), vectorized over a leading frame axis instead of vmapped.
+PyTorch here), vectorized over a leading frame axis instead of vmapped;
+a leading recordings axis (each recording with its own positions and
+widths) folds into the frame axis.
 """
 
 from __future__ import annotations
@@ -78,21 +80,40 @@ def analytic_grams(betas: torch.Tensor, pos: torch.Tensor,
     (:func:`analytic_grams_tracked`); ``sigma [K]`` or ``[K, 3]``.
     ``window`` is the half-width of the per-axis lattice sums; it must
     cover the pair Gaussian (:func:`default_window`).
+
+    A recordings axis, ``betas [R, B, 10, 3]`` with ``pos [R, K, 3]`` and
+    ``sigma [R, K]`` or ``[R, K, 3]``, gives ``[R, B, K, K]`` in one call.
     """
+    sig = sigma.to(torch.float32)
+    if sig.ndim == betas.ndim - 2:  # isotropic
+        sig = sig[..., None].expand(sig.shape + (3,))
+    kwargs = dict(scaling=scaling, window=window, iters=iters,
+                  plane_axis_max=plane_axis_max)
+    if betas.ndim == 4:
+        r, bsz, k = betas.shape[0], betas.shape[1], pos.shape[-2]
+
+        def frames(t):  # [R, K, 3] -> each frame's copy, [R B, K, 3]
+            return t[:, None].expand(r, bsz, k, 3).reshape(r * bsz, k, 3)
+
+        return _grams(betas.reshape(r * bsz, 10, 3), frames(pos),
+                      frames(sig), size, **kwargs).view(r, bsz, k, k)
+    return _grams(betas, pos if pos.ndim == 3 else pos[None], sig[None], size,
+                  **kwargs)
+
+
+def _grams(betas, pos_t, sig, size, scaling, window, iters, plane_axis_max):
+    """:func:`analytic_grams` for ``betas [B, 10, 3]``, ``pos_t [B or 1,
+    K, 3]`` and per-axis widths ``sig [B or 1, K, 3]``."""
     size_t = tuple(int(s) for s in size)
-    kw = dict(dtype=torch.float32, device=pos.device)
-    pos_t = pos if pos.ndim == 3 else pos[None]          # [B or 1, K, 3]
+    kw = dict(dtype=torch.float32, device=pos_t.device)
     hi = torch.tensor([float(s - 1) for s in size_t], **kw)
     bsz = betas.shape[0]
 
-    sig = sigma.to(torch.float32)
-    if sig.ndim == 1:
-        sig = sig[:, None].expand(sig.shape + (3,))
-    ck = 1.0 / (sig * sig)                               # [K, 3]
-    c = ck[:, None, :] + ck[None, :, :]                  # [K, K, 3]
-    gamma = ck[:, None, :] * ck[None, :, :] / c
-    wk = ck[:, None, :] / c
-    wl = ck[None, :, :] / c
+    ck = 1.0 / (sig * sig)                               # [B or 1, K, 3]
+    c = ck[:, :, None, :] + ck[:, None, :, :]            # [B or 1, K, K, 3]
+    gamma = ck[:, :, None, :] * ck[:, None, :, :] / c
+    wk = ck[:, :, None, :] / c
+    wl = ck[:, None, :, :] / c
     delta2 = (pos_t[:, :, None, :] - pos_t[:, None, :, :]) ** 2
     pairfac = torch.exp(-torch.sum(gamma * delta2, dim=-1))  # [B|1, K, K]
 
@@ -153,7 +174,7 @@ def analytic_grams(betas: torch.Tensor, pos: torch.Tensor,
             s_planes = s_planes * axis_sum(
                 d, u0b[..., d], jddb[..., d],
                 xc[..., d, None].expand(zshape),
-                c[..., d, None].expand(zshape[1:]),
+                c[..., d, None].expand(zshape),
                 m[..., d, None].expand(zshape),
             )
         return pairfac * torch.sum(s_planes, dim=-1)

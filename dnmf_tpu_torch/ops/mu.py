@@ -4,7 +4,9 @@ The per-frame Gram ``G_t = A_t^T A_t [K, K]`` and projection
 ``c1_t = A_t^T y_t [K]`` do not depend on the traces, so they are
 computed once per footprint update and every iteration costs
 ``O(K^2 T)``.  Counterpart of ``dnmf_tpu/ops/mu.py``; ``lax.scan`` loops
-become Python loops.
+become Python loops.  The multiplicative rule takes leading batch axes
+(several recordings: ``c [R, K, T]``, ``grams [R, T, K, K]``, ``c1 [R,
+T, K]``), as the JAX package's ``vmap`` does.
 """
 
 from __future__ import annotations
@@ -29,11 +31,11 @@ def _neighbor_sum(c: torch.Tensor, halo=None) -> torch.Tensor:
     with ``halo = (left_col, right_col)`` (each ``[K]``) the columns just
     outside ``c``'s frames (a time shard's neighbours)."""
     if halo is None:
-        left_col, right_col = c[:, 0], c[:, -1]
+        left_col, right_col = c[..., 0], c[..., -1]
     else:
         left_col, right_col = halo
-    left = torch.cat([left_col[:, None], c[:, :-1]], dim=1)
-    right = torch.cat([c[:, 1:], right_col[:, None]], dim=1)
+    left = torch.cat([left_col[..., None], c[..., :-1]], dim=-1)
+    right = torch.cat([c[..., 1:], right_col[..., None]], dim=-1)
     return left + right
 
 
@@ -46,8 +48,8 @@ def mu_temporal_step(c: torch.Tensor, grams: torch.Tensor, c1: torch.Tensor,
     smoothing (None or 0 disables it).  ``halo`` (a time shard): the
     neighbouring shards' edge columns ``(left_col, right_col)``, used in
     place of edge replication."""
-    c2 = torch.einsum("tkl,lt->kt", grams, c)
-    num = c1.T
+    c2 = torch.einsum("...tkl,...lt->...kt", grams, c)
+    num = c1.transpose(-1, -2)
     den = c2
     if gamma is not None and gamma != 0.0:
         num = num + gamma * _neighbor_sum(c, halo)

@@ -1,13 +1,21 @@
 """Several recordings demixed together (one state per recording).
 
 Counterpart of ``dnmf_tpu/parallel/batched.py``.  The JAX package stacks
-the recordings' states along a leading axis and ``vmap``s the round; here
-the states stack the same way (:func:`stack_states`) and
-:func:`batched_round` loops over the recordings: each kernel launch is
-one recording's, since each has its own positions.  On a mesh with a
+the recordings' states along a leading axis and ``vmap``s the round, and
+``pallas_call``'s batching rule prepends the recordings axis to each
+kernel's grid.  Here the states stack the same way (:func:`stack_states`)
+and :func:`batched_round` runs the round's functions on the stacked state
+(:mod:`dnmf_tpu_torch.models.dnmf`): per frame block, one launch of the
+motion kernel A and one of the Gram kernel C (exact Grams) or of the c1
+kernel B (closed-form Grams) covers every recording's frames, each
+recording with its own neuron table (built in one launch per pass); one
+Adam step, one corner-regularizer call, the closed form and the trace
+updates take the recordings as a leading batch axis.  No Python loop
+runs over the recordings (the models that no kernel computes excepted:
+they take the footprint ops recording by recording).  On a mesh with a
 ``batch`` axis the recordings split over it: each rank runs its own run
-of them and one ``all_gather`` over the axis gives every rank all the
-results.  All recordings share (size, K, T).
+of them so, and one ``all_gather`` over the axis gives every rank all
+the results.  All recordings share (size, K, T).
 """
 
 from __future__ import annotations
@@ -24,7 +32,13 @@ from dnmf_tpu_torch.parallel.mesh import (BATCH_AXIS, all_gather, axis_index,
 
 def stack_states(states) -> model_lib.DNMFState:
     """Per-recording states stacked into one state with a leading
-    recordings axis on every field."""
+    recordings axis on every field; ``ValueError`` unless every field has
+    one shape in all of them (equal size, K and T)."""
+    for name in model_lib.STATE_FIELDS:
+        shapes = {tuple(getattr(s, name).shape) for s in states}
+        if len(shapes) > 1:
+            raise ValueError(f"a recordings axis needs equal shapes in every "
+                             f"recording: {name} has {sorted(shapes)}")
     return model_lib.DNMFState(**{
         name: torch.stack([getattr(s, name) for s in states])
         for name in model_lib.STATE_FIELDS})
@@ -61,22 +75,16 @@ def batched_round(states: model_lib.DNMFState, videos: torch.Tensor,
         raise ValueError(f"{r} recordings must divide evenly over mesh "
                          f"batch={nb}")
     per = r // nb
-    out, mses, regs = [], [], []
-    for i in range(ib * per, (ib + 1) * per):
-        state = model_lib.DNMFState(**{
-            name: getattr(states, name)[i] for name in model_lib.STATE_FIELDS})
-        state, m = model_lib.motion_epoch_parallel(
-            state, videos[i], model, optimizer, gamma, frame_block,
-            use_kernels)
-        grams, c1 = model_lib.compute_grams(
-            state, videos[i], model, frame_block, use_kernels, gram_mode,
-            gram_window)
-        out.append(model_lib.footprint_update(state, grams, c1, mu_iters,
-                                              mu_gamma))
-        mses.append(m["recon_mse"])
-        regs.append(m["reg"])
-    local = stack_states(out)
-    metrics = {"recon_mse": torch.stack(mses), "reg": torch.stack(regs)}
+    mine = slice(ib * per, (ib + 1) * per)
+    state = model_lib.DNMFState(**{name: getattr(states, name)[mine]
+                                   for name in model_lib.STATE_FIELDS})
+    video = videos[mine]
+    state, m = model_lib.motion_epoch_parallel(
+        state, video, model, optimizer, gamma, frame_block, use_kernels)
+    grams, c1 = model_lib.compute_grams(state, video, model, frame_block,
+                                        use_kernels, gram_mode, gram_window)
+    local = model_lib.footprint_update(state, grams, c1, mu_iters, mu_gamma)
+    metrics = {"recon_mse": m["recon_mse"], "reg": m["reg"]}
     if nb > 1:
         local = model_lib.DNMFState(**{
             name: torch.cat(all_gather(getattr(local, name), mesh,

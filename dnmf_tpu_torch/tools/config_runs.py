@@ -14,10 +14,10 @@ both configs; one JSON line per config, with the card):
 * config 5: one alternation round (a motion epoch, exact Grams, 50 MU)
   of 4 recordings of 128x128x8, K=50, T=128 through
   ``parallel.batched_round`` against one recording's round, and the
-  throughput ratio.  ``batched_round`` loops over the recordings (each
-  has its own positions, so each kernel launch is one recording's), so
-  the ratio measures that loop: near 1 where the JAX package's ``vmap``
-  could batch.
+  throughput ratio.  ``batched_round`` runs every recording at once (one
+  launch of the motion and Gram kernels per frame block for all of them,
+  as the JAX package's ``vmap`` runs its Pallas kernels); ``launches``
+  counts one batched round's launches.
 """
 
 from __future__ import annotations
@@ -116,16 +116,18 @@ def run_config5(recordings: int = 4, t: int = 128, size=(128, 128, 8),
     out = {"config": 5,
            "workload": f"{recordings} recordings x {size[0]}x{size[1]}x"
                        f"{size[2]} K={k} T={t}, one alternation round "
-                       "(kernels, exact Grams), batched_round's loop over "
-                       "the recordings, one card"}
-    fused.reset_launch_counts()
+                       "(kernels, exact Grams), batched_round over every "
+                       "recording at once (one launch per kernel per frame "
+                       "block), one card"}
     single_s = bench.timed(out, "single_recording_round_s",
                            kc.host_seconds(single, reps, dev))
+    fused.reset_launch_counts()
     batch_s = bench.timed(out, "batched_round_s",
                           kc.host_seconds(batch, reps, dev))
     out["throughput_vs_serial"] = recordings * single_s / batch_s
     out["frames_per_sec_batched"] = recordings * t / batch_s
-    out["launches"] = {n: c for n, c in
+    calls = kc.WARMUP + reps  # the batched rounds counted
+    out["launches"] = {n: c // calls for n, c in
                        fused.launch_counts().items() if c}
     return out
 

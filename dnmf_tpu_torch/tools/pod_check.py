@@ -239,7 +239,8 @@ def run_all(device="cpu", verbose: bool = True) -> list:
         _close(templ_s, templ_b, 0, 1e-4)
     check("sharded registration (== single-device chunked)", _registration)
 
-    # 9. Recordings over a batch axis.
+    # 9. Recordings over a batch axis: each rank runs its recordings at
+    # once (the kernels' recordings axis), against each recording's round.
     if n % 2 == 0:
         def _batched():
             mesh_bt = parallel.make_mesh(num_time=n // 2, num_batch=2)
@@ -249,12 +250,15 @@ def run_all(device="cpu", verbose: bool = True) -> list:
             videos = torch.stack([video, video.flip(0)])
             new, _ = parallel.batched_round(
                 parallel.stack_states([state, state1]), videos, model, adam,
-                0.1, mu_iters=5, frame_block=2, mesh=mesh_bt)
+                0.1, mu_iters=5, frame_block=2, use_kernels=True,
+                mesh=mesh_bt)
             for i, (st, vid) in enumerate(((state, videos[0]),
                                            (state1, videos[1]))):
                 st_m, _ = tM.motion_epoch_parallel(st, vid, model, adam, 0.1,
-                                                   frame_block=2)
-                g, c = tM.compute_grams(st_m, vid, model, frame_block=2)
+                                                   frame_block=2,
+                                                   use_kernels=True)
+                g, c = tM.compute_grams(st_m, vid, model, frame_block=2,
+                                        use_kernels=True)
                 ref = tM.footprint_update(st_m, g, c, iters=5)
                 got = parallel.unstack_states(new)[i]
                 _close(got.beta, ref.beta, 1e-5, 1e-7)

@@ -7,7 +7,10 @@ kernels (motion, c1, Gram, refine) also at odd shapes, at K = 6000 and
 20000 crowding a small volume, repeated bit for bit, frame for frame
 alone or inside a 16-frame call, and with their candidate counts held to
 the plain rule; G also at odd sizes and the largest shifts its halo
-takes.  The data layer on the card: the simulator against its CPU run on
+takes.  The motion, c1 and Gram kernels over a recordings axis (one
+launch for every recording's frame block, bit-equal per recording to
+the kernel launched on that recording) and ``batched_round`` with
+them.  The data layer on the card: the simulator against its CPU run on
 one CPU generator's draws, a ``SimulatedVideoDataset`` on the card
 feeding ``fit``, and the recovery harness with and without the kernels.
 Marked ``cuda``; every test skips where no CUDA device exists.
@@ -444,6 +447,130 @@ def test_neuron_table_on_the_card_is_the_plain_table(dev, aniso):
         assert torch.equal(table.cpu()[..., :3], t_ref[..., :3])
         assert torch.equal(table.cpu()[..., 8:11], t_ref[..., 8:11])
         torch.testing.assert_close(table.cpu(), t_ref, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("aniso", [False, True])
+def test_neuron_tables_per_recording_on_the_card(dev, aniso):
+    """``build_table`` with a set of widths per table against
+    ``neuron_table_plain``: one table per recording, rmax over all."""
+    size, k = (40, 36, 6), 300
+    _, pos, sigma, _, _, _ = _recordings(size, k, dev, aniso)
+    table, order, rmax = fused.neuron_table(pos, sigma, per_table=True)
+    t_ref, o_ref, r_ref = fused.neuron_table_plain(pos.cpu(), sigma.cpu(),
+                                                   per_table=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rmax.cpu(), r_ref)
+    assert torch.equal(order.cpu(), o_ref)
+    assert torch.equal(table.cpu()[..., :3], t_ref[..., :3])
+    assert torch.equal(table.cpu()[..., 8:11], t_ref[..., 8:11])
+    torch.testing.assert_close(table.cpu(), t_ref, rtol=1e-6, atol=0.0)
+
+
+# ---------------------------- a recordings axis: A, B and C in one launch
+RECORDINGS, REC_BLOCK = 3, 4
+
+
+def _recordings(size, k, dev, aniso, t=7, seed=11):
+    """Recordings with their own positions, widths (+-10% around 1.8 px
+    per recording and neuron), warps and traces; ``y`` is the frame block
+    ``[1, 1 + REC_BLOCK)`` of videos ``[R, t, P]``, a strided view, as
+    ``batched_round`` cuts it.  Returns ``(betas, pos, sigma, c, y,
+    videos)``."""
+    rng = np.random.default_rng(seed)
+    r, b = RECORDINGS, REC_BLOCK
+    hi = np.asarray(size, np.float32) - 1
+    pos = rng.uniform([1, 1, 0], hi - [1, 1, 0], (r, k, 3))
+    sigma = 1.8 * (1.0 + 0.1 * rng.uniform(-1, 1, (r, k, 3) if aniso
+                                           else (r, k)))
+    betas = np.zeros((r, b, 10, 3))
+    betas[..., 1, 0] = betas[..., 2, 1] = betas[..., 3, 2] = 1.0
+    betas += 0.01 * rng.normal(size=betas.shape)
+    c = rng.uniform(0.2, 1, (r, b, k))
+    videos = rng.uniform(0, 1, (r, t, size[0] * size[1] * size[2]))
+    out = [torch.tensor(x, dtype=torch.float32, device=dev)
+           for x in (betas, pos, sigma, c, videos)]
+    return (*out[:4], out[4][:, 1:1 + b], out[4])
+
+
+def _passes(betas, pos, sigma, c, y, size, dt=None):
+    """A's, B's and C's outputs (each a tuple) on one set of inputs; with
+    ``dt`` the plain versions in that dtype."""
+    if dt is not None:
+        betas, pos, sigma, c, y = (t.to(dt) for t in (betas, pos, sigma, c,
+                                                      y))
+        return {"motion_block": fused.motion_block_plain(betas, pos, sigma,
+                                                         c, y, size),
+                "c1_block": (fused.c1_block_plain(betas, pos, sigma, y,
+                                                  size),),
+                "gram_block": fused.gram_block_plain(betas, pos, sigma, y,
+                                                     size)}
+    return {"motion_block": fused.motion_block(betas, pos, sigma, c, y, size,
+                                               brick_counts=True),
+            "c1_block": fused.c1_block(betas, pos, sigma, y, size,
+                                       brick_counts=True),
+            "gram_block": fused.gram_block(betas, pos, sigma, y, size,
+                                           brick_counts=True)}
+
+
+@pytest.mark.parametrize("shape", sorted(BRICK_SHAPES) + ["blocks"])
+@pytest.mark.parametrize("aniso", [False, True])
+def test_recordings_axis_is_bit_equal_per_recording(dev, shape, aniso):
+    """A, B and C over every recording's frame block, one launch each,
+    equal per recording, bit for bit (candidate counts too), the kernel
+    launched on that recording alone (its own table and rmax), and lie
+    within 1e-4 of float64."""
+    size, k = {**BRICK_SHAPES, **SHAPES}[shape]
+    betas, pos, sigma, c, y, _ = _recordings(size, k, dev, aniso)
+    fused.reset_launch_counts()
+    got = _passes(betas, pos, sigma, c, y, size)
+    torch.cuda.synchronize()
+    counts = fused.launch_counts()
+    assert {n: counts[n] for n in got} == dict.fromkeys(got, 1)
+    for r in range(RECORDINGS):
+        one = _passes(betas[r], pos[r], sigma[r], c[r], y[r], size)
+        ref = _passes(betas[r], pos[r], sigma[r], c[r], y[r], size,
+                      torch.float64)
+        torch.cuda.synchronize()
+        for name in got:
+            for g, o in zip(got[name], one[name]):
+                assert torch.equal(g[r], o), (name, r)
+            for g, q in zip(got[name], ref[name]):
+                assert rel_err(g[r], q) < 1e-4, (name, r)
+
+
+def test_batched_round_launches_each_pass_once_per_block(dev):
+    """``batched_round`` with the kernels: per frame block one launch of A
+    and of C (exact) or B (closed form) for every recording, and the round
+    equals the single-recording rounds (beta within rtol 1e-5 / atol
+    1e-7, C within rtol 1e-4 / atol 1e-6)."""
+    from dnmf_tpu_torch import parallel
+    from dnmf_tpu_torch.models import dnmf as tM
+
+    size, k, t = (40, 36, 6), 30, 8
+    _, pos, sigma, _, _, videos = _recordings(size, k, dev, False, t=t)
+    model = tcfg.ModelConfig(size=size, num_neurons=k, num_frames=t,
+                             shape_std=1.8)
+    states = [tM.init_state(model, positions=pos[r], device=dev,
+                            generator=torch.Generator().manual_seed(r))
+              .replace(sigma=sigma[r]) for r in range(RECORDINGS)]
+    adam = tM.Adam(1e-3)
+    for gram_mode, pass_name in (("exact", "gram_block"),
+                                 ("analytic", "c1_block")):
+        fused.reset_launch_counts()
+        got, _ = parallel.batched_round(
+            parallel.stack_states(states), videos, model, adam, 0.1, 10,
+            frame_block=REC_BLOCK, use_kernels=True, gram_mode=gram_mode)
+        counts = fused.launch_counts()
+        assert counts["motion_block"] == counts[pass_name] == t // REC_BLOCK
+        for r, st in enumerate(states):
+            st, _ = tM.motion_epoch_parallel(st, videos[r], model, adam, 0.1,
+                                             REC_BLOCK, True)
+            g, c1 = tM.grams_local(st, videos[r], model, REC_BLOCK, True,
+                                   gram_mode)
+            ref = tM.footprint_update(st, g, c1, 10)
+            torch.testing.assert_close(got.beta[r], ref.beta, rtol=1e-5,
+                                       atol=1e-7)
+            torch.testing.assert_close(got.c[r], ref.c, rtol=1e-4, atol=1e-6)
 
 
 # ------------------------------------------------ registration: F and G
