@@ -16,7 +16,10 @@ beside its time per call and the host's share of it, then by kernel
 name of phase 29's round of 8 whole-brain recordings, batched and as
 the loop of single-recording rounds, and stops.
 
-Phases, each of which exits non-zero on failure:
+Phases, each of which exits non-zero on failure (every ``fit`` and
+``fit_fused`` with the kernels and without a mesh runs its steps as
+captured CUDA graphs, ``models/graphs.py``; phase 30 holds them against
+eager runs):
 
 1. device: a CUDA device is required (there is no CPU path);
 2. card: name and power limit from nvidia-smi;
@@ -185,7 +188,24 @@ Phases, each of which exits non-zero on failure:
    rtol 1e-4 / atol 1e-6); per round the launch counters show the motion
    kernel and the Gram (exact) or c1 (closed form) kernel launched once
    per frame block for all recordings; the batched round's seconds
-   beside the loop's, and the peak device memory.
+   beside the loop's, and the peak device memory;
+30. the compiled-program layer (``models/graphs.py``): ``fit`` (3
+   rounds of 2 epochs + 50 MU) and ``fit_fused`` (3 rounds) at the ROI
+   shape (T=256) and whole-brain (512x512x20, K=200, T=64), with exact
+   and closed-form Grams, each captured (from an empty cache) and eager
+   (``graphs.disabled()``): the state and every metric bit-equal; the
+   launch counters equal the eager run's plus each entry's warm-up (a
+   replay adds the launches read from its graph's kernel nodes); in one
+   profiled round (the trainer's steps, or ``fused_rounds`` with
+   ``rounds=1``) one graph launch per step and no kernel launch from the
+   host, as many kernel nodes in the replayed graphs as the eager round
+   launches kernels, and per kernel wrapper the launches read from the
+   graphs equal to the eager round's; wall per round, device time, idle
+   share, host API calls, capture seconds, peak memory and the memory
+   that ``graphs.clear()`` gives back, eager and captured.  Then a step
+   that copies from host memory (``UnsafeAdam``) raises at capture, and a
+   replayed round of ``fit`` and of ``fit_fused`` runs under
+   ``torch.cuda.set_sync_debug_mode("error")``.
 
 Every phase prints its seconds with the card's name and power limit.
 The last two lines are a JSON object of per-kernel results (the motion,
@@ -195,6 +215,7 @@ c1 and Gram kernels' errors and launches take in phase 29's) and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2319,6 +2340,297 @@ def batched_path(dev, card):
     return entries, launches
 
 
+# ------------------------------------------------------------------
+# Phase 30: the compiled-program layer (models/graphs.py).
+# ------------------------------------------------------------------
+GRAPH_FRAMES = {"roi": 256, "whole_brain": 64}
+GRAPH_ROUNDS = 3
+GRAPH_EPOCHS = 2
+# Host calls that launch one kernel: ``cudaLaunchKernel*`` and the
+# lower-level ``cuLaunchKernel*`` (kernels compiled at run time use it).
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+class UnsafeAdam(model_lib.Adam):
+    """Adam with a constant made from host data (a pageable copy, as the
+    port's bias corrections were made before the graph layer), which a
+    capture refuses."""
+
+    def update(self, param, grad, count, mu, nu):
+        param, count, mu, nu = super().update(param, grad, count, mu, nu)
+        return param * torch.tensor(1.0, device=param.device), count, mu, nu
+
+
+def graph_engine(model, pos, video, gram_mode):
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=GRAPH_ROUNDS,
+                               motion_epochs=GRAPH_EPOCHS, mu_iters=50,
+                               seed=SEED)
+    rt = tcfg.RuntimeConfig(frame_block=8, gram_mode=gram_mode)
+    return ttr.DeformableNMF(model, opt, rt, positions=pos,
+                             device=video.device)
+
+
+def graph_cache_bytes() -> int:
+    """Device memory that ``graphs.clear()`` gives back (the graphs' pools,
+    their static buffers and outputs): ``memory_reserved`` before and
+    after, the allocator's free blocks released first."""
+    from dnmf_tpu_torch.models import graphs
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return held - torch.cuda.memory_reserved()
+
+
+def graph_fit(model, pos, video, gram_mode, fused_fit, captured):
+    """``fit`` or ``fit_fused`` from a fresh engine, captured (from an empty
+    cache) or eager (``graphs.disabled()``): ``(engine, result, wall s,
+    peak bytes, launches, the entries' launches per replay (read from
+    their graphs), capture s, entries, buffer bytes, cache bytes)``; the
+    cache is cleared after."""
+    from dnmf_tpu_torch.models import graphs
+
+    graphs.clear()
+    eng = graph_engine(model, pos, video, gram_mode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    with (contextlib.nullcontext() if captured else graphs.disabled()):
+        res = (eng.fit_fused if fused_fit else eng.fit)(video)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, kept = fused.launch_counts(), graphs.entries()
+    summary = ({k: sum(e.launches.get(k, 0) for e in kept) for k in launches},
+               sum(e.capture_seconds for e in kept), len(kept),
+               sum(e.buffer_bytes for e in kept))
+    del kept
+    return (eng, res, secs, torch.cuda.max_memory_allocated(),
+            launches) + summary + (graph_cache_bytes(),)
+
+
+def graph_round(eng, video, fused_fit):
+    """One round as the trainer runs it on one device: its steps (the
+    motion epochs, the Grams, the trace update), or ``fused_rounds`` with
+    ``rounds=1``; no host read inside."""
+    from dnmf_tpu_torch.models import graphs
+
+    cfg, rt = eng.opt_config, eng.runtime
+    kw = dict(use_kernels=True, gram_mode=eng._gram_mode,
+              gram_window=eng._gram_window())
+    if fused_fit:
+        return lambda: graphs.fused_rounds(
+            eng.state, video, eng.model, eng.optimizer, rounds=1,
+            epochs=cfg.motion_epochs, mu_iters=cfg.mu_iters,
+            gamma=cfg.gamma_motion, frame_block=rt.frame_block, **kw)
+
+    def run():
+        st = eng.state
+        for _ in range(cfg.motion_epochs):
+            st, _ = graphs.motion_epoch(st, video, eng.model, eng.optimizer,
+                                        cfg.gamma_motion, rt.frame_block,
+                                        True)
+        g, c1 = graphs.compute_grams(st, video, eng.model, rt.frame_block,
+                                     **kw)
+        graphs.footprint_update(st, g, c1, cfg.mu_iters, cfg.gamma_traces,
+                                cfg.trace_solver, True)
+    return run
+
+
+def launch_profile(run):
+    """``run()`` under ``torch.profiler`` after one warm call: ``(device
+    kernels by name, kernel launches from the host, host CUDA API calls
+    by name (``cuda*`` and the lower-level ``cu*``), wall s, device-busy
+    s, the wrappers' launch counters over the profiled call)``.  Copy and
+    memset records (also a graph's copies run as ``memcpy32_post``
+    kernels) are not kernels, as the eager run's ``cudaMemcpyAsync`` and
+    ``cudaMemsetAsync`` are no launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    wrappers = fused.launch_counts()
+    kernels, api, spans = {}, {}, []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            if not e.name.lower().startswith(("memcpy", "memset")):
+                kernels[e.name] = kernels.get(e.name, 0) + 1
+        elif e.name.startswith("cu") and e.name != "cudaDeviceSynchronize":
+            api[e.name] = api.get(e.name, 0) + 1
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    launches = sum(n for name, n in api.items() if name in LAUNCH_CALLS)
+    return kernels, launches, api, wall, busy * 1e-6, wrappers
+
+
+def graph_case(dev, card, shape, gram_mode):
+    """One shape and Gram mode of phase 30: ``fit`` and ``fit_fused``
+    captured against eager, with the gates."""
+    from dnmf_tpu_torch.models import graphs
+
+    w, _ = tcfg.baseline_workload(shape)
+    t = GRAPH_FRAMES[shape]
+    model = tcfg.ModelConfig(size=w.size, num_neurons=w.num_neurons,
+                             num_frames=t, shape_std=w.shape_std)
+    pos, _, video = ground_truth(dev, model.size, model.num_neurons, t, SEED)
+    runs = {}
+    for fused_fit in (False, True):
+        label = (f"graphs {shape} T={t} {gram_mode} "
+                 f"{'fit_fused' if fused_fit else 'fit'}")
+        (eng_e, res_e, s_e, peak_e, n_e, *_) = graph_fit(
+            model, pos, video, gram_mode, fused_fit, False)
+        (eng_c, res_c, s_c, peak_c, n_c, per_replay, capture, n_entries,
+         buffers, cache) = graph_fit(model, pos, video, gram_mode,
+                                     fused_fit, True)
+        same = {f: torch.equal(getattr(res_c.state, f),
+                               getattr(res_e.state, f))
+                for f in model_lib.STATE_FIELDS}
+        strip = [[{k: v for k, v in m.items() if k != "seconds"}
+                  for m in r.metrics] for r in (res_c, res_e)]
+        if not all(same.values()) or strip[0] != strip[1]:
+            diff = {f: rel_err(getattr(res_c.state, f).float(),
+                               getattr(res_e.state, f).float())
+                    for f in ("beta", "c")}
+            fail(f"{label}: captured differs from eager: {same}, relative "
+                 f"{diff}, metrics equal {strip[0] == strip[1]}")
+        # The wrappers count each entry's warm-up (its step once, eagerly;
+        # the capture checked its graph's nodes against it); the replays
+        # add what their graphs hold: the eager run's launches.
+        want = {k: n_e[k] + per_replay[k] for k in n_e}
+        if n_c != want or n_c["motion_block"] <= 0:
+            fail(f"{label}: launch counters {n_c}, want eager {n_e} plus "
+                 f"the warm-ups {per_replay}")
+        # fit times each round; fit_fused is one call (audits included).
+        per_round = [[m["seconds"] for m in r.metrics
+                      if m["phase"] == "round" and "seconds" in m]
+                     or [secs / GRAPH_ROUNDS]
+                     for r, secs in ((res_e, s_e), (res_c, s_c))]
+        runs[fused_fit] = dict(
+            label=label, eng=eng_c, secs=(s_e, s_c), peaks=(peak_e, peak_c),
+            rounds=per_round, capture=capture, entries=n_entries,
+            cache=cache, buffers=buffers, rows=len(res_c.metrics))
+    # One round profiled: eager (the steps, as fit and fit_fused's loop
+    # run them) against each captured form.  The eager round's kernels
+    # are its host launches, the captured round's the kernel nodes of the
+    # graphs it replays: the profiler's device records are no count (late
+    # in a long process it drops some, in either run).
+    flat = runs[False]["eng"]._video_flat(video)  # the engine's own video
+    eager = graph_round(runs[False]["eng"], flat, False)
+
+    def eager_round():
+        with graphs.disabled():
+            eager()
+
+    prof_e = launch_profile(eager_round)
+    for fused_fit, run in runs.items():
+        graphs.clear()
+        captured = graph_round(run["eng"], flat, fused_fit)
+        prof_c = launch_profile(captured)
+        nodes = {e.name: sum(e.nodes.values()) for e in graphs.entries()}
+        in_graphs = (nodes["fused_round"] if fused_fit else
+                     GRAPH_EPOCHS * nodes["motion_epoch"]
+                     + nodes["compute_grams"] + nodes["footprint_update"])
+        (kern_e, launches_e, api_e, wall_e, busy_e, wrap_e), (
+            kern_c, launches_c, api_c, wall_c, busy_c, wrap_c) = (prof_e,
+                                                                   prof_c)
+        if in_graphs != launches_e:
+            fail(f"{run['label']}: {in_graphs} kernel nodes in the round's "
+                 f"graphs {nodes}, want the eager round's {launches_e} "
+                 "launches")
+        # Per kernel: the launches that the replays read from their graphs'
+        # nodes, against the wrappers' launches in the eager round.
+        if wrap_c != wrap_e or wrap_e["motion_block"] <= 0:
+            fail(f"{run['label']}: kernel launches from the graphs {wrap_c}, "
+                 f"want the eager round's {wrap_e}")
+        steps = 1 if fused_fit else GRAPH_EPOCHS + 2
+        if api_c.get("cudaGraphLaunch", 0) != steps or launches_c:
+            fail(f"{run['label']}: host calls {api_c}, want {steps} graph "
+                 "launches and no kernel launch")
+        moved = {k.split("(")[0][-50:]: (kern_e.get(k, 0), kern_c.get(k, 0))
+                 for k in set(kern_e) | set(kern_c)
+                 if kern_e.get(k, 0) != kern_c.get(k, 0)}
+        (s_e, s_c), (peak_e, peak_c) = run["secs"], run["peaks"]
+        say(f"{run['label']} ({card}): captured == eager bit for bit "
+            f"(state, {run['rows']} metric rows); fit {s_e:.4f} s eager, "
+            f"{s_c:.4f} s captured (capture {run['capture']:.4f} s over "
+            f"{run['entries']} entries); wall per round eager "
+            f"{[round(x, 5) for x in run['rounds'][0]]}, captured "
+            f"{[round(x, 5) for x in run['rounds'][1]]}; one profiled round, "
+            f"eager / captured: wall {wall_e * 1e3:.4f} / {wall_c * 1e3:.4f} "
+            f"ms, device {busy_e * 1e3:.4f} / {busy_c * 1e3:.4f} ms, idle "
+            f"share {1 - busy_e / wall_e:.4f} / {1 - busy_c / wall_c:.4f}, "
+            f"kernels {launches_e} launched / {in_graphs} in the graphs "
+            f"(device records {sum(kern_e.values())} / "
+            f"{sum(kern_c.values())}; by name, where they differ: {moved}), "
+            f"wrappers' launches {wrap_e} / from the graphs {wrap_c}, "
+            f"host API calls {sum(api_e.values())} / "
+            f"{sum(api_c.values())} (captured {api_c}); peak memory "
+            f"{peak_e / 1e9:.4f} / {peak_c / 1e9:.4f} GB; clear() gave back "
+            f"{run['cache'] / 1e6:.3f} MB ({run['buffers'] / 1e6:.3f} MB of "
+            "static buffers)")
+    graphs.clear()
+
+
+def unsafe_step(dev, card):
+    """A step that breaks capture raises (:class:`UnsafeAdam`, a tensor
+    made from host data); the card works on after it, and a replayed round
+    makes no synchronizing call (``set_sync_debug_mode("error")``)."""
+    from dnmf_tpu_torch.models import graphs
+
+    w, _ = tcfg.baseline_workload("roi")
+    model = tcfg.ModelConfig(size=w.size, num_neurons=w.num_neurons,
+                             num_frames=16, shape_std=w.shape_std)
+    pos, _, video = ground_truth(dev, model.size, model.num_neurons, 16,
+                                 SEED)
+    state = model_lib.init_state(model, positions=pos, device=dev)
+    graphs.clear()
+    raised = None
+    try:
+        graphs.motion_epoch(state, video, model, UnsafeAdam(1e-3), 1.0, 8,
+                            True)
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0][:160]
+    if raised is None:
+        fail("graphs: a step that copies from host memory was captured")
+    graphs.clear()
+    eng = graph_engine(model, pos, video, "analytic")
+    for fused_fit in (False, True):
+        round_ = graph_round(eng, video, fused_fit)
+        round_()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            round_()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    graphs.clear()
+    say(f"graphs: the unsafe step raised RuntimeError ({raised}); a "
+        f"replayed round of fit and of fit_fused ran under "
+        f"set_sync_debug_mode('error') ({card})")
+
+
+def graphs_path(dev, card):
+    """Phase 30 (module docstring)."""
+    for shape in GRAPH_FRAMES:
+        for gram_mode in ("exact", "analytic"):
+            graph_case(dev, card, shape, gram_mode)
+    unsafe_step(dev, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -2401,6 +2713,9 @@ def main() -> int:
     for kname, n in batched_launches.items():
         launches[kname] += n
     say(f"batched recordings: {time.perf_counter() - t0:.3f} s ({card})")
+    t0 = time.perf_counter()
+    graphs_path(dev, card)
+    say(f"graphs: {time.perf_counter() - t0:.3f} s ({card})")
     say(f"chip_smoke: {time.perf_counter() - started:.3f} s in all")
 
     kernels = []

@@ -18,6 +18,13 @@ device.  ``runtime.checkpoint_dir`` saves every round
 ``runtime.profile_dir`` traces the last round with ``torch.profiler``.
 :class:`StaticFootprintNMF` is the static-footprint MU mode.
 
+Without a mesh, ``fit``'s three steps (the motion epoch, the Grams, the
+trace update) and each round of ``fit_fused`` go through
+:mod:`dnmf_tpu_torch.models.graphs` (the JAX package's ``jit``): with the
+kernels on the card each is a captured CUDA graph; the Gram audit, the
+finiteness checks, the metric reads and the width fit run eagerly
+between them.  ``models.graphs.clear()`` drops the graphs.
+
 ``runtime.mesh_time`` / ``mesh_pixel`` (and ``mesh_batch`` beside
 ``mesh_time``) shard the fit over the ranks of a process group
 (:mod:`dnmf_tpu_torch.parallel`; start it with
@@ -44,6 +51,7 @@ import torch
 from dnmf_tpu_torch import parallel
 from dnmf_tpu_torch.config import ModelConfig, OptimizerConfig, RuntimeConfig
 from dnmf_tpu_torch.models import dnmf as model_lib
+from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import footprints as fp_ops
@@ -339,7 +347,6 @@ class DeformableNMF:
         epochs = epochs or self.opt_config.motion_epochs
         gamma = self.opt_config.gamma_motion
         last = {}
-        # The sharded steps run on one device where the mesh is None.
         mesh = self._mesh
         for _ in range(epochs):
             if self._is_streaming(video):
@@ -351,6 +358,10 @@ class DeformableNMF:
                 self.state, m = model_lib.motion_epoch_parity(
                     self.state, video, times, weights, self.model,
                     self.optimizer, gamma)
+            elif mesh is None:  # one device: the captured step
+                self.state, m = graphs.motion_epoch(
+                    self.state, video, self.model, self.optimizer, gamma,
+                    self.runtime.frame_block, self._use_kernels)
             else:
                 self.state, m = parallel.sharded_motion_epoch(
                     self.state, video, self.model, self.optimizer, gamma,
@@ -373,14 +384,23 @@ class DeformableNMF:
         if self._is_streaming(video):
             grams, c1 = parallel.sharded_compute_grams_streaming(
                 self.state, video, self.model, mesh, **kw)
+        elif mesh is None:  # one device: the captured step
+            grams, c1 = graphs.compute_grams(
+                self.state, video, self.model, self.runtime.frame_block,
+                **kw)
         else:
             grams, c1 = parallel.sharded_compute_grams(
                 self.state, video, self.model, mesh,
                 frame_block=self.runtime.frame_block, **kw)
-        self.state = parallel.sharded_footprint_update(
-            self.state, grams, c1, mesh, iters=iters,
-            gamma=self.opt_config.gamma_traces,
-            solver=self.opt_config.trace_solver)
+        update = dict(iters=iters, gamma=self.opt_config.gamma_traces,
+                      solver=self.opt_config.trace_solver)
+        if mesh is None:
+            self.state = graphs.footprint_update(
+                self.state, grams, c1, use_kernels=self._use_kernels,
+                **update)
+        else:
+            self.state = parallel.sharded_footprint_update(
+                self.state, grams, c1, mesh, **update)
         m = {"phase": "traces", "c_mean": self._c_mean()}
         self.metrics.append(m)
         return m
@@ -532,7 +552,7 @@ class DeformableNMF:
 
     def fit_fused(self, video, rounds: Optional[int] = None) -> FitResult:
         """The alternation as one call of
-        :func:`~dnmf_tpu_torch.models.dnmf.fused_rounds` per run of equal
+        :func:`~dnmf_tpu_torch.models.graphs.fused_rounds` per run of equal
         ``sigma_anneal`` factors (one call without an anneal); the same
         factors as :meth:`fit` in parallel mode, with per-round metrics.
         The closed-form Grams are audited before (deciding the mode for
@@ -566,7 +586,7 @@ class DeformableNMF:
         recon, reg = [], []
         for factor, seg_rounds in segments:
             self.state = self.state.replace(sigma=self._base_sigma * factor)
-            self.state, m = model_lib.fused_rounds(
+            self.state, m = graphs.fused_rounds(
                 self.state, video, self.model, self.optimizer,
                 rounds=seg_rounds, epochs=cfg.motion_epochs,
                 mu_iters=cfg.mu_iters, gamma=cfg.gamma_motion,

@@ -6,7 +6,10 @@ schedule (:func:`motion_epoch_parity`), per-frame Grams (exact, or closed
 form plus the c1 video pass), MU or FISTA on the traces ``C [K, T]``,
 the per-neuron width fit :func:`sigma_fit` and the diagnostic
 :func:`spatial_pushforward`.  The state is a dataclass of tensors;
-functions run eagerly and loop over frame blocks in Python.
+functions run eagerly and loop over frame blocks in Python.  On the card
+:mod:`dnmf_tpu_torch.models.graphs` captures the motion epoch, the Grams,
+the trace update and a round of :func:`fused_rounds` as CUDA graphs (the
+JAX package's ``jit``); the functions here are the steps it captures.
 
 A stacked state (a leading recordings axis on every field: several
 recordings of one size, K and T, :func:`dnmf_tpu_torch.parallel.
@@ -113,10 +116,11 @@ class Adam:
         mu = (1 - self.b1) * grad + self.b1 * mu
         nu = (1 - self.b2) * (grad * grad) + self.b2 * nu
         count = count + 1
-        f32 = dict(dtype=torch.float32, device=count.device)
         n = count.reshape(count.shape + (1,) * (param.ndim - count.ndim))
-        mu_hat = mu / (1 - torch.tensor(self.b1, **f32) ** n)
-        nu_hat = nu / (1 - torch.tensor(self.b2, **f32) ** n)
+        # Python-float bases against the device count: float32 powers,
+        # and no tensor made from host data (a captured graph holds none).
+        mu_hat = mu / (1 - torch.pow(self.b1, n))
+        nu_hat = nu / (1 - torch.pow(self.b2, n))
         step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
         return param + step * (-self.learning_rate), count, mu, nu
 
@@ -759,6 +763,24 @@ def compute_grams_streaming(state: DNMFState, source, model: ModelConfig,
     return torch.cat(gs)[:t], torch.cat(c1s)[:t]
 
 
+def fused_round(state: DNMFState, video: torch.Tensor, model: ModelConfig,
+                optimizer: Adam, epochs: int, mu_iters: int, gamma: float,
+                mu_gamma: float = 0.0, frame_block: int = 16,
+                use_kernels: bool = False, gram_mode: str = "exact",
+                gram_window: Optional[int] = None,
+                trace_solver: str = "mu") -> Tuple[DNMFState, dict]:
+    """One round of :func:`fused_rounds`: ``epochs`` Adam epochs on beta,
+    the Grams and ``mu_iters`` trace updates; the last epoch's metrics."""
+    for _ in range(epochs):
+        state, m = motion_epoch_parallel(state, video, model, optimizer,
+                                         gamma, frame_block, use_kernels)
+    grams, c1 = grams_local(state, video, model, frame_block, use_kernels,
+                            gram_mode, gram_window)
+    state = footprint_update(state, grams, c1, mu_iters, mu_gamma,
+                             trace_solver)
+    return state, m
+
+
 def fused_rounds(state: DNMFState, video: torch.Tensor, model: ModelConfig,
                  optimizer: Adam, rounds: int, epochs: int, mu_iters: int,
                  gamma: float, mu_gamma: float = 0.0, frame_block: int = 16,
@@ -766,18 +788,18 @@ def fused_rounds(state: DNMFState, video: torch.Tensor, model: ModelConfig,
                  gram_window: Optional[int] = None,
                  trace_solver: str = "mu") -> Tuple[DNMFState, dict]:
     """``rounds x (epochs x Adam on beta + Grams + mu_iters trace
-    updates)``; metrics are the last epoch's per round, ``[rounds]``."""
+    updates)``; metrics are the last epoch's per round, ``[rounds]``:
+    a loop of :func:`fused_round` (captured once and replayed by
+    :func:`dnmf_tpu_torch.models.graphs.fused_rounds`)."""
     if trace_solver not in ("mu", "fista"):
         raise ValueError(f"unknown trace solver: {trace_solver!r}")
+    kw = dict(epochs=epochs, mu_iters=mu_iters, gamma=gamma,
+              mu_gamma=mu_gamma, frame_block=frame_block,
+              use_kernels=use_kernels, gram_mode=gram_mode,
+              gram_window=gram_window, trace_solver=trace_solver)
     recon, reg = [], []
     for _ in range(rounds):
-        for _ in range(epochs):
-            state, m = motion_epoch_parallel(state, video, model, optimizer,
-                                             gamma, frame_block, use_kernels)
-        grams, c1 = grams_local(state, video, model, frame_block, use_kernels,
-                                gram_mode, gram_window)
-        state = footprint_update(state, grams, c1, mu_iters, mu_gamma,
-                                 trace_solver)
+        state, m = fused_round(state, video, model, optimizer, **kw)
         recon.append(m["recon_mse"])
         reg.append(m["reg"])
     return state, {"recon_mse": torch.stack(recon), "reg": torch.stack(reg)}

@@ -42,11 +42,20 @@ def voxel_basis(size, dtype=torch.float32, device=None) -> torch.Tensor:
     return quadratic_basis_points(voxel_grid(size, dtype, device))
 
 
+def device_vector(values, dtype=torch.float32, device=None) -> torch.Tensor:
+    """A small constant vector made on ``device`` from Python numbers, one
+    fill per entry.  Nothing is copied from host memory: a captured CUDA
+    graph (:mod:`dnmf_tpu_torch.models.graphs`) cannot hold such a copy,
+    and the fills give the bits ``torch.tensor(values)`` gives."""
+    return torch.stack([torch.full((), float(v), dtype=dtype, device=device)
+                        for v in values])
+
+
 def _hi(size, like: torch.Tensor) -> torch.Tensor:
     # max(size-1, 1): a singleton axis's only coordinate, 0, maps to -1
     # and denormalizes back to 0 exactly instead of dividing by zero.
-    return torch.tensor([max(float(s) - 1.0, 1.0) for s in size],
-                        dtype=like.dtype, device=like.device)
+    return device_vector([max(float(s) - 1.0, 1.0) for s in size],
+                         dtype=like.dtype, device=like.device)
 
 
 def normalize_points(points: torch.Tensor, size) -> torch.Tensor:
@@ -234,8 +243,8 @@ def translation_beta(shifts, size, scaling: str = "normalized"
     shifts = torch.as_tensor(shifts, dtype=torch.float32)
     beta = identity_beta(shifts.shape[0], device=shifts.device)
     if scaling == "normalized":
-        hi = torch.tensor([max(float(s) - 1.0, 1.0) for s in size],
-                          device=shifts.device)
+        hi = device_vector([max(float(s) - 1.0, 1.0) for s in size],
+                           device=shifts.device)
         beta[:, 0, :] = 2.0 * shifts / hi
     else:
         beta[:, 0, :] = shifts

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from dnmf_tpu_torch.ops.basis import voxel_basis
+from dnmf_tpu_torch.ops.basis import device_vector, voxel_basis
 
 
 def gaussian_footprints(grid: torch.Tensor, pos: torch.Tensor,
@@ -61,8 +61,8 @@ def _bounds_mask(psi: torch.Tensor, size) -> torch.Tensor:
     thin volume sits on one at the identity warp); ``torch.clamp`` would
     give 1 there.
     """
-    hi = torch.tensor([float(s) - 1.0 for s in size], dtype=psi.dtype,
-                      device=psi.device)
+    hi = device_vector([float(s) - 1.0 for s in size], dtype=psi.dtype,
+                       device=psi.device)
     dist_in = torch.minimum(psi, hi - psi)
     zero = torch.zeros((), dtype=psi.dtype, device=psi.device)
     one = torch.ones((), dtype=psi.dtype, device=psi.device)

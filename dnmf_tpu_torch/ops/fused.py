@@ -37,6 +37,9 @@ a CPU tensor takes the plain version.  There is no fallback from one to
 the other.  Each wrapper counts its kernel launches in ``.launches``;
 :func:`launch_counts` also reads the registration kernels' counters
 (:mod:`~dnmf_tpu_torch.ops.phasecorr`, :mod:`~dnmf_tpu_torch.ops.warp`).
+The wrappers launch on the current stream, read at each call, and make
+their scratch with ``torch.empty``, so a CUDA graph captures them as they
+are (:mod:`dnmf_tpu_torch.models.graphs`; scratch from the graph's pool).
 
 ``motion_block`` and ``gram_block`` (shared anchors) take a voxel range:
 with ``p_offset``, ``y [B, P_loc]`` holds the global voxels ``[p_offset,
@@ -1040,3 +1043,11 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (keyed as :func:`launch_counts`) to the wrappers'
+    counters: the launches of a captured graph's replay, whose wrappers'
+    Python does not run (:mod:`dnmf_tpu_torch.models.graphs`)."""
+    for fn in KERNELS:
+        fn.launches += counts.get(fn.__name__, 0)

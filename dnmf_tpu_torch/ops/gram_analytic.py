@@ -106,7 +106,7 @@ def _grams(betas, pos_t, sig, size, scaling, window, iters, plane_axis_max):
     K, 3]`` and per-axis widths ``sig [B or 1, K, 3]``."""
     size_t = tuple(int(s) for s in size)
     kw = dict(dtype=torch.float32, device=pos_t.device)
-    hi = torch.tensor([float(s - 1) for s in size_t], **kw)
+    hi = basis_ops.device_vector([float(s - 1) for s in size_t], **kw)
     bsz = betas.shape[0]
 
     ck = 1.0 / (sig * sig)                               # [B or 1, K, 3]
@@ -156,8 +156,8 @@ def _grams(betas, pos_t, sig, size, scaling, window, iters, plane_axis_max):
         # two axes per plane.
         nz = size_t[thin]
         zvals = torch.arange(nz, **kw)
-        onehot = torch.tensor([1.0 if d == thin else 0.0 for d in range(3)],
-                              **kw)
+        onehot = basis_ops.device_vector(
+            [1.0 if d == thin else 0.0 for d in range(3)], **kw)
         xb = xc[..., None, :] * (1.0 - onehot) + zvals[:, None] * onehot
         u0b, xb_space = _warp_pixel(xb, betas, size_t, scaling)
         jddb = _jac_diag(betas, xb_space)              # [B, K, K, Z, 3]

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from dnmf_tpu_torch.ops.basis import device_vector
+
 
 def quadratic_jacobian(beta: torch.Tensor,
                        point: torch.Tensor) -> torch.Tensor:
@@ -59,7 +61,7 @@ def corner_regularizer(beta: torch.Tensor, size, detach: bool = False,
         hi_pt = torch.ones(3, **kw)
     else:
         lo_pt = torch.zeros(3, **kw)
-        hi_pt = torch.tensor([float(s) - 1.0 for s in size], **kw)
+        hi_pt = device_vector([float(s) - 1.0 for s in size], **kw)
     reg = (log_det_jacobian(beta, hi_pt) ** 2
            + log_det_jacobian(beta, lo_pt) ** 2)
     return reg.detach() if detach else reg

@@ -105,7 +105,7 @@ def nnls_temporal(c: torch.Tensor, grams: torch.Tensor, c1: torch.Tensor,
         return g
 
     c_prev, y_c = c, c
-    tk = torch.tensor(1.0, dtype=c.dtype, device=c.device)
+    tk = torch.ones((), dtype=c.dtype, device=c.device)
     for _ in range(iters):
         c_new = torch.clamp_min(y_c - inv_l * grad(y_c), 0.0)
         tk1 = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tk * tk))

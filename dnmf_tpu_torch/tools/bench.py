@@ -8,8 +8,10 @@ shapes and schedules are its own; the draws come from a
 ``torch.Generator`` seeded with ``--seed``, so no JAX figure is a target):
 
 * ``roi_round``: one alternation round (a motion epoch, the Grams, 50 MU
-  iterations; ``models.dnmf.fused_rounds``) at 256x256x10, K=50, T=256,
-  analytic and exact Grams;
+  iterations; ``models.graphs.fused_rounds``, on the card one captured
+  CUDA graph) at 256x256x10, K=50,
+  T=256, analytic and exact Grams; the first call, which captures, is
+  timed apart (``capture_seconds``), and the timed calls replay;
 * ``wb_passes``: the round's passes at 512x512x20, K=200, T=64 (exact and
   analytic Grams, the motion epoch, 50 MU, one refine epoch) and the exact
   Gram's share of its roofline;
@@ -66,6 +68,7 @@ import torch
 
 from dnmf_tpu_torch.config import ModelConfig, OptimizerConfig
 from dnmf_tpu_torch.models import dnmf as model_lib
+from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import fused
 from dnmf_tpu_torch.tools import kernel_check as kc
@@ -170,7 +173,8 @@ def roi_round_fixture(seed, device, size=SIZE, k=K, t=T,
 
 def run_roi_round(fx, reps) -> dict:
     """Seconds per alternation round (the state carried from round to
-    round), analytic Grams (the production default) and exact."""
+    round), analytic Grams (the production default) and exact; the
+    first call of each, from an empty graph cache, apart."""
     model, video, dev = fx["model"], fx["video"], fx["device"]
     size, t = model.size, model.num_frames
     out = {"workload": f"{size[0]}x{size[1]}x{size[2]} K={model.num_neurons}"
@@ -180,12 +184,17 @@ def run_roi_round(fx, reps) -> dict:
         box = {"state": fx["state"]}
 
         def one_round():
-            box["state"], box["m"] = model_lib.fused_rounds(
+            box["state"], box["m"] = graphs.fused_rounds(
                 box["state"], video, model, optimizer, rounds=1, epochs=1,
                 mu_iters=fx["mu_iters"], gamma=GAMMA,
                 frame_block=fx["frame_block"], use_kernels=True,
                 gram_mode=mode)
 
+        graphs.clear()
+        t0 = time.perf_counter()
+        one_round()
+        kc.sync(dev)
+        out["capture_seconds" + sfx] = time.perf_counter() - t0
         secs = kc.host_seconds(one_round, reps, dev)
         med = timed(out, "round_seconds" + sfx, secs)
         out["round_seconds_min" + sfx] = min(secs)

@@ -86,7 +86,8 @@ JAX_KEYS = {
                            "baseline_round_s_extrapolated_cpu"},
 }
 PORT_KEYS = {
-    "roi_round": {"round_seconds_exact", "frames_per_sec_exact"},
+    "roi_round": {"round_seconds_exact", "frames_per_sec_exact",
+                  "capture_seconds", "capture_seconds_exact"},
     "wb_passes": {"gram_roofline_share", "gram_bound_by",
                   "gram_active_pairs", "gram_flops_algorithmic"},
     "correctness": {"tol", "max_rel_err"},

@@ -10,7 +10,11 @@ the plain rule; G also at odd sizes and the largest shifts its halo
 takes.  The motion, c1 and Gram kernels over a recordings axis (one
 launch for every recording's frame block, bit-equal per recording to
 the kernel launched on that recording) and ``batched_round`` with
-them.  The data layer on the card: the simulator against its CPU run on
+them.  The compiled-program layer (``models/graphs.py``): each captured
+step equal to its eager run bit for bit, one graph launch per step and
+no kernel launch from the host in a replay, the launch counters kept by
+the replays, a step that breaks capture raising, no synchronizing call
+in a replayed round, and autograd's backward inside a capture.  The data layer on the card: the simulator against its CPU run on
 one CPU generator's draws, a ``SimulatedVideoDataset`` on the card
 feeding ``fit``, and the recovery harness with and without the kernels.
 Marked ``cuda``; every test skips where no CUDA device exists.
@@ -1193,3 +1197,201 @@ def test_use_kernels_true_raises_for_resample(dev, deform, option):
     assert DeformableNMF(tcfg.ModelConfig(size=(20, 20, 2), num_neurons=4,
                                           num_frames=8),
                          tcfg.OptimizerConfig(), device=dev)._use_kernels
+
+
+# ------------------------------------------------------- captured steps
+# The compiled-program layer (dnmf_tpu_torch.models.graphs): each step
+# captured once and replayed, against the same step eager
+# (graphs.disabled()), bit for bit.
+GRAPH_SIZE, GRAPH_K, GRAPH_T, GRAPH_FB = (48, 40, 6), 20, 12, 5
+
+
+def _graph_inputs(dev, seed=0):
+    from dnmf_tpu_torch.models import dnmf as tM
+
+    rng = np.random.default_rng(seed)
+    hi = np.asarray(GRAPH_SIZE, np.float32) - 1
+    pos = rng.uniform([2, 2, 0.5], hi - [2, 2, 0.5], (GRAPH_K, 3))
+    beta = np.zeros((GRAPH_T, 10, 3))
+    beta[:, 1, 0] = beta[:, 2, 1] = beta[:, 3, 2] = 1.0
+    beta += 0.005 * rng.normal(size=beta.shape)
+    state = tM.state_from_numpy({
+        "beta": beta, "c": rng.uniform(0.2, 1.0, (GRAPH_K, GRAPH_T)),
+        "pos": pos, "sigma": np.full(GRAPH_K, 2.0), "count": np.int32(2),
+        "mu": 1e-4 * rng.normal(size=beta.shape),
+        "nu": 1e-8 * rng.uniform(size=beta.shape)}, device=dev)
+    video = torch.tensor(rng.uniform(0, 1, (GRAPH_T, int(np.prod(
+        GRAPH_SIZE)))), dtype=torch.float32, device=dev)
+    model = tcfg.ModelConfig(size=GRAPH_SIZE, num_neurons=GRAPH_K,
+                             num_frames=GRAPH_T, shape_std=2.0)
+    return model, state, video
+
+
+def _graph_steps(model, state, video):
+    """Each captured step of the main path as a call: ``name -> fn()``."""
+    from dnmf_tpu_torch.models import dnmf as tM
+    from dnmf_tpu_torch.models import graphs
+
+    adam = tM.Adam(1e-3)
+    g, c1 = tM.grams_local(state, video, model, GRAPH_FB, True, "exact")
+    steps = {"motion": lambda: graphs.motion_epoch(
+        state, video, model, adam, 0.5, GRAPH_FB, True)}
+    for mode in ("exact", "analytic"):
+        steps[f"grams_{mode}"] = (lambda m=mode: graphs.compute_grams(
+            state, video, model, GRAPH_FB, True, m))
+        steps[f"round_{mode}"] = (lambda m=mode: graphs.fused_rounds(
+            state, video, model, adam, rounds=2, epochs=2, mu_iters=10,
+            gamma=0.5, mu_gamma=0.05, frame_block=GRAPH_FB,
+            use_kernels=True, gram_mode=m))
+    for solver in ("mu", "fista"):
+        steps[f"update_{solver}"] = (lambda s=solver: graphs.footprint_update(
+            state, g, c1, 20, 0.05, s, True))
+    return steps
+
+
+def _flat(out):
+    from dnmf_tpu_torch.models import dnmf as tM
+
+    if isinstance(out, tM.DNMFState):
+        return [getattr(out, f) for f in tM.STATE_FIELDS]
+    if isinstance(out, dict):
+        return list(out.values())
+    return [t for part in out for t in _flat(part)] if isinstance(
+        out, tuple) else [out]
+
+
+@pytest.fixture
+def graph_cache(dev):
+    from dnmf_tpu_torch.models import graphs
+
+    graphs.clear()
+    yield graphs
+    graphs.clear()
+
+
+@pytest.mark.parametrize("step", ["motion", "grams_exact", "grams_analytic",
+                                  "update_mu", "update_fista",
+                                  "round_exact", "round_analytic"])
+def test_captured_step_equals_eager(graph_cache, dev, step):
+    model, state, video = _graph_inputs(dev)
+    run = _graph_steps(model, state, video)[step]
+    with graph_cache.disabled():
+        ref = _flat(run())
+    for _ in range(2):  # the capturing call, then a replay
+        got = _flat(run())
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    (entry,) = graph_cache.entries()
+    assert entry.graph is not None and sum(entry.nodes.values()) > 0
+
+
+@pytest.mark.parametrize("step", ["motion", "grams_analytic", "update_fista",
+                                  "round_exact"])
+def test_one_graph_launch_per_step(graph_cache, dev, step):
+    from torch.profiler import ProfilerActivity, profile
+
+    model, state, video = _graph_inputs(dev)
+    run = _graph_steps(model, state, video)[step]
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.events():
+        calls[e.name] = calls.get(e.name, 0) + 1
+    replays = 2 if step.startswith("round") else 1  # fused: one per round
+    assert calls.get("cudaGraphLaunch", 0) == replays, calls
+    assert not calls.get("cudaLaunchKernel") and not calls.get(
+        "cudaLaunchKernelExC"), calls
+
+
+def test_replays_count_the_kernels_launches(graph_cache, dev):
+    model, state, video = _graph_inputs(dev)
+    steps = _graph_steps(model, state, video)
+    fused.reset_launch_counts()
+    with graph_cache.disabled():
+        steps["round_exact"]()
+    eager = fused.launch_counts()
+    fused.reset_launch_counts()
+    steps["round_exact"]()  # warm-up, capture, two replays
+    steps["round_exact"]()  # two replays
+    (entry,) = graph_cache.entries()
+    got = fused.launch_counts()
+    for name, n in eager.items():
+        # A replay's launches, read from the graph's nodes, are the eager
+        # round's (two rounds eager; one warm-up and four replays).
+        assert 2 * entry.launches.get(name, 0) == n, name
+        assert got[name] == 2 * n + entry.launches.get(name, 0), name
+    assert eager["motion_block"] > 0 and eager["gram_block"] > 0
+    for kernel, name in (("motion_bricks", "motion_block"),
+                         ("gram_bricks", "gram_block")):
+        assert sum(n for k, n in entry.nodes.items()
+                   if kernel in k) == entry.launches[name]
+
+
+def test_unsafe_step_raises(graph_cache, dev):
+    from dnmf_tpu_torch.models import dnmf as tM
+
+    class HostAdam(tM.Adam):  # bias corrections copied from host memory
+        def update(self, param, grad, count, mu, nu):
+            param, count, mu, nu = super().update(param, grad, count, mu, nu)
+            return param * torch.tensor(1.0, device=param.device), count, \
+                mu, nu
+
+    model, state, video = _graph_inputs(dev)
+    fused.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        graph_cache.motion_epoch(state, video, model, HostAdam(1e-3), 0.5,
+                                 GRAPH_FB, True)
+    assert graph_cache.entries() == []
+    # Only the warm-up launched: the failed capture counts nothing.
+    assert fused.launch_counts()["motion_block"] == -(-GRAPH_T // GRAPH_FB)
+    st, m = graph_cache.motion_epoch(state, video, model, tM.Adam(1e-3), 0.5,
+                                     GRAPH_FB, True)
+    assert torch.isfinite(m["recon_mse"]) and len(graph_cache.entries()) == 1
+
+
+def test_replayed_round_makes_no_sync(graph_cache, dev):
+    model, state, video = _graph_inputs(dev)
+    steps = _graph_steps(model, state, video)
+    for run in steps.values():
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for run in steps.values():
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_captured_regularizer_backward(dev):
+    """Autograd's backward runs on the stream of its forward, the capture
+    stream: the captured corner regularizer's gradient follows new
+    inputs as the eager one does."""
+    from dnmf_tpu_torch.ops import jacobian
+
+    rng = np.random.default_rng(1)
+    b = np.zeros((GRAPH_T, 10, 3))
+    b[:, 1, 0] = b[:, 2, 1] = b[:, 3, 2] = 1.0
+    beta = torch.tensor(b + 0.01 * rng.normal(size=b.shape),
+                        dtype=torch.float32, device=dev)
+    buf = beta.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        jacobian.corner_regularizer_and_grad(buf, GRAPH_SIZE, False,
+                                             "normalized")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        reg, grad = jacobian.corner_regularizer_and_grad(
+            buf, GRAPH_SIZE, False, "normalized")
+    for scale in (1.0, 1.02):
+        buf.copy_(beta * scale)
+        graph.replay()
+        ref = jacobian.corner_regularizer_and_grad(beta * scale, GRAPH_SIZE,
+                                                   False, "normalized")
+        assert torch.equal(reg, ref[0]) and torch.equal(grad, ref[1])
