@@ -16,10 +16,11 @@ beside its time per call and the host's share of it, then by kernel
 name of phase 29's round of 8 whole-brain recordings, batched and as
 the loop of single-recording rounds, and stops.
 
-Phases, each of which exits non-zero on failure (every ``fit`` and
-``fit_fused`` with the kernels and without a mesh runs its steps as
-captured CUDA graphs, ``models/graphs.py``; phase 30 holds them against
-eager runs):
+Phases, each of which exits non-zero on failure (every ``fit``,
+``fit_fused`` and ``refine``, the width fit and ``batched_round`` with
+the kernels and without a mesh run their steps as captured CUDA graphs,
+``models/graphs.py``, as do the recovery harness's rounds; phases 30
+and 31 hold them against eager runs):
 
 1. device: a CUDA device is required (there is no CPU path);
 2. card: name and power limit from nvidia-smi;
@@ -185,17 +186,20 @@ eager runs):
    ``KERNEL_TOL`` of the plain version in float64; two rounds with exact
    Grams and one with closed-form Grams against the loop of
    single-recording rounds (beta within rtol 1e-5 / atol 1e-7, C within
-   rtol 1e-4 / atol 1e-6); per round the launch counters show the motion
-   kernel and the Gram (exact) or c1 (closed form) kernel launched once
-   per frame block for all recordings; the batched round's seconds
+   rtol 1e-4 / atol 1e-6); per round the launch counters (less the
+   warm-up of the round's graph entry, which runs the round once
+   eagerly) show the motion kernel and the Gram (exact) or c1 (closed
+   form) kernel launched once per frame block for all recordings; the
+   batched round's seconds (replays of its captured graph)
    beside the loop's, and the peak device memory;
 30. the compiled-program layer (``models/graphs.py``): ``fit`` (3
    rounds of 2 epochs + 50 MU) and ``fit_fused`` (3 rounds) at the ROI
    shape (T=256) and whole-brain (512x512x20, K=200, T=64), with exact
    and closed-form Grams, each captured (from an empty cache) and eager
-   (``graphs.disabled()``): the state and every metric bit-equal; the
-   launch counters equal the eager run's plus each entry's warm-up (a
-   replay adds the launches read from its graph's kernel nodes); in one
+   (``graphs.disabled()``): the state and every metric bit-equal; per
+   kernel wrapper the captured run's launches, less its entries' warm-ups
+   (each runs its step once eagerly), equal to the eager run's (a replay
+   adds the launches that its graph's kernel nodes bear out); in one
    profiled round (the trainer's steps, or ``fused_rounds`` with
    ``rounds=1``) one graph launch per step and no kernel launch from the
    host, as many kernel nodes in the replayed graphs as the eager round
@@ -205,7 +209,25 @@ eager runs):
    that ``graphs.clear()`` gives back, eager and captured.  Then a step
    that copies from host memory (``UnsafeAdam``) raises at capture, and a
    replayed round of ``fit`` and of ``fit_fused`` runs under
-   ``torch.cuda.set_sync_debug_mode("error")``.
+   ``torch.cuda.set_sync_debug_mode("error")``;
+31. refinement, the width fit and the recordings round as captured
+   programs: (a) ``fit(fit_sigma=True)`` for 2 rounds (widths fitted in
+   each) then ``refine()`` at its defaults (3 x 40 epochs + 40 MU) on a
+   seeded whole-brain recording (512x512x20, K=200, T=64, neurons
+   jittering per frame), with exact and with ``"auto"`` Grams, captured
+   from an empty cache and eager: the state, ``pos_t``, the widths and
+   every metric bit-equal; per kernel wrapper the captured run's
+   launches, less its entries' warm-ups, equal to the eager run's; one
+   entry each for the positions and the tracked Grams replayed 3 times,
+   the width fit's twice; then the width fit and refine alone, profiled
+   eager and captured: one graph launch per step and no kernel launch
+   from the host, as many kernel nodes in the graphs as eager kernel
+   launches, the wrappers' launches equal; (b) at the end of phase 29,
+   on its recordings, 2 exact rounds and 1 closed-form round of
+   ``batched_round`` captured against eager with the same gates, and one
+   round of each profiled.  Each prints wall per stage, device ms, idle
+   share, host API calls, capture seconds, peak memory and the MB that
+   ``graphs.clear()`` gives back, eager and captured, with the card.
 
 Every phase prints its seconds with the card's name and power limit.
 The last two lines are a JSON object of per-kernel results (the motion,
@@ -2292,9 +2314,8 @@ def batched_rounds(dev, card, model, states, batched, videos):
                                      ("closed form", "analytic", 1)):
         got, refs = batched, list(states)
         for i in range(rounds):
-            fused.reset_launch_counts()
-            got = run_batched(got, videos, gram_mode)
-            counts = fused.launch_counts()
+            got, counts = path_launches(
+                lambda: run_batched(got, videos, gram_mode))
             pass_name = "gram_block" if gram_mode == "exact" else "c1_block"
             for kn in ("motion_block", pass_name):
                 if counts[kn] != n_blocks:
@@ -2328,15 +2349,35 @@ def batched_rounds(dev, card, model, states, batched, videos):
     return launches
 
 
+def path_launches(run):
+    """``(run(), launches)``: the kernel wrappers' launches in ``run()``,
+    less the warm-ups of the graph entries it made (an entry runs its step,
+    or one epoch of it, eagerly before it captures; the launches left are
+    the path's own, a replay's read from its graph)."""
+    from dnmf_tpu_torch.models import graphs
+
+    before = graphs.entries()
+    fused.reset_launch_counts()
+    out = run()
+    counts = fused.launch_counts()
+    for e in graphs.entries():
+        if not any(e is b for b in before):
+            for k, n in e.warmup_launches.items():
+                counts[k] -= n
+    return out, counts
+
+
 def batched_path(dev, card):
-    """Phase 29 (module docstring): the kernels' and the rounds' checks;
-    returns the kernels-line entries and the rounds' launch counts."""
+    """Phase 29 (module docstring), then phase 31 (b) on its recordings:
+    the kernels' and the rounds' checks; returns the kernels-line entries
+    and the rounds' launch counts."""
     torch.cuda.reset_peak_memory_stats()
     model, states, batched, videos = batched_inputs(dev)
     entries = batched_kernels(dev, states, batched, videos, model.size)
     launches = batched_rounds(dev, card, model, states, batched, videos)
     say(f"batched recordings: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+    batched_graph_case(card, model, batched, videos)
     return entries, launches
 
 
@@ -2383,33 +2424,6 @@ def graph_cache_bytes() -> int:
     graphs.clear()
     torch.cuda.empty_cache()
     return held - torch.cuda.memory_reserved()
-
-
-def graph_fit(model, pos, video, gram_mode, fused_fit, captured):
-    """``fit`` or ``fit_fused`` from a fresh engine, captured (from an empty
-    cache) or eager (``graphs.disabled()``): ``(engine, result, wall s,
-    peak bytes, launches, the entries' launches per replay (read from
-    their graphs), capture s, entries, buffer bytes, cache bytes)``; the
-    cache is cleared after."""
-    from dnmf_tpu_torch.models import graphs
-
-    graphs.clear()
-    eng = graph_engine(model, pos, video, gram_mode)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fused.reset_launch_counts()
-    t0 = time.perf_counter()
-    with (contextlib.nullcontext() if captured else graphs.disabled()):
-        res = (eng.fit_fused if fused_fit else eng.fit)(video)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches, kept = fused.launch_counts(), graphs.entries()
-    summary = ({k: sum(e.launches.get(k, 0) for e in kept) for k in launches},
-               sum(e.capture_seconds for e in kept), len(kept),
-               sum(e.buffer_bytes for e in kept))
-    del kept
-    return (eng, res, secs, torch.cuda.max_memory_allocated(),
-            launches) + summary + (graph_cache_bytes(),)
 
 
 def graph_round(eng, video, fused_fit):
@@ -2477,112 +2491,125 @@ def launch_profile(run):
     return kernels, launches, api, wall, busy * 1e-6, wrappers
 
 
-def graph_case(dev, card, shape, gram_mode):
-    """One shape and Gram mode of phase 30: ``fit`` and ``fit_fused``
-    captured against eager, with the gates."""
+def stage_profile(label, card, run, steps):
+    """One stage, ``run()`` (a call of the programs of ``models/graphs.py``
+    with no host read), profiled eager (``graphs.disabled()``) and
+    captured (:func:`launch_profile`: one warm call, which captures from
+    an empty cache, then the profiled one).  Gates: ``steps`` graph
+    launches and no kernel launch from the host; as many kernel nodes in
+    the replayed graphs as the eager call launches kernels; per kernel
+    wrapper the launches read from the graphs equal to the eager call's.
+    Prints wall, device time, idle share and host API calls both ways."""
     from dnmf_tpu_torch.models import graphs
 
+    def eager():
+        with graphs.disabled():
+            run()
+
+    graphs.clear()
+    kern_e, launches_e, api_e, wall_e, busy_e, wrap_e = launch_profile(eager)
+    kern_c, launches_c, api_c, wall_c, busy_c, wrap_c = launch_profile(run)
+    # Each entry replayed as often in the warm call as in the profiled one.
+    in_graphs = sum(sum(e.nodes.values()) * e.replays // 2
+                    for e in graphs.entries())
+    names = sorted(e.name for e in graphs.entries())
+    graphs.clear()
+    if in_graphs != launches_e:
+        fail(f"{label}: {in_graphs} kernel nodes replayed from {names}, want "
+             f"the eager call's {launches_e} launches")
+    if wrap_c != wrap_e or not any(wrap_e.values()):
+        fail(f"{label}: kernel launches from the graphs {wrap_c}, want the "
+             f"eager call's {wrap_e}")
+    if api_c.get("cudaGraphLaunch", 0) != steps or launches_c:
+        fail(f"{label}: host calls {api_c}, want {steps} graph launches and "
+             "no kernel launch")
+    say(f"{label} profiled, eager / captured ({card}): wall "
+        f"{wall_e * 1e3:.4f} / {wall_c * 1e3:.4f} ms, device "
+        f"{busy_e * 1e3:.4f} / {busy_c * 1e3:.4f} ms, idle share "
+        f"{1 - busy_e / wall_e:.4f} / {1 - busy_c / wall_c:.4f}, host API "
+        f"calls {sum(api_e.values())} / {sum(api_c.values())} ({steps} graph "
+        f"launches of {names}), kernels {launches_e} launched / {in_graphs} "
+        f"in the graphs; wrappers' launches {wrap_c}")
+
+
+def captured_run(run, captured):
+    """``run()`` from an empty cache, captured or eager
+    (``graphs.disabled()``): ``(result, wall s, peak bytes, launches less
+    the entries' warm-ups, the entries as (name, replays, capture s),
+    buffer bytes, bytes that ``graphs.clear()`` gave back)``."""
+    from dnmf_tpu_torch.models import graphs
+
+    graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with (contextlib.nullcontext() if captured else graphs.disabled()):
+        out, launches = path_launches(run)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    kept = [(e.name, e.replays, e.capture_seconds) for e in graphs.entries()]
+    buffers = sum(e.buffer_bytes for e in graphs.entries())
+    return (out, secs, torch.cuda.max_memory_allocated(), launches, kept,
+            buffers, graph_cache_bytes())
+
+
+def check_captured(label, card, eager, captured, same):
+    """Phase 31's gates on a :func:`captured_run` pair: ``same`` (the
+    results bit-equal), and per wrapper the captured run's launches (its
+    replays', read from the graphs) equal to the eager run's."""
+    (_, s_e, peak_e, n_e, _, _, _) = eager
+    (_, s_c, peak_c, n_c, kept, buffers, cache) = captured
+    if not same:
+        fail(f"{label}: captured differs from eager")
+    if n_c != n_e or not any(n_e.values()):
+        fail(f"{label}: launches from the graphs {n_c}, want eager {n_e}")
+    say(f"{label} ({card}): captured == eager bit for bit; wall "
+        f"{s_e:.4f} s eager, {s_c:.4f} s captured (capture "
+        f"{sum(c for _, _, c in kept):.4f} s: "
+        f"{[(n, r, round(c, 4)) for n, r, c in kept]} as (entry, replays, "
+        f"capture s)); launches {n_e}; peak memory {peak_e / 1e9:.4f} / "
+        f"{peak_c / 1e9:.4f} GB; clear() gave back {cache / 1e6:.3f} MB "
+        f"({buffers / 1e6:.3f} MB of static buffers)")
+    return kept
+
+
+def graph_case(dev, card, shape, gram_mode):
+    """One shape and Gram mode of phase 30: ``fit`` and ``fit_fused``
+    captured against eager (:func:`captured_run`), then one round of each
+    profiled (:func:`stage_profile`), with the gates."""
     w, _ = tcfg.baseline_workload(shape)
     t = GRAPH_FRAMES[shape]
     model = tcfg.ModelConfig(size=w.size, num_neurons=w.num_neurons,
                              num_frames=t, shape_std=w.shape_std)
     pos, _, video = ground_truth(dev, model.size, model.num_neurons, t, SEED)
-    runs = {}
     for fused_fit in (False, True):
         label = (f"graphs {shape} T={t} {gram_mode} "
                  f"{'fit_fused' if fused_fit else 'fit'}")
-        (eng_e, res_e, s_e, peak_e, n_e, *_) = graph_fit(
-            model, pos, video, gram_mode, fused_fit, False)
-        (eng_c, res_c, s_c, peak_c, n_c, per_replay, capture, n_entries,
-         buffers, cache) = graph_fit(model, pos, video, gram_mode,
-                                     fused_fit, True)
-        same = {f: torch.equal(getattr(res_c.state, f),
-                               getattr(res_e.state, f))
-                for f in model_lib.STATE_FIELDS}
+
+        def run():
+            eng = graph_engine(model, pos, video, gram_mode)
+            return eng, (eng.fit_fused if fused_fit else eng.fit)(video)
+
+        eager, captured = (captured_run(run, c) for c in (False, True))
+        (_, res_e), (eng, res_c) = eager[0], captured[0]
         strip = [[{k: v for k, v in m.items() if k != "seconds"}
                   for m in r.metrics] for r in (res_c, res_e)]
-        if not all(same.values()) or strip[0] != strip[1]:
-            diff = {f: rel_err(getattr(res_c.state, f).float(),
-                               getattr(res_e.state, f).float())
-                    for f in ("beta", "c")}
-            fail(f"{label}: captured differs from eager: {same}, relative "
-                 f"{diff}, metrics equal {strip[0] == strip[1]}")
-        # The wrappers count each entry's warm-up (its step once, eagerly;
-        # the capture checked its graph's nodes against it); the replays
-        # add what their graphs hold: the eager run's launches.
-        want = {k: n_e[k] + per_replay[k] for k in n_e}
-        if n_c != want or n_c["motion_block"] <= 0:
-            fail(f"{label}: launch counters {n_c}, want eager {n_e} plus "
-                 f"the warm-ups {per_replay}")
+        same = all(torch.equal(getattr(res_c.state, f),
+                               getattr(res_e.state, f))
+                   for f in model_lib.STATE_FIELDS) and strip[0] == strip[1]
+        check_captured(label, card, eager, captured, same)
         # fit times each round; fit_fused is one call (audits included).
-        per_round = [[m["seconds"] for m in r.metrics
+        per_round = [[round(m["seconds"], 5) for m in r.metrics
                       if m["phase"] == "round" and "seconds" in m]
-                     or [secs / GRAPH_ROUNDS]
-                     for r, secs in ((res_e, s_e), (res_c, s_c))]
-        runs[fused_fit] = dict(
-            label=label, eng=eng_c, secs=(s_e, s_c), peaks=(peak_e, peak_c),
-            rounds=per_round, capture=capture, entries=n_entries,
-            cache=cache, buffers=buffers, rows=len(res_c.metrics))
-    # One round profiled: eager (the steps, as fit and fit_fused's loop
-    # run them) against each captured form.  The eager round's kernels
-    # are its host launches, the captured round's the kernel nodes of the
-    # graphs it replays: the profiler's device records are no count (late
-    # in a long process it drops some, in either run).
-    flat = runs[False]["eng"]._video_flat(video)  # the engine's own video
-    eager = graph_round(runs[False]["eng"], flat, False)
-
-    def eager_round():
-        with graphs.disabled():
-            eager()
-
-    prof_e = launch_profile(eager_round)
-    for fused_fit, run in runs.items():
-        graphs.clear()
-        captured = graph_round(run["eng"], flat, fused_fit)
-        prof_c = launch_profile(captured)
-        nodes = {e.name: sum(e.nodes.values()) for e in graphs.entries()}
-        in_graphs = (nodes["fused_round"] if fused_fit else
-                     GRAPH_EPOCHS * nodes["motion_epoch"]
-                     + nodes["compute_grams"] + nodes["footprint_update"])
-        (kern_e, launches_e, api_e, wall_e, busy_e, wrap_e), (
-            kern_c, launches_c, api_c, wall_c, busy_c, wrap_c) = (prof_e,
-                                                                   prof_c)
-        if in_graphs != launches_e:
-            fail(f"{run['label']}: {in_graphs} kernel nodes in the round's "
-                 f"graphs {nodes}, want the eager round's {launches_e} "
-                 "launches")
-        # Per kernel: the launches that the replays read from their graphs'
-        # nodes, against the wrappers' launches in the eager round.
-        if wrap_c != wrap_e or wrap_e["motion_block"] <= 0:
-            fail(f"{run['label']}: kernel launches from the graphs {wrap_c}, "
-                 f"want the eager round's {wrap_e}")
-        steps = 1 if fused_fit else GRAPH_EPOCHS + 2
-        if api_c.get("cudaGraphLaunch", 0) != steps or launches_c:
-            fail(f"{run['label']}: host calls {api_c}, want {steps} graph "
-                 "launches and no kernel launch")
-        moved = {k.split("(")[0][-50:]: (kern_e.get(k, 0), kern_c.get(k, 0))
-                 for k in set(kern_e) | set(kern_c)
-                 if kern_e.get(k, 0) != kern_c.get(k, 0)}
-        (s_e, s_c), (peak_e, peak_c) = run["secs"], run["peaks"]
-        say(f"{run['label']} ({card}): captured == eager bit for bit "
-            f"(state, {run['rows']} metric rows); fit {s_e:.4f} s eager, "
-            f"{s_c:.4f} s captured (capture {run['capture']:.4f} s over "
-            f"{run['entries']} entries); wall per round eager "
-            f"{[round(x, 5) for x in run['rounds'][0]]}, captured "
-            f"{[round(x, 5) for x in run['rounds'][1]]}; one profiled round, "
-            f"eager / captured: wall {wall_e * 1e3:.4f} / {wall_c * 1e3:.4f} "
-            f"ms, device {busy_e * 1e3:.4f} / {busy_c * 1e3:.4f} ms, idle "
-            f"share {1 - busy_e / wall_e:.4f} / {1 - busy_c / wall_c:.4f}, "
-            f"kernels {launches_e} launched / {in_graphs} in the graphs "
-            f"(device records {sum(kern_e.values())} / "
-            f"{sum(kern_c.values())}; by name, where they differ: {moved}), "
-            f"wrappers' launches {wrap_e} / from the graphs {wrap_c}, "
-            f"host API calls {sum(api_e.values())} / "
-            f"{sum(api_c.values())} (captured {api_c}); peak memory "
-            f"{peak_e / 1e9:.4f} / {peak_c / 1e9:.4f} GB; clear() gave back "
-            f"{run['cache'] / 1e6:.3f} MB ({run['buffers'] / 1e6:.3f} MB of "
-            "static buffers)")
-    graphs.clear()
+                     or [round(secs / GRAPH_ROUNDS, 5)]
+                     for r, secs in ((res_e, eager[1]), (res_c, captured[1]))]
+        say(f"{label}: wall per round eager {per_round[0]}, captured "
+            f"{per_round[1]} ({len(res_c.metrics)} metric rows) ({card})")
+        # One round (the trainer's steps, or fused_rounds with rounds=1) on
+        # the engine's own video.
+        stage_profile(f"{label} one round", card,
+                      graph_round(eng, eng._video_flat(video), fused_fit),
+                      1 if fused_fit else GRAPH_EPOCHS + 2)
 
 
 def unsafe_step(dev, card):
@@ -2629,6 +2656,138 @@ def graphs_path(dev, card):
         for gram_mode in ("exact", "analytic"):
             graph_case(dev, card, shape, gram_mode)
     unsafe_step(dev, card)
+
+
+# ------------------------------------------------------------------
+# Phase 31: refinement, the width fit and the recordings round as
+# captured programs (models/graphs.py).
+# ------------------------------------------------------------------
+GRAPH_FIT_ROUNDS = 2  # fit rounds before refine(), the widths fitted in each
+
+
+def batched_graph_case(card, model, batched, videos):
+    """Phase 31 (b) on phase 29's recordings: two exact rounds and one
+    closed-form round of ``batched_round`` captured against eager."""
+    from dnmf_tpu_torch.parallel import batched_round
+    from dnmf_tpu_torch.tools import bench
+
+    adam = bench.motion_optimizer()
+    for label, gram_mode, rounds in (("exact", "exact", 2),
+                                     ("closed form", "analytic", 1)):
+        def one(st):
+            return batched_round(st, videos, model, adam, bench.GAMMA,
+                                 bench.MU_ITERS, frame_block=BATCH_BLOCK,
+                                 use_kernels=True, gram_mode=gram_mode)
+
+        def run():
+            st, ms = batched, []
+            for _ in range(rounds):
+                st, m = one(st)
+                ms.append(m)
+            return st, ms
+
+        eager, captured = (captured_run(run, c) for c in (False, True))
+        (st_e, m_e), (st_c, m_c) = eager[0], captured[0]
+        same = all(torch.equal(getattr(st_e, f), getattr(st_c, f))
+                   for f in model_lib.STATE_FIELDS) and all(
+            torch.equal(a[k], b[k]) for a, b in zip(m_e, m_c) for k in a)
+        kept = check_captured(
+            f"graphs batched_round ({label}), {BATCH_RECORDINGS} "
+            f"recordings x {BATCH_FRAMES} frames, {rounds} round(s)", card,
+            eager, captured, same)
+        if [r for _, r, _ in kept] != [rounds]:
+            fail(f"batched_round ({label}): entries {kept}, want one "
+                 f"replayed {rounds} times")
+        stage_profile(f"graphs batched_round ({label}) one round", card,
+                      lambda: one(batched), 1)
+
+
+def graph_refine_case(dev, card, model, anchors, video, gram_mode):
+    """Phase 31 (a): ``fit(fit_sigma=True)`` then ``refine()`` at its
+    defaults, captured from an empty cache against eager, and the width
+    fit and refine profiled as stages."""
+    import inspect
+
+    from dnmf_tpu_torch.models import graphs
+
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3,
+                               outer_rounds=GRAPH_FIT_ROUNDS,
+                               motion_epochs=2, mu_iters=50, fit_sigma=True,
+                               sigma_every=1, seed=SEED)
+    rt = tcfg.RuntimeConfig(frame_block=8, gram_mode=gram_mode)
+    stages = {}
+
+    def run():
+        eng = ttr.DeformableNMF(model, opt, rt, positions=anchors,
+                                device=dev)
+        t0 = time.perf_counter()
+        eng.fit(video)  # synchronizes the device after each round
+        t1 = time.perf_counter()
+        res = eng.refine(video)  # synchronizes the device
+        stages.setdefault("fit", []).append(t1 - t0)
+        stages.setdefault("refine", []).append(time.perf_counter() - t1)
+        return eng, res
+
+    eager, captured = (captured_run(run, c) for c in (False, True))
+    (eng_e, res_e), (eng, res) = eager[0], captured[0]
+    strip = [[{k: v for k, v in m.items() if k != "seconds"}
+              for m in r.metrics] for r in (res, res_e)]
+    same = (all(torch.equal(getattr(res.state, f), getattr(res_e.state, f))
+                for f in model_lib.STATE_FIELDS)
+            and torch.equal(eng.pos_t, eng_e.pos_t) and strip[0] == strip[1])
+    label = (f"graphs fit(fit_sigma) + refine() {gram_mode} at "
+             f"{model.size[0]}x{model.size[1]}x{model.size[2]}, K="
+             f"{model.num_neurons}, T={model.num_frames}")
+    kept = check_captured(label, card, eager, captured, same)
+    refine_kw = {k: p.default for k, p in inspect.signature(
+        ttr.DeformableNMF.refine).parameters.items()
+        if p.default is not inspect.Parameter.empty}
+    replays = {n: r for n, r, _ in kept}
+    tracked = ("c1_block_tracked" if eng._gram_mode == "analytic"
+               else "gram_block_tracked")
+    if (replays.get("refine_positions") != refine_kw["rounds"]
+            or replays.get("tracked_grams") != refine_kw["rounds"]
+            or replays.get("sigma_fit") != GRAPH_FIT_ROUNDS
+            or not eager[3]["refine_block"] or not eager[3][tracked]):
+        fail(f"{label}: entries {kept}, launches {eager[3]}")
+    say(f"{label}: stage wall s, eager / captured: fit (widths included) "
+        f"{stages['fit'][0]:.4f} / {stages['fit'][1]:.4f}, refine "
+        f"{stages['refine'][0]:.4f} / {stages['refine'][1]:.4f} "
+        f"({refine_kw['rounds']} rounds x {refine_kw['epochs']} epochs + "
+        f"{refine_kw['mu_iters']} MU) ({card})")
+    # The stages alone, profiled: the width fit on the trainer's subsample
+    # and the refine rounds from the refined state.
+    cfg, flat = eng.opt_config, eng._video_flat(video)
+    s = min(cfg.sigma_frames, model.num_frames)
+    idx = torch.as_tensor(np.linspace(0, model.num_frames - 1, s).round()
+                          .astype(int), device=dev)
+    sub = (flat[idx], eng.state.beta[idx], eng.state.c[:, idx].T)
+    stage_profile(f"{label}: the width fit ({cfg.sigma_steps} steps x {s} "
+                  "frames)", card, lambda: graphs.sigma_fit(
+                      eng.state, *sub, model, steps=cfg.sigma_steps,
+                      lr=cfg.sigma_lr,
+                      lo=cfg.sigma_bounds[0] * model.shape_std,
+                      hi=cfg.sigma_bounds[1] * model.shape_std,
+                      frame_block=min(rt.frame_block, s), use_kernels=True),
+                  1)
+    kw = {k: v for k, v in refine_kw.items() if k != "rounds"}
+    stage_profile(f"{label}: refine", card, lambda: graphs.refined_rounds(
+        eng.state, flat, model, refine_kw["rounds"], pos_t=eng.pos_t,
+        frame_block=rt.frame_block, use_kernels=True,
+        gram_mode=eng._gram_mode, gram_window=eng._gram_window(),
+        trace_solver=cfg.trace_solver, **kw), 3 * refine_kw["rounds"])
+
+
+def graphs_refine_path(dev, card):
+    """Phase 31 (a) (module docstring); (b) runs in :func:`batched_path`."""
+    wb, _ = tcfg.baseline_workload("whole_brain")
+    t = GRAPH_FRAMES["whole_brain"]
+    model = tcfg.ModelConfig(size=wb.size, num_neurons=wb.num_neurons,
+                             num_frames=t, shape_std=wb.shape_std)
+    anchors, _, video = jittered_recording(dev, model.size, model.num_neurons,
+                                           t, SEED)
+    for gram_mode in ("exact", "auto"):
+        graph_refine_case(dev, card, model, anchors, video, gram_mode)
 
 
 def main() -> int:
@@ -2716,6 +2875,10 @@ def main() -> int:
     t0 = time.perf_counter()
     graphs_path(dev, card)
     say(f"graphs: {time.perf_counter() - t0:.3f} s ({card})")
+    t0 = time.perf_counter()
+    graphs_refine_path(dev, card)
+    say(f"graphs of refine and the width fit: {time.perf_counter() - t0:.3f} "
+        f"s ({card})")
     say(f"chip_smoke: {time.perf_counter() - started:.3f} s in all")
 
     kernels = []

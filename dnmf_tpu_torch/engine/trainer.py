@@ -18,12 +18,15 @@ device.  ``runtime.checkpoint_dir`` saves every round
 ``runtime.profile_dir`` traces the last round with ``torch.profiler``.
 :class:`StaticFootprintNMF` is the static-footprint MU mode.
 
-Without a mesh, ``fit``'s three steps (the motion epoch, the Grams, the
-trace update) and each round of ``fit_fused`` go through
+Without a mesh, ``fit``'s steps (the motion epoch, the width fit, the
+Grams, the trace update), each round of ``fit_fused`` and ``refine``'s
+(the positions, the tracked Grams, the trace update) go through
 :mod:`dnmf_tpu_torch.models.graphs` (the JAX package's ``jit``): with the
 kernels on the card each is a captured CUDA graph; the Gram audit, the
-finiteness checks, the metric reads and the width fit run eagerly
-between them.  ``models.graphs.clear()`` drops the graphs.
+finiteness checks and the metric reads run eagerly between them.  A
+streamed source's width fit goes through it too (its subsample is on
+the card), its streamed steps do not.  ``models.graphs.clear()`` drops
+the graphs.
 
 ``runtime.mesh_time`` / ``mesh_pixel`` (and ``mesh_batch`` beside
 ``mesh_time``) shard the fit over the ranks of a process group
@@ -438,7 +441,8 @@ class DeformableNMF:
             video_sub = video[idx]
         # On a mesh every rank fits the widths on the same whole frames.
         beta, c = self._whole(self.state.beta), self._whole(self.state.c, 1)
-        sigma, mses = model_lib.sigma_fit(
+        fit = graphs.sigma_fit if self._mesh is None else model_lib.sigma_fit
+        sigma, mses = fit(
             self.state, video_sub, beta[idx], c[:, idx].T, self.model,
             steps=steps or cfg.sigma_steps, lr=cfg.sigma_lr,
             lo=cfg.sigma_bounds[0] * self.model.shape_std,
@@ -641,6 +645,10 @@ class DeformableNMF:
         if self._is_streaming(video):
             self.state, self.pos_t, m = refine_lib.refined_rounds_streaming(
                 self.state, video, self.model, **kw)
+        elif self._mesh is None:  # one device: the captured programs
+            self.state, self.pos_t, m = graphs.refined_rounds(
+                self.state, video, self.model,
+                frame_block=self.runtime.frame_block, **kw)
         else:
             self.state, self.pos_t, m = parallel.sharded_refined_rounds(
                 self.state, video, self.model, self._mesh,

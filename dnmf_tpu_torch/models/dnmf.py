@@ -8,8 +8,9 @@ the per-neuron width fit :func:`sigma_fit` and the diagnostic
 :func:`spatial_pushforward`.  The state is a dataclass of tensors;
 functions run eagerly and loop over frame blocks in Python.  On the card
 :mod:`dnmf_tpu_torch.models.graphs` captures the motion epoch, the Grams,
-the trace update and a round of :func:`fused_rounds` as CUDA graphs (the
-JAX package's ``jit``); the functions here are the steps it captures.
+the trace update, the width fit, a round of :func:`fused_rounds` and a
+round over stacked recordings as CUDA graphs (the JAX package's
+``jit``); the functions here are the steps it captures.
 
 A stacked state (a leading recordings axis on every field: several
 recordings of one size, K and T, :func:`dnmf_tpu_torch.parallel.

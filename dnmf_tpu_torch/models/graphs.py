@@ -1,15 +1,24 @@
 """Captured CUDA graphs of the main path's steps: the port's ``jax.jit``.
 
 The JAX package compiles each step of ``DeformableNMF.fit`` (the motion
-epoch, the Grams, the trace update) and the whole ``fused_rounds``
-schedule into one device program.  Here a step runs once eagerly on a
-side stream (the warm-up: the kernels' build, cuBLAS's handle and
-workspace, the kernels' shared-memory attributes), is captured into a
+epoch, the Grams, the trace update, the width fit), the whole
+``fused_rounds`` schedule, position refinement's two programs
+(``refine_positions``, ``tracked_grams``) and the recordings round
+(``jax.jit(jax.vmap(...))`` of ``parallel.batched_round``) into one
+device program each.  Here a step runs once eagerly on a side stream
+(the warm-up: the kernels' build, cuBLAS's handle and workspace, the
+kernels' shared-memory attributes), is captured into a
 ``torch.cuda.CUDAGraph`` on the same stream, and from then on is
 replayed: one graph launch per step in place of its hundreds or
 thousands of launches.  :func:`fused_rounds` captures one whole round
 (the motion epochs, the Grams and the trace update), which carries its
 state into its own input buffers, and replays it ``rounds`` times.
+:func:`refine_positions` (all its Adam epochs) and :func:`sigma_fit`
+(all its steps) warm up on one epoch or step: the same kernels, scratch
+shapes and handles, at a fraction of the eager run.
+:func:`refined_rounds` runs refinement's rounds through three entries
+(the positions, the tracked Grams, the trace update of
+:func:`footprint_update` with ``gamma=0``), each replayed once a round.
 
 Where it applies.  Each function here decides for itself: with
 ``use_kernels`` and outside :func:`disabled` it goes through the cache,
@@ -23,27 +32,30 @@ nothing falls back to the eager path.
 
 Cache.  One entry per key; the key holds what ``jax.jit`` treats as
 static (the model, the optimizer, ``gamma``, the frame block, the Gram
-mode and window, the iterations, the solver, ``use_kernels``) and every
-input's shape, dtype, strides and device, with the video's address,
-shape and strides.  At most :data:`MAX_ENTRIES` entries are kept, the
-least recently used dropped first; :func:`clear` drops them all and
-:func:`entries` lists them.
+mode and window, the iterations, epochs or steps, the learning rate,
+the solver, ``use_kernels``) and every input's shape, dtype, strides and
+device, with the video's address, shape and strides.  At most
+:data:`MAX_ENTRIES` entries are kept, the least recently used dropped
+first; :func:`clear` drops them all and :func:`entries` lists them.
 
 Inputs and outputs.  A call copies the state's leaves (``beta``, ``c``,
 ``pos``, ``sigma``, ``count``, ``mu``, ``nu``; the trace update also the
-Grams) into the entry's static buffers, then replays.  The video is read
-in place at the address in the key, never copied.  What a call returns
+Grams, refinement the per-frame positions, the width fit its subsampled
+frames, warps and traces) into the entry's static buffers, then
+replays.  The video (the recordings' videos) is read in place at the
+address in the key, never copied.  What a call returns
 is a clone of the graph's output, or the caller's own input where the
 step passes it through: no tensor handed out is one that a later replay
 overwrites.
 
 Launch counts.  The kernel wrappers of :mod:`~dnmf_tpu_torch.ops.fused`
 count their launches in Python, which a replay does not run.  A capture
-launches nothing and takes back what its wrappers counted.  The launches
-of a replay are read from the captured graph itself (:func:`kernel_nodes`:
-each wrapper's last kernel, :data:`LAST_KERNEL`, one node per call); the
-capture raises where they differ from what the wrappers counted, and
-every replay adds them to the wrappers' counters.
+launches nothing and takes back what its wrappers counted.  The graph
+itself is held to those counts (:func:`kernel_nodes`; each wrapper
+launches its last kernel, :data:`LAST_KERNEL`, once per call, and
+wrappers that share a kernel are summed: :func:`replay_launches`); the
+capture raises where they differ, and every replay adds the wrappers'
+counts to their counters.
 """
 
 from __future__ import annotations
@@ -57,16 +69,26 @@ from typing import Optional
 import torch
 
 from dnmf_tpu_torch.models import dnmf as model_lib
+from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import fused
 
-# Entries kept: ``fit`` holds three (motion epoch, Grams, trace update),
-# ``fit_fused`` one.
-MAX_ENTRIES = 8
+# Entries kept.  One engine's run holds at most nine: ``fit`` three
+# (motion epoch, Grams, trace update) and a fourth where the Gram audit
+# falls back to exact Grams, the width fit one, ``refine`` three
+# (positions, tracked Grams, a trace update of its own iterations) and
+# ``fit_fused`` one; three more keep a second run's entries (another
+# video) alive beside them.
+MAX_ENTRIES = 12
 
 # The kernel that each wrapper of the captured steps launches last, once
-# per call (csrc/motion.cu, csrc/c1.cu, csrc/gram.cu).
+# per call (csrc/motion.cu, csrc/c1.cu, csrc/gram.cu, csrc/refine.cu).
+# The tracked and rows wrappers launch their untracked twin's kernels.
 LAST_KERNEL = {"motion_block": "motion_finish", "c1_block": "c1_finish",
-               "gram_block": "gram_assemble"}
+               "c1_block_tracked": "c1_finish",
+               "gram_block": "gram_assemble",
+               "gram_block_tracked": "gram_assemble",
+               "gram_block_rows": "gram_assemble",
+               "refine_block": "refine_finish"}
 
 _entries: "collections.OrderedDict[tuple, Entry]" = collections.OrderedDict()
 _streams = {}  # device -> the side stream of warm-ups and captures
@@ -157,35 +179,66 @@ def kernel_nodes(graph: torch.cuda.CUDAGraph) -> dict:
     return out
 
 
+def replay_launches(nodes: dict, counted: dict) -> dict:
+    """Each wrapper's launches in one replay: ``counted`` (its wrappers'
+    counts during the capture), once the graph's kernel ``nodes`` (by
+    mangled name) bear them out.  Per last kernel of :data:`LAST_KERNEL`,
+    the nodes whose name holds it must number the launches of the
+    wrappers that end in it, summed (a graph cannot tell ``c1_block``'s
+    ``c1_finish`` from ``c1_block_tracked``'s); a wrapper outside the
+    table must have launched nothing.  ``RuntimeError`` otherwise."""
+    counted = {k: n for k, n in counted.items() if n}
+    differ = {k: n for k, n in counted.items() if k not in LAST_KERNEL}
+    for last in sorted(set(LAST_KERNEL.values())):
+        want = sum(counted.get(k, 0) for k, v in LAST_KERNEL.items()
+                   if v == last)
+        have = sum(n for name, n in nodes.items() if last in name)
+        if have != want:
+            differ[last] = (want, have)
+    if differ:
+        raise RuntimeError(
+            "the captured graph's kernels differ from its wrappers' "
+            "launches (last kernel: (launched, in the graph); a wrapper "
+            f"without one: launched): {differ}")
+    return counted
+
+
 class Entry:
     """One captured step: static input buffers, the graph (on the card) or
     the step function (on the CPU) and its outputs.
 
     ``replays`` counts the calls, ``capture_seconds`` is the warm-up and
     the capture, ``buffer_bytes`` the static buffers'; on the card
-    ``nodes`` are the graph's kernel nodes by kernel name and
-    ``launches`` each wrapper's launches in one replay, read from them.
+    ``nodes`` are the graph's kernel nodes by kernel name,
+    ``launches`` each wrapper's launches in one replay (held to them)
+    and ``warmup_launches`` the wrappers' launches in the warm-up.
+    ``warmup`` (default: ``step``) is the warm-up's function.
     """
 
-    def __init__(self, name: str, step, args):
+    def __init__(self, name: str, step, args, warmup=None):
         self.name = name
         self.inputs = tuple(a.clone() for a in args)
         self.replays = 0
         self.buffer_bytes = _nbytes(self.inputs)
-        self.nodes, self.launches = {}, {}
+        self.nodes, self.launches, self.warmup_launches = {}, {}, {}
         device = self.inputs[0].device
         t0 = time.perf_counter()
         if device.type == "cuda":
-            self.graph, self.step = self._capture(step, device), None
+            self.graph = self._capture(step, warmup or step, device)
+            self.step = None
         else:
             self.graph, self.step, self.outputs = None, step, ()
         self.capture_seconds = time.perf_counter() - t0
 
-    def _capture(self, step, device):
+    def _capture(self, step, warmup, device):
         stream = _side_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
+        before = fused.launch_counts()
         with torch.cuda.stream(stream):
-            step(*self.inputs)  # the warm-up
+            warmup(*self.inputs)
+        self.warmup_launches = {k: n - before[k] for k, n in
+                                fused.launch_counts().items()
+                                if n != before[k]}
         before = fused.launch_counts()
         # The graph is kept beside its instance, so that its nodes can be
         # read (:func:`kernel_nodes`).
@@ -199,16 +252,10 @@ class Entry:
             fused.add_launch_counts({k: -n for k, n in counted.items()})
         graph.instantiate()
         self.nodes = kernel_nodes(graph)
-        self.launches = {
-            wrapper: sum(n for k, n in self.nodes.items() if last in k)
-            for wrapper, last in LAST_KERNEL.items()}
-        differ = {k: (n, self.launches.get(k, 0)) for k, n in counted.items()
-                  if n != self.launches.get(k, 0)}
-        if differ:
-            raise RuntimeError(
-                f"{self.name}: the captured graph's kernels differ from its "
-                f"wrappers' launches (wrapper: (launched, in the graph)): "
-                f"{differ}")
+        try:
+            self.launches = replay_launches(self.nodes, counted)
+        except RuntimeError as e:
+            raise RuntimeError(f"{self.name}: {e}") from None
         return graph
 
     def __call__(self, args) -> tuple:
@@ -272,10 +319,11 @@ def _state(leaves) -> model_lib.DNMFState:
     return model_lib.DNMFState(*leaves)
 
 
-def _run(name: str, statics: tuple, step, args, video=None) -> tuple:
+def _run(name: str, statics: tuple, step, args, video=None,
+         warmup=None) -> tuple:
     key = (name,) + statics + _signature(*args) + (
         () if video is None else _video_key(video))
-    return _entry(key, lambda: Entry(name, step, args))(args)
+    return _entry(key, lambda: Entry(name, step, args, warmup))(args)
 
 
 # ----------------------------------------------------------------------
@@ -382,3 +430,133 @@ def fused_rounds(state, video, model, optimizer, rounds: int, epochs: int,
             column[r].copy_(metric)
     return (_state(tuple(buf.clone() for buf in entry.inputs)),
             {"recon_mse": history[0], "reg": history[1]})
+
+
+def sigma_fit(state, video_sub, betas_sub, c_sub, model, steps: int = 4,
+              lr: float = 0.02, lo: float = 1.5, hi: float = 4.8,
+              frame_block: int = 8, use_kernels: bool = False):
+    """:func:`~dnmf_tpu_torch.models.dnmf.sigma_fit`, all ``steps`` Adam
+    steps in one captured graph: ``(sigma, mse_trace [steps])``.  The
+    subsampled frames, warps and traces are inputs, copied like the state
+    (the caller gathers them anew at each call)."""
+    if not _cached(use_kernels):
+        return model_lib.sigma_fit(state, video_sub, betas_sub, c_sub, model,
+                                   steps, lr, lo, hi, frame_block,
+                                   use_kernels)
+
+    def fit(n):
+        def step(*args):
+            return model_lib.sigma_fit(_state(args[:7]), *args[7:], model, n,
+                                       lr, lo, hi, frame_block, use_kernels)
+        return step
+
+    return _run("sigma_fit", (model, steps, lr, lo, hi, frame_block,
+                              use_kernels), fit(steps),
+                _leaves(state) + (video_sub, betas_sub, c_sub),
+                warmup=fit(1))
+
+
+def refine_positions(state, pos_t, video, model, epochs: int = 20,
+                     learning_rate: float = 0.05, prior: float = 1e-3,
+                     frame_block: int = 16, use_kernels: bool = False):
+    """:func:`~dnmf_tpu_torch.models.refine.refine_positions`, all
+    ``epochs`` Adam steps in one captured graph: ``(pos_t, {"recon_mse":
+    [T]})``.  ``pos_t`` None (the anchors) starts from a contiguous copy
+    of the anchors, so that the first round and the later ones share a
+    key."""
+    kw = dict(learning_rate=learning_rate, prior=prior,
+              frame_block=frame_block, use_kernels=use_kernels)
+    if not _cached(use_kernels):
+        return refine_lib.refine_positions(state, pos_t, video, model,
+                                           epochs=epochs, **kw)
+    if pos_t is None:
+        pos_t = state.pos.expand((video.shape[0],) + tuple(state.pos.shape))
+    pos_t = pos_t.contiguous()
+
+    def fit(n):
+        def step(*args):
+            pos, m = refine_lib.refine_positions(_state(args[:7]), args[7],
+                                                 video, model, epochs=n, **kw)
+            return pos, m["recon_mse"]
+        return step
+
+    pos, mse = _run("refine_positions", (model, epochs) + tuple(
+        sorted(kw.items())), fit(epochs), _leaves(state) + (pos_t,), video,
+        warmup=fit(1))
+    return pos, {"recon_mse": mse}
+
+
+def tracked_grams(state, pos_t, video, model, frame_block: int = 16,
+                  use_kernels: bool = False, gram_mode: str = "exact",
+                  gram_window: Optional[int] = None):
+    """:func:`~dnmf_tpu_torch.models.refine.tracked_grams` (the Grams at
+    per-frame positions) as one captured graph: ``(grams, c1)``."""
+    if not _cached(use_kernels):
+        return refine_lib.tracked_grams(state, pos_t, video, model,
+                                        frame_block, use_kernels, gram_mode,
+                                        gram_window)
+
+    def step(*args):
+        return refine_lib.tracked_grams(_state(args[:7]), args[7], video,
+                                        model, frame_block, use_kernels,
+                                        gram_mode, gram_window)
+
+    return _run("tracked_grams", (model, frame_block, use_kernels, gram_mode,
+                                  gram_window), step,
+                _leaves(state) + (pos_t.contiguous(),), video)
+
+
+def refined_rounds(state, video, model, rounds: int = 2, epochs: int = 20,
+                   mu_iters: int = 30, learning_rate: float = 0.05,
+                   prior: float = 1e-3, frame_block: int = 16, pos_t=None,
+                   use_kernels: bool = False, gram_mode: str = "exact",
+                   gram_window: Optional[int] = None,
+                   trace_solver: str = "mu"):
+    """:func:`~dnmf_tpu_torch.models.refine.refined_rounds` through the
+    cache: each round replays :func:`refine_positions`,
+    :func:`tracked_grams` and :func:`footprint_update` (``gamma=0``: the
+    plain MU or FISTA run of the eager loop), one entry each for all the
+    rounds."""
+    kw = dict(rounds=rounds, epochs=epochs, mu_iters=mu_iters,
+              learning_rate=learning_rate, prior=prior,
+              frame_block=frame_block, pos_t=pos_t, use_kernels=use_kernels,
+              gram_mode=gram_mode, gram_window=gram_window,
+              trace_solver=trace_solver)
+    if not _cached(use_kernels):
+        return refine_lib.refined_rounds(state, video, model, **kw)
+    if trace_solver not in ("mu", "fista"):
+        raise ValueError(f"unknown trace solver: {trace_solver!r}")
+    metrics = {}
+    for _ in range(rounds):
+        pos_t, metrics = refine_positions(
+            state, pos_t, video, model, epochs, learning_rate, prior,
+            frame_block, use_kernels)
+        g, c1 = tracked_grams(state, pos_t, video, model, frame_block,
+                              use_kernels, gram_mode, gram_window)
+        state = footprint_update(state, g, c1, mu_iters, 0.0, trace_solver,
+                                 use_kernels)
+    return state, pos_t, metrics
+
+
+def batched_round(states, videos, model, optimizer, gamma: float,
+                  mu_iters: int, mu_gamma: float = 0.0, frame_block: int = 8,
+                  use_kernels: bool = False, gram_mode: str = "exact",
+                  gram_window: Optional[int] = None):
+    """One round of every recording (a stacked state, ``videos [R, T,
+    P]``): :func:`~dnmf_tpu_torch.models.dnmf.fused_round` with one epoch
+    and MU traces, as one captured graph; the recordings' videos are read
+    in place.  Returns the stacked state and the metrics ``[R]``."""
+    kw = dict(epochs=1, mu_iters=mu_iters, gamma=gamma, mu_gamma=mu_gamma,
+              frame_block=frame_block, use_kernels=use_kernels,
+              gram_mode=gram_mode, gram_window=gram_window)
+    if not _cached(use_kernels):
+        return model_lib.fused_round(states, videos, model, optimizer, **kw)
+
+    def step(*leaves):
+        st, m = model_lib.fused_round(_state(leaves), videos, model,
+                                      optimizer, **kw)
+        return _leaves(st) + (m["recon_mse"], m["reg"])
+
+    out = _run("batched_round", (model, optimizer) + tuple(sorted(
+        kw.items())), step, _leaves(states), videos)
+    return _state(out[:7]), {"recon_mse": out[7], "reg": out[8]}

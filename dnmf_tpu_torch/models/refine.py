@@ -17,6 +17,10 @@ call) and the Grams from the tracked c1 or Gram kernels; without, from
 the plain versions, one frame block at a time.  Refinement needs analytic
 footprints (``ValueError`` in resample mode, as in the JAX package);
 unfaded ones (``mask_out_of_bounds=False``) take the plain versions only.
+On the card :mod:`dnmf_tpu_torch.models.graphs` captures
+:func:`refine_positions` (every epoch) and :func:`tracked_grams` as CUDA
+graphs, and ``graphs.refined_rounds`` replays them with the trace
+update round by round (the JAX package's ``jit``).
 """
 
 from __future__ import annotations

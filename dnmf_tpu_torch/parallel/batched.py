@@ -15,7 +15,9 @@ runs over the recordings (the models that no kernel computes excepted:
 they take the footprint ops recording by recording).  On a mesh with a
 ``batch`` axis the recordings split over it: each rank runs its own run
 of them so, and one ``all_gather`` over the axis gives every rank all
-the results.  All recordings share (size, K, T).
+the results.  Without a mesh the round is one captured CUDA graph on
+the card (:func:`dnmf_tpu_torch.models.graphs.batched_round`).  All
+recordings share (size, K, T).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from dnmf_tpu_torch.config import ModelConfig
 from dnmf_tpu_torch.models import dnmf as model_lib
+from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.parallel.mesh import (BATCH_AXIS, all_gather, axis_index,
                                           axis_size)
 
@@ -64,11 +67,20 @@ def batched_round(states: model_lib.DNMFState, videos: torch.Tensor,
       states: stacked state (leading recordings axis on every field).
       videos: ``[R, T, P]`` flattened frames.
       mesh: with a ``batch`` axis of ``nb`` ranks, ``R / nb`` recordings
-        per rank, the results gathered on every rank.
+        per rank, the results gathered on every rank.  Without a mesh the
+        round is :func:`dnmf_tpu_torch.models.graphs.batched_round`: with
+        the kernels one captured graph (the JAX package's ``jit`` of the
+        ``vmap``-ed round), else eager.
 
     Returns:
       The stacked updated states and the per-recording metrics ``[R]``.
     """
+    kw = dict(mu_gamma=mu_gamma, frame_block=frame_block,
+              use_kernels=use_kernels, gram_mode=gram_mode,
+              gram_window=gram_window)
+    if mesh is None:
+        return graphs.batched_round(states, videos, model, optimizer, gamma,
+                                    mu_iters, **kw)
     r = videos.shape[0]
     nb, ib = axis_size(mesh, BATCH_AXIS), axis_index(mesh, BATCH_AXIS)
     if r % nb:
@@ -78,13 +90,9 @@ def batched_round(states: model_lib.DNMFState, videos: torch.Tensor,
     mine = slice(ib * per, (ib + 1) * per)
     state = model_lib.DNMFState(**{name: getattr(states, name)[mine]
                                    for name in model_lib.STATE_FIELDS})
-    video = videos[mine]
-    state, m = model_lib.motion_epoch_parallel(
-        state, video, model, optimizer, gamma, frame_block, use_kernels)
-    grams, c1 = model_lib.compute_grams(state, video, model, frame_block,
-                                        use_kernels, gram_mode, gram_window)
-    local = model_lib.footprint_update(state, grams, c1, mu_iters, mu_gamma)
-    metrics = {"recon_mse": m["recon_mse"], "reg": m["reg"]}
+    local, metrics = model_lib.fused_round(
+        state, videos[mine], model, optimizer, epochs=1, mu_iters=mu_iters,
+        gamma=gamma, **kw)
     if nb > 1:
         local = model_lib.DNMFState(**{
             name: torch.cat(all_gather(getattr(local, name), mesh,

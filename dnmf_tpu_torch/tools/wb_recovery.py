@@ -14,8 +14,10 @@ warp error in pixels and, with width fitting, width error in pixels.
 :func:`seeded_recovery` is :func:`recovery_fixture` followed by
 :func:`recover`, so that a fixture made elsewhere (the JAX package's, in
 the tests) can be fitted here.  On the card the motion, c1 and refine
-passes run the CUDA kernels; ``use_kernels=False`` runs the plain
-versions.
+passes run the CUDA kernels, and each step of a round (the motion epoch,
+the width fit, the Grams, the trace update) is a captured CUDA graph
+(:mod:`dnmf_tpu_torch.models.graphs`, the JAX package's ``jit``);
+``use_kernels=False`` runs the plain versions eagerly.
 
 The round-5 recovery witnesses (:data:`WITNESSES`) run from the command
 line, on fixtures of this harness or on one saved by the JAX package
@@ -46,6 +48,7 @@ import torch
 from dnmf_tpu_torch.config import ModelConfig, OptimizerConfig
 from dnmf_tpu_torch.data.simulator import _normal, _uniform, exponential_traces
 from dnmf_tpu_torch.models import dnmf as model_lib
+from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import gram_analytic as ga
 from dnmf_tpu_torch.registration.motion_correct import rigid_correct_frames
@@ -318,21 +321,22 @@ def recover(fixture: dict, rounds: int, epochs: int, mu_iters: int,
     for r in range(rounds):
         t0 = time.perf_counter()
         for _ in range(epochs):
-            state, _m = model_lib.motion_epoch_parallel(
+            state, _m = graphs.motion_epoch(
                 state, video, model, optimizer, GAMMA,
                 frame_block=frame_block, use_kernels=use_kernels)
         if fit_sigma and r % sigma_every == 0:
-            sigma, _ = model_lib.sigma_fit(
+            sigma, _ = graphs.sigma_fit(
                 state, video[sig_idx], state.beta[sig_idx],
                 state.c[:, sig_idx].T, model, steps=sigma_steps,
                 lr=SIGMA_LR, lo=sig_lo, hi=sig_hi, frame_block=frame_block,
                 use_kernels=use_kernels)
             state = state.replace(sigma=sigma)
-        grams, c1 = model_lib.compute_grams(
+        grams, c1 = graphs.compute_grams(
             state, video, model, frame_block=frame_block,
             use_kernels=use_kernels, gram_mode=gram_mode,
             gram_window=gram_window)
-        state = model_lib.footprint_update(state, grams, c1, iters=mu_iters)
+        state = graphs.footprint_update(state, grams, c1, iters=mu_iters,
+                                        use_kernels=use_kernels)
         _sync(dev)
         round_times.append(time.perf_counter() - t0)
     later = sorted(round_times[1:])

@@ -14,7 +14,11 @@ them.  The compiled-program layer (``models/graphs.py``): each captured
 step equal to its eager run bit for bit, one graph launch per step and
 no kernel launch from the host in a replay, the launch counters kept by
 the replays, a step that breaks capture raising, no synchronizing call
-in a replayed round, and autograd's backward inside a capture.  The data layer on the card: the simulator against its CPU run on
+in a replayed round, and autograd's backward inside a capture; the
+same for the programs of refinement (``refine_positions``,
+``tracked_grams``, ``refined_rounds``), the width fit and the
+recordings round, whose replays count the tracked kernels' launches as
+their own.  The data layer on the card: the simulator against its CPU run on
 one CPU generator's draws, a ``SimulatedVideoDataset`` on the card
 feeding ``fit``, and the recovery harness with and without the kernels.
 Marked ``cuda``; every test skips where no CUDA device exists.
@@ -544,11 +548,13 @@ def test_recordings_axis_is_bit_equal_per_recording(dev, shape, aniso):
 
 def test_batched_round_launches_each_pass_once_per_block(dev):
     """``batched_round`` with the kernels: per frame block one launch of A
-    and of C (exact) or B (closed form) for every recording, and the round
-    equals the single-recording rounds (beta within rtol 1e-5 / atol
-    1e-7, C within rtol 1e-4 / atol 1e-6)."""
+    and of C (exact) or B (closed form) for every recording (the round's
+    graph entry's warm-up, one eager round, aside), and the round equals
+    the single-recording rounds (beta within rtol 1e-5 / atol 1e-7, C
+    within rtol 1e-4 / atol 1e-6)."""
     from dnmf_tpu_torch import parallel
     from dnmf_tpu_torch.models import dnmf as tM
+    from dnmf_tpu_torch.models import graphs
 
     size, k, t = (40, 36, 6), 30, 8
     _, pos, sigma, _, _, videos = _recordings(size, k, dev, False, t=t)
@@ -560,11 +566,15 @@ def test_batched_round_launches_each_pass_once_per_block(dev):
     adam = tM.Adam(1e-3)
     for gram_mode, pass_name in (("exact", "gram_block"),
                                  ("analytic", "c1_block")):
+        graphs.clear()
         fused.reset_launch_counts()
         got, _ = parallel.batched_round(
             parallel.stack_states(states), videos, model, adam, 0.1, 10,
             frame_block=REC_BLOCK, use_kernels=True, gram_mode=gram_mode)
         counts = fused.launch_counts()
+        (entry,) = graphs.entries()
+        for name, n in entry.warmup_launches.items():
+            counts[name] -= n
         assert counts["motion_block"] == counts[pass_name] == t // REC_BLOCK
         for r, st in enumerate(states):
             st, _ = tM.motion_epoch_parallel(st, videos[r], model, adam, 0.1,
@@ -575,6 +585,7 @@ def test_batched_round_launches_each_pass_once_per_block(dev):
             torch.testing.assert_close(got.beta[r], ref.beta, rtol=1e-5,
                                        atol=1e-7)
             torch.testing.assert_close(got.c[r], ref.c, rtol=1e-4, atol=1e-6)
+    graphs.clear()
 
 
 # ------------------------------------------------ registration: F and G
@@ -1395,3 +1406,128 @@ def test_captured_regularizer_backward(dev):
         ref = jacobian.corner_regularizer_and_grad(beta * scale, GRAPH_SIZE,
                                                    False, "normalized")
         assert torch.equal(reg, ref[0]) and torch.equal(grad, ref[1])
+
+
+# Refinement, the width fit and the recordings round as captured programs
+# (graphs.refine_positions, tracked_grams, refined_rounds, sigma_fit,
+# batched_round): equal to eager bit for bit, one graph launch per step,
+# the wrappers' launches of a replay those of the eager run (kernels that
+# the tracked wrappers share with their twins included), no sync.
+def _program_calls(model, state, video):
+    """Each program as a call and its graph launches per call:
+    ``name -> (fn(), steps)``."""
+    from dnmf_tpu_torch import parallel
+    from dnmf_tpu_torch.models import dnmf as tM
+    from dnmf_tpu_torch.models import graphs
+
+    gen = torch.Generator(device=video.device).manual_seed(3)
+    pos_t = state.pos + 0.5 * torch.randn((GRAPH_T, GRAPH_K, 3),
+                                          generator=gen, device=video.device)
+    idx = torch.arange(0, GRAPH_T, 3, device=video.device)
+    sub = (video[idx], state.beta[idx], state.c[:, idx].T)
+    aniso = state.replace(sigma=state.sigma[:, None] * torch.tensor(
+        [1.0, 1.2, 0.6], device=video.device))
+    states = parallel.stack_states([state, state.replace(c=state.c * 0.5)])
+    videos = torch.stack([video, video.flip(0)])
+    calls = {
+        "refine_positions": (lambda: graphs.refine_positions(
+            state, pos_t, video, model, epochs=5, frame_block=GRAPH_FB,
+            use_kernels=True), 1),
+        # From given positions: from the anchors, a call first makes them
+        # contiguous (one copy kernel launched from the host).
+        "refined_rounds": (lambda: graphs.refined_rounds(
+            state, video, model, rounds=2, epochs=3, mu_iters=10,
+            frame_block=GRAPH_FB, pos_t=pos_t, use_kernels=True,
+            gram_mode="analytic"), 6),
+        "sigma": (lambda: graphs.sigma_fit(
+            state, *sub, model, steps=3, frame_block=GRAPH_FB,
+            use_kernels=True), 1),
+        "sigma_aniso": (lambda: graphs.sigma_fit(
+            aniso, *sub, model, steps=3, frame_block=GRAPH_FB,
+            use_kernels=True), 1)}
+    for mode in ("exact", "analytic"):
+        calls[f"tracked_{mode}"] = (lambda m=mode: graphs.tracked_grams(
+            state, pos_t, video, model, GRAPH_FB, True, m), 1)
+        calls[f"batched_{mode}"] = (lambda m=mode: parallel.batched_round(
+            states, videos, model, tM.Adam(1e-3), 0.5, 10,
+            frame_block=GRAPH_FB, use_kernels=True, gram_mode=m), 1)
+    return calls
+
+
+PROGRAMS = ["refine_positions", "refined_rounds", "sigma", "sigma_aniso",
+            "tracked_exact", "tracked_analytic", "batched_exact",
+            "batched_analytic"]
+
+
+@pytest.mark.parametrize("program", PROGRAMS)
+def test_captured_program_equals_eager(graph_cache, dev, program):
+    model, state, video = _graph_inputs(dev)
+    run, _ = _program_calls(model, state, video)[program]
+    with graph_cache.disabled():
+        ref = _flat(run())
+    for _ in range(2):  # the capturing call, then a replay
+        got = _flat(run())
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert all(e.graph is not None and sum(e.nodes.values()) > 0
+               for e in graph_cache.entries())
+
+
+@pytest.mark.parametrize("program", PROGRAMS)
+def test_program_is_one_graph_launch_per_step(graph_cache, dev, program):
+    from torch.profiler import ProfilerActivity, profile
+
+    model, state, video = _graph_inputs(dev)
+    run, steps = _program_calls(model, state, video)[program]
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.events():
+        calls[e.name] = calls.get(e.name, 0) + 1
+    assert calls.get("cudaGraphLaunch", 0) == steps, calls
+    assert not calls.get("cudaLaunchKernel") and not calls.get(
+        "cudaLaunchKernelExC"), calls
+
+
+@pytest.mark.parametrize("program", PROGRAMS)
+def test_program_replay_launches_equal_eager(graph_cache, dev, program):
+    model, state, video = _graph_inputs(dev)
+    run, _ = _program_calls(model, state, video)[program]
+    fused.reset_launch_counts()
+    with graph_cache.disabled():
+        run()
+    eager = fused.launch_counts()
+    run()  # warm-up and capture
+    fused.reset_launch_counts()
+    run()  # replays only
+    assert fused.launch_counts() == eager
+    wanted = {"refine_positions": ["refine_block"],
+              "refined_rounds": ["refine_block", "c1_block_tracked"],
+              "sigma": ["refine_block"], "sigma_aniso": ["refine_block"],
+              "tracked_exact": ["gram_block_tracked"],
+              "tracked_analytic": ["c1_block_tracked"],
+              "batched_exact": ["motion_block", "gram_block"],
+              "batched_analytic": ["motion_block", "c1_block"]}[program]
+    assert all(eager[name] > 0 for name in wanted), eager
+    # The tracked passes count as themselves, not as their twins.
+    if program.startswith(("tracked", "refined")):
+        assert eager["c1_block"] == eager["gram_block"] == 0, eager
+
+
+def test_replayed_programs_make_no_sync(graph_cache, dev):
+    model, state, video = _graph_inputs(dev)
+    calls = _program_calls(model, state, video)
+    for run, _ in calls.values():
+        run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for run, _ in calls.values():
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
