@@ -19,8 +19,9 @@ the loop of single-recording rounds, and stops.
 Phases, each of which exits non-zero on failure (every ``fit``,
 ``fit_fused`` and ``refine``, the width fit and ``batched_round`` with
 the kernels and without a mesh run their steps as captured CUDA graphs,
-``models/graphs.py``, as do the recovery harness's rounds; phases 30
-and 31 hold them against eager runs):
+``models/graphs.py``, as do the recovery harness's rounds and, without
+a mesh, registration's and seeding's frame blocks; phases 30-32 hold
+them against eager runs):
 
 1. device: a CUDA device is required (there is no CPU path);
 2. card: name and power limit from nvidia-smi;
@@ -227,7 +228,23 @@ and 31 hold them against eager runs):
    ``batched_round`` captured against eager with the same gates, and one
    round of each profiled.  Each prints wall per stage, device ms, idle
    share, host API calls, capture seconds, peak memory and the MB that
-   ``graphs.clear()`` gives back, eager and captured, with the card.
+   ``graphs.clear()`` gives back, eager and captured, with the card;
+32. registration's and seeding's block steps as captured programs, on
+   phase 9's whole-brain host recording (512x512x20, T=64):
+   ``MotionCorrect(...).motion_correct()`` with the pipeline's default
+   settings (2x2x1 patches, ``"exact"``: kernel F) and with ``bench``'s
+   (4x4x2, ``"fused"``: F and G), then ``summary_images`` with the rigid
+   shifts, each captured from an empty cache and eager: the rigid
+   shifts, the patch shifts, every template, the corrected movies and
+   ``corr`` / ``pnr`` bit-equal; per wrapper the captured run's
+   launches, less its entries' warm-ups, equal to the eager run's (F in
+   both settings, G only in ``bench``'s, neither in seeding); one block of
+   each step from the host profiled: one graph launch and no kernel
+   launch from the host, kernel nodes equal to the eager launches; wall
+   per stage, device ms, idle share, host API calls per block, capture
+   seconds, peak memory and the MB that ``graphs.clear()`` gives back,
+   eager and captured.  Then a registration step that copies from host
+   memory raises at capture.
 
 Every phase prints its seconds with the card's name and power limit.
 The last two lines are a JSON object of per-kernel results (the motion,
@@ -967,7 +984,7 @@ def registration_agreement(dev, video, mc_k, sh_k, mc_p, sh_p):
 def registration_path(dev):
     """The full-width piecewise-rigid path, the pipeline's default
     registration, and the kernel-vs-plain agreement; returns the launch
-    counts of the full-width run."""
+    counts of the full-width run and its host recording (phase 32's)."""
     size = REG_SHAPES["whole_brain"][0]
     starts, _, window = mc_lib.patch_grid(size, BENCH_PW["overlaps"],
                                           BENCH_PW["strides"])
@@ -1018,7 +1035,7 @@ def registration_path(dev):
         fail("phasecorr_impl='xla' launched a registration kernel")
     registration_agreement(dev, video, mc_k, sh_k, mc_p, sh_p)
     del mc_p
-    return launches
+    return launches, video
 
 
 def seeded_traces(rng, k, t):
@@ -1184,11 +1201,20 @@ def pipeline_path(dev, size, k):
             f"{time.perf_counter() - t0:.3f} s)")
         src = RawFileVideo(path, shape, block=PIPE_BLOCK, device=dev)
         fused.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = register_and_demix(src, num_neurons=k, refine_positions=True)
         total = time.perf_counter() - t0
         launches = fused.launch_counts()
         say(f"pipeline: launches {launches}")
+        from dnmf_tpu_torch.models import graphs
+        kept = [(e.name, e.replays, round(e.capture_seconds, 4))
+                for e in graphs.entries()]
+        say(f"pipeline: graph entries (name, replays, capture s) {kept}; "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+            f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.3f} GB "
+            f"reserved; graphs.clear() gave back "
+            f"{graph_cache_bytes() / 1e6:.3f} MB")
         say("pipeline seconds: " + ", ".join(
             f"{stage} {sec:.3f}" for stage, sec in res.seconds.items())
             + f"; total {total:.3f} ({PIPE_T} frames, "
@@ -2491,7 +2517,7 @@ def launch_profile(run):
     return kernels, launches, api, wall, busy * 1e-6, wrappers
 
 
-def stage_profile(label, card, run, steps):
+def stage_profile(label, card, run, steps, wrappers=True):
     """One stage, ``run()`` (a call of the programs of ``models/graphs.py``
     with no host read), profiled eager (``graphs.disabled()``) and
     captured (:func:`launch_profile`: one warm call, which captures from
@@ -2499,7 +2525,9 @@ def stage_profile(label, card, run, steps):
     launches and no kernel launch from the host; as many kernel nodes in
     the replayed graphs as the eager call launches kernels; per kernel
     wrapper the launches read from the graphs equal to the eager call's.
-    Prints wall, device time, idle share and host API calls both ways."""
+    Prints wall, device time, idle share and host API calls both ways.
+    ``wrappers=False``: a stage that launches no kernel of the port
+    (cuFFT's and PyTorch's only), whose wrappers' counts stay zero."""
     from dnmf_tpu_torch.models import graphs
 
     def eager():
@@ -2517,7 +2545,7 @@ def stage_profile(label, card, run, steps):
     if in_graphs != launches_e:
         fail(f"{label}: {in_graphs} kernel nodes replayed from {names}, want "
              f"the eager call's {launches_e} launches")
-    if wrap_c != wrap_e or not any(wrap_e.values()):
+    if wrap_c != wrap_e or any(wrap_e.values()) != wrappers:
         fail(f"{label}: kernel launches from the graphs {wrap_c}, want the "
              f"eager call's {wrap_e}")
     if api_c.get("cudaGraphLaunch", 0) != steps or launches_c:
@@ -2553,15 +2581,16 @@ def captured_run(run, captured):
             buffers, graph_cache_bytes())
 
 
-def check_captured(label, card, eager, captured, same):
+def check_captured(label, card, eager, captured, same, wrappers=True):
     """Phase 31's gates on a :func:`captured_run` pair: ``same`` (the
     results bit-equal), and per wrapper the captured run's launches (its
-    replays', read from the graphs) equal to the eager run's."""
+    replays', read from the graphs) equal to the eager run's (all zero
+    with ``wrappers=False``)."""
     (_, s_e, peak_e, n_e, _, _, _) = eager
     (_, s_c, peak_c, n_c, kept, buffers, cache) = captured
     if not same:
         fail(f"{label}: captured differs from eager")
-    if n_c != n_e or not any(n_e.values()):
+    if n_c != n_e or any(n_e.values()) != wrappers:
         fail(f"{label}: launches from the graphs {n_c}, want eager {n_e}")
     say(f"{label} ({card}): captured == eager bit for bit; wall "
         f"{s_e:.4f} s eager, {s_c:.4f} s captured (capture "
@@ -2790,6 +2819,188 @@ def graphs_refine_path(dev, card):
         graph_refine_case(dev, card, model, anchors, video, gram_mode)
 
 
+# ------------------------------------------------------------------
+# Phase 32: registration's and seeding's block steps as captured programs
+# (models/graphs.py rigid_block, pwrigid_block, summary_blocks).
+# ------------------------------------------------------------------
+MOTION_LISTS = ("shifts_rig", "templates_rig", "mc", "x_shifts_els",
+                "y_shifts_els", "z_shifts_els", "templates_els", "mc_els")
+
+
+def same_bits(a, b) -> bool:
+    """Two arrays or tensors equal bit for bit (NaNs in place)."""
+    a, b = (np.ascontiguousarray(x.cpu().numpy() if isinstance(
+        x, torch.Tensor) else np.asarray(x)) for x in (a, b))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+    return np.array_equal(a.view(view[a.itemsize]),
+                          b.view(view[b.itemsize]))
+
+
+def same_motion(a, b) -> bool:
+    """Two ``MotionCorrect`` runs bit-equal: every shift, template and
+    corrected movie."""
+    for name in MOTION_LISTS:
+        xs, ys = getattr(a, name, []), getattr(b, name, [])
+        if len(xs) != len(ys) or not all(map(same_bits, xs, ys)):
+            return False
+    return all(same_bits(getattr(a, n), getattr(b, n))
+               for n in ("total_template_rig", "total_template_els"))
+
+
+def registration_graph_case(dev, card, video, label, cfg, kernels):
+    """``MotionCorrect(video, cfg).motion_correct()`` captured from an
+    empty cache against eager, with the gates of :func:`check_captured`
+    (``kernels``: the wrappers that must launch); the rigid stage's wall
+    and the rest's (the movie's minimum and the piecewise-rigid stage),
+    also of a second run each way (captured: the entries replayed); one
+    block of each stage profiled (:func:`stage_profile`)."""
+    from dnmf_tpu_torch.models import graphs
+
+    stages = {}
+
+    def timed_run(tag):
+        def run():
+            mc = MotionCorrect(video, cfg, device=dev)
+            rigid = mc.motion_correct_rigid
+
+            def timed(*args, **kw):  # the rigid stage of motion_correct()
+                t0 = time.perf_counter()
+                rigid(*args, **kw)
+                torch.cuda.synchronize()
+                stages[tag] = [time.perf_counter() - t0]
+            mc.motion_correct_rigid = timed
+            t0 = time.perf_counter()
+            mc.motion_correct()
+            torch.cuda.synchronize()
+            stages[tag].append(time.perf_counter() - t0 - stages[tag][0])
+            return mc
+        return run
+
+    eager = captured_run(timed_run("eager"), False)
+    captured = captured_run(timed_run("captured"), True)
+    mc_e, mc_c = eager[0], captured[0]
+    kept = check_captured(label, card, eager, captured,
+                          same_motion(mc_e, mc_c))
+    if {k for k, n in eager[3].items() if n} != set(kernels):
+        fail(f"{label}: launches {eager[3]}, want {kernels} launched")
+    del mc_e, eager, captured
+    with graphs.disabled():
+        timed_run("eager, again")()
+    timed_run("captured, capturing")()
+    timed_run("captured, replayed")()
+    graphs.clear()
+    blocks = -(-video.shape[0] // cfg.frame_block)
+    say(f"{label}: wall s of the rigid stage / the rest (the minimum and "
+        "the piecewise-rigid stage): " + "; ".join(
+            f"{tag} {r:.4f} / {p:.4f}" for tag, (r, p) in stages.items())
+        + f" ({video.shape[0]} frames, {blocks} blocks of "
+        f"{cfg.frame_block} per pass); entries {kept} ({card})")
+    frames = torch.from_numpy(np.ascontiguousarray(video[:cfg.frame_block]))
+    add = torch.full((), -mc_c.min_mov, device=dev)
+    tmpl = mc_c.total_template_rig
+    for step, fn, wrappers in (("rigid", graphs.rigid_block, False),
+                               ("piecewise-rigid", graphs.pwrigid_block,
+                                True)):
+        stage_profile(f"{label}: one {step} block from the host", card,
+                      lambda: fn(frames, tmpl, add, cfg), 1, wrappers)
+    return mc_c
+
+
+def summary_graph_case(dev, card, video, shifts):
+    """``summary_images`` of the recording with its rigid shifts, captured
+    against eager, then one block profiled."""
+    from dnmf_tpu_torch.models import graphs
+    from dnmf_tpu_torch.ops import seeding
+
+    size = tuple(video.shape[1:])
+    label = (f"graphs summary_images, {video.shape[0]} frames of "
+             f"{'x'.join(map(str, size))} with rigid shifts")
+    eager, captured = (captured_run(
+        lambda: seeding.summary_images(video, size, shifts=shifts,
+                                       device=dev), c) for c in (False, True))
+    t0 = time.perf_counter()
+    with graphs.disabled():
+        seeding.summary_images(video, size, shifts=shifts, device=dev)
+    warm_e = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seeding.summary_images(video, size, shifts=shifts, device=dev)
+    warm_c = time.perf_counter() - t0
+    check_captured(label, card, eager, captured,
+                   all(map(same_bits, eager[0], captured[0])),
+                   wrappers=False)
+    say(f"{label}: a second pass, eager / captured (the entry kept): "
+        f"{warm_e:.4f} / {warm_c:.4f} s ({card})")
+    p = int(np.prod(size))
+    zeros = torch.zeros(p, device=dev)
+    carry = (zeros, zeros, zeros, torch.zeros((3, p), device=dev), zeros,
+             torch.full((p,), -torch.inf, device=dev), zeros,
+             torch.zeros((), dtype=torch.int64, device=dev))
+    block = [(torch.from_numpy(np.ascontiguousarray(
+        video[:16].reshape(16, p))), torch.full((), 16, device=dev),
+        torch.from_numpy(np.asarray(shifts[:16], np.float32)).to(dev))]
+    stage_profile(f"{label}: one block from the host", card,
+                  lambda: graphs.summary_blocks(carry, block, size, True), 1,
+                  wrappers=False)
+
+
+def unsafe_registration_step(dev, card, video, template):
+    """A registration step that copies from host memory (a constant made
+    from host data beside the correlation) raises at capture; the card
+    works on."""
+    from dnmf_tpu_torch.models import graphs
+    from dnmf_tpu_torch.ops import fft_reg
+
+    correlate = fft_reg.correlate
+
+    def host_correlate(*args):
+        shifts, ccmax, coarse = correlate(*args)
+        return (shifts * torch.tensor(1.0, device=shifts.device), ccmax,
+                coarse)
+
+    frames = torch.from_numpy(np.ascontiguousarray(video[:REG_BLOCK]))
+    cfg = tcfg.RegistrationConfig(**PIPE_REG, is3d=True)
+    graphs.clear()
+    raised = None
+    fft_reg.correlate = host_correlate
+    try:
+        graphs.rigid_block(frames, template, 0.0, cfg)
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0][:160]
+    finally:
+        fft_reg.correlate = correlate
+    if raised is None or graphs.entries():
+        fail("graphs: a registration step that copies from host memory "
+             "was captured")
+    shifts = graphs.rigid_block(frames, template, 0.0, cfg)[1]
+    if not bool(torch.isfinite(shifts).all()):
+        fail("graphs: the card failed after a refused capture")
+    graphs.clear()
+    say(f"graphs: the unsafe registration step raised RuntimeError "
+        f"({raised}); the step captured after it ({card})")
+
+
+def graphs_registration_path(dev, card, video):
+    """Phase 32 (module docstring)."""
+    pipe = tcfg.RegistrationConfig(**PIPE_REG, pw_rigid=True, is3d=True,
+                                   border_nan=False, return_mc=True)
+    bench_cfg = tcfg.RegistrationConfig(**BENCH_PW, pw_rigid=True,
+                                        is3d=True, remap_mode="fused",
+                                        return_mc=True)
+    shape = "x".join(map(str, video.shape[1:]))
+    mc = registration_graph_case(
+        dev, card, video, f"graphs MotionCorrect, pipeline default (2x2x1 "
+        f"patches, exact), {video.shape[0]} frames of {shape}", pipe,
+        ("phase_corr_block",))
+    registration_graph_case(
+        dev, card, video, f"graphs MotionCorrect, bench's settings (4x4x2, "
+        f"fused), {video.shape[0]} frames of {shape}", bench_cfg,
+        ("phase_corr_block", "fused_separable_warp"))
+    summary_graph_case(dev, card, video, np.asarray(mc.shifts_rig))
+    unsafe_registration_step(dev, card, video, mc.total_template_rig)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -2844,7 +3055,7 @@ def main() -> int:
     launches["c1_block_tracked"] = auto["c1_block_tracked"]
     launches["gram_block_tracked"] = exact["gram_block_tracked"]
     refine_agreement(dev, model)
-    reg = registration_path(dev)
+    reg, reg_video = registration_path(dev)
     for kname in ("phase_corr_block", "fused_separable_warp"):
         launches[kname] = reg[kname]
     pipe, c4 = pipeline_path(dev, wb.size, wb.num_neurons)
@@ -2879,6 +3090,11 @@ def main() -> int:
     graphs_refine_path(dev, card)
     say(f"graphs of refine and the width fit: {time.perf_counter() - t0:.3f} "
         f"s ({card})")
+    t0 = time.perf_counter()
+    graphs_registration_path(dev, card, reg_video)
+    del reg_video
+    say(f"graphs of registration and seeding: "
+        f"{time.perf_counter() - t0:.3f} s ({card})")
     say(f"chip_smoke: {time.perf_counter() - started:.3f} s in all")
 
     kernels = []

@@ -5,7 +5,9 @@ epoch, the Grams, the trace update, the width fit), the whole
 ``fused_rounds`` schedule, position refinement's two programs
 (``refine_positions``, ``tracked_grams``) and the recordings round
 (``jax.jit(jax.vmap(...))`` of ``parallel.batched_round``) into one
-device program each.  Here a step runs once eagerly on a side stream
+device program each, and so registration's and seeding's frame-block
+steps (``rigid_correct_frames``, ``tile_and_correct_block`` with kernels F
+and G, ``_accum_block`` and ``_accum_block_shifted``).  Here a step runs once eagerly on a side stream
 (the warm-up: the kernels' build, cuBLAS's handle and workspace, the
 kernels' shared-memory attributes), is captured into a
 ``torch.cuda.CUDAGraph`` on the same stream, and from then on is
@@ -19,9 +21,15 @@ shapes and handles, at a fraction of the eager run.
 :func:`refined_rounds` runs refinement's rounds through three entries
 (the positions, the tracked Grams, the trace update of
 :func:`footprint_update` with ``gamma=0``), each replayed once a round.
+:func:`rigid_block` and :func:`pwrigid_block` are a registration pass's
+frame block (the correction and its finite sums), one entry per block
+shape serving every template iteration; :func:`summary_blocks` folds a
+seeding pass's blocks, its carry kept in the entry's buffers between
+blocks.
 
 Where it applies.  Each function here decides for itself: with
-``use_kernels`` and outside :func:`disabled` it goes through the cache,
+``use_kernels`` (registration and seeding: always) and outside
+:func:`disabled` it goes through the cache,
 else it calls its step function of :mod:`~dnmf_tpu_torch.models.dnmf`
 directly (the plain route, the eager run that a captured one is held
 against; :func:`disabled` is ``jax.disable_jit``'s counterpart).  On the
@@ -43,7 +51,10 @@ Inputs and outputs.  A call copies the state's leaves (``beta``, ``c``,
 Grams, refinement the per-frame positions, the width fit its subsampled
 frames, warps and traces) into the entry's static buffers, then
 replays.  The video (the recordings' videos) is read in place at the
-address in the key, never copied.  What a call returns
+address in the key, never copied; a registration or seeding block's
+frames are copied into the entry's frame buffer (from the host where
+they arrive from there), with the template, ``add_to_movie``, the
+block's valid count and its shifts.  What a call returns
 is a clone of the graph's output, or the caller's own input where the
 step passes it through: no tensor handed out is one that a later replay
 overwrites.
@@ -72,23 +83,29 @@ from dnmf_tpu_torch.models import dnmf as model_lib
 from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import fused
 
-# Entries kept.  One engine's run holds at most nine: ``fit`` three
-# (motion epoch, Grams, trace update) and a fourth where the Gram audit
-# falls back to exact Grams, the width fit one, ``refine`` three
-# (positions, tracked Grams, a trace update of its own iterations) and
-# ``fit_fused`` one; three more keep a second run's entries (another
-# video) alive beside them.
-MAX_ENTRIES = 12
+# Entries kept.  One ``register_and_demix`` run holds at most fifteen:
+# registration four (the rigid and the piecewise-rigid block, each also
+# at the tail block's shape), seeding one (every block padded to one
+# shape), then the engine's nine: ``fit`` three (motion epoch, Grams,
+# trace update) and a fourth where the Gram audit falls back to exact
+# Grams, the width fit one, ``refine`` three (positions, tracked Grams, a
+# trace update of its own iterations) and ``fit_fused`` one.  Three more
+# keep a second run's entries (another video) alive beside them.
+MAX_ENTRIES = 18
 
 # The kernel that each wrapper of the captured steps launches last, once
-# per call (csrc/motion.cu, csrc/c1.cu, csrc/gram.cu, csrc/refine.cu).
-# The tracked and rows wrappers launch their untracked twin's kernels.
+# per call (csrc/motion.cu, csrc/c1.cu, csrc/gram.cu, csrc/refine.cu,
+# csrc/phasecorr.cu, csrc/warp.cu).  The tracked and rows wrappers launch
+# their untracked twin's kernels.  cuFFT's kernels in the registration
+# graphs are no wrapper's.
 LAST_KERNEL = {"motion_block": "motion_finish", "c1_block": "c1_finish",
                "c1_block_tracked": "c1_finish",
                "gram_block": "gram_assemble",
                "gram_block_tracked": "gram_assemble",
                "gram_block_rows": "gram_assemble",
-               "refine_block": "refine_finish"}
+               "refine_block": "refine_finish",
+               "phase_corr_block": "window_argmax",
+               "fused_separable_warp": "warp_tile"}
 
 _entries: "collections.OrderedDict[tuple, Entry]" = collections.OrderedDict()
 _streams = {}  # device -> the side stream of warm-ups and captures
@@ -215,9 +232,12 @@ class Entry:
     ``warmup`` (default: ``step``) is the warm-up's function.
     """
 
-    def __init__(self, name: str, step, args, warmup=None):
+    def __init__(self, name: str, step, args, warmup=None, device=None):
         self.name = name
-        self.inputs = tuple(a.clone() for a in args)
+        # ``device``: the buffers' (default the first input's), where an
+        # input arrives from elsewhere (host frames).
+        self.inputs = tuple(a.clone() if device is None
+                            else a.to(device, copy=True) for a in args)
         self.replays = 0
         self.buffer_bytes = _nbytes(self.inputs)
         self.nodes, self.launches, self.warmup_launches = {}, {}, {}
@@ -267,7 +287,8 @@ class Entry:
 
     def load(self, args) -> None:
         for buf, a in zip(self.inputs, args):
-            buf.copy_(a)
+            if a is not buf:  # a carry that the step keeps in its buffers
+                buf.copy_(a)
 
     def replay(self) -> None:
         self.replays += 1
@@ -560,3 +581,106 @@ def batched_round(states, videos, model, optimizer, gamma: float,
     out = _run("batched_round", (model, optimizer) + tuple(sorted(
         kw.items())), step, _leaves(states), videos)
     return _state(out[:7]), {"recon_mse": out[7], "reg": out[8]}
+
+
+# ----------------------------------------------------------------------
+# Registration and seeding
+# ----------------------------------------------------------------------
+def _hashable(value):
+    if isinstance(value, (list, tuple)):
+        return tuple(_hashable(v) for v in value)
+    return value
+
+
+def _registration_block(name, frames, template, add_to_movie, cfg, collect):
+    from dnmf_tpu_torch.registration import motion_correct as mc_lib
+
+    correct, fields = {
+        "rigid_block": (mc_lib.rigid_block, mc_lib.RIGID_STATICS),
+        "pwrigid_block": (mc_lib.pwrigid_block, mc_lib.PWRIGID_STATICS)}[name]
+    device = template.device
+    if not isinstance(add_to_movie, torch.Tensor):
+        add_to_movie = torch.full((), float(add_to_movie),
+                                  dtype=torch.float32, device=device)
+
+    def step(frames, template, add):
+        corrected, shifts = correct(frames, template, cfg, add)
+        return (corrected, shifts) + mc_lib.block_sums(corrected)
+
+    args = (frames, template, add_to_movie)
+    if _disabled:
+        corrected, *rest = step(frames.to(device), template, add_to_movie)
+        return (corrected if collect else None, *rest)
+    key = ((name, device) + tuple(_hashable(getattr(cfg, f)) for f in fields)
+           + _signature(*args))
+    entry = _entry(key, lambda: Entry(name, step, args, device=device))
+    entry.load(args)
+    entry.replay()
+    corrected, *rest = entry.outputs
+    return (corrected.clone() if collect else None,
+            *(o.clone() for o in rest))
+
+
+def rigid_block(frames, template, add_to_movie, cfg, collect: bool = False):
+    """A rigid pass's frame block: :func:`~dnmf_tpu_torch.registration.
+    motion_correct.rigid_block` (``rigid_correct_frames``, with the 1p
+    ``gSig_filt`` variant) and :func:`~dnmf_tpu_torch.registration.
+    motion_correct.block_sums` as one captured graph, keyed by the block's
+    shape and ``cfg``'s fields of ``RIGID_STATICS``.  ``frames`` may lie
+    on the host: they are copied into the entry's frame buffer on the
+    template's device; ``add_to_movie`` (a float or a device scalar) and
+    the template are inputs.  Returns ``(corrected or None without
+    collect, shifts [B, nd], finite sum, finite count)``."""
+    return _registration_block("rigid_block", frames, template,
+                               add_to_movie, cfg, collect)
+
+
+def pwrigid_block(frames, template, add_to_movie, cfg,
+                  collect: bool = False):
+    """A piecewise-rigid pass's frame block: :func:`~dnmf_tpu_torch.
+    registration.motion_correct.pwrigid_block` (``tile_and_correct_block``
+    with every ``remap_mode`` and ``phasecorr_impl``: kernel F, kernel G,
+    the plain path, DFT blending) and the block's finite sums as one
+    captured graph, keyed by ``PWRIGID_STATICS``; otherwise as
+    :func:`rigid_block`."""
+    return _registration_block("pwrigid_block", frames, template,
+                               add_to_movie, cfg, collect)
+
+
+def summary_blocks(carry, blocks, size, clamp: bool):
+    """Fold each ``(frames [B, P], valid, shifts [B, 3] or None)`` of
+    ``blocks`` into the seeding moments ``carry``
+    (:func:`~dnmf_tpu_torch.ops.seeding.fold_block`; ``valid`` and the
+    carry's count are int64 device scalars), one captured graph per block
+    shape, shifted or not.  The step writes the new carry into its own
+    input buffers, where the entry's next block finds it: a block copies
+    in only its frames, ``valid`` and shifts.  Returns the last carry
+    (clones)."""
+    from dnmf_tpu_torch.ops import seeding
+
+    size = tuple(int(v) for v in size)
+    device = carry[0].device
+    if _disabled:
+        for frames, valid, shifts in blocks:
+            carry = seeding.fold_block(carry, frames.to(device), valid,
+                                       shifts, size, clamp)
+        return carry
+
+    def step(*args):
+        new = seeding.fold_block(args[:8], args[8], args[9],
+                                 args[10] if len(args) > 10 else None, size,
+                                 clamp)
+        for buf, value in zip(args[:8], new):
+            buf.copy_(value)
+        return ()
+
+    for frames, valid, shifts in blocks:
+        args = tuple(carry) + (frames, valid) + (
+            () if shifts is None else (shifts,))
+        key = ("summary_block", size, clamp, device) + _signature(*args)
+        entry = _entry(key, lambda: Entry("summary_block", step, args,
+                                          device=device))
+        entry.load(args)
+        entry.replay()
+        carry = entry.inputs[:8]
+    return tuple(c.clone() for c in carry)

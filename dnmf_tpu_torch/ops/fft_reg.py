@@ -24,15 +24,24 @@ The internal helpers (:func:`correlate`, :func:`subpixel_refine`,
 batch dimensions, so that a block of frames x patches is one set of
 transforms and products.  Inputs keep their floating dtype: float64 in
 gives the float64 oracle.
+
+The constants of the transforms (frequency indices, axis lengths) are
+made once per length, dtype and device and kept: after the first call
+nothing here makes a tensor from host data, so a step that uses these
+functions can be captured as a CUDA graph
+(:mod:`dnmf_tpu_torch.models.graphs`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from dnmf_tpu_torch.ops.basis import device_vector
 
 
 def _real_dtype(x: torch.Tensor) -> torch.dtype:
@@ -91,6 +100,9 @@ def nanmedian(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
                        torch.full_like(med, math.nan))
 
 
+# Unbounded: a captured graph reads these tensors at their addresses, so
+# none may be dropped while the process runs (a few per array shape).
+@functools.cache
 def _signed_freq_index(n: int, dtype=torch.float32,
                        device=None) -> torch.Tensor:
     """``[n]`` signed wrapped indices: 0, 1, ..., mid, -(n-mid-1), ..., -1
@@ -99,6 +111,40 @@ def _signed_freq_index(n: int, dtype=torch.float32,
     mid = np.fix(n / 2.0)
     return torch.as_tensor(np.where(idx > mid, idx - n, idx), dtype=dtype,
                            device=device)
+
+
+@functools.cache
+def _centred_freqs(n: int, dtype, device) -> torch.Tensor:
+    """``[n]`` ``ifftshift(arange(n)) - floor(n / 2)``: the DFT frequency
+    of each index, ``fftfreq(n) * n``."""
+    return torch.as_tensor(np.fft.ifftshift(np.arange(n)) - np.floor(n / 2.0),
+                           dtype=dtype, device=device)
+
+
+@functools.cache
+def _ramp_freqs(n: int, half: bool, dtype, device) -> torch.Tensor:
+    """The frequencies of a phase ramp along an axis of length ``n``: the
+    ``n // 2 + 1`` of an ``rfftn`` last axis (``half``), else the full
+    ``ifftshift`` order."""
+    freqs = (np.arange(n // 2 + 1) if half
+             else np.fft.ifftshift(np.arange(-np.fix(n / 2.0),
+                                             np.ceil(n / 2.0))))
+    return torch.as_tensor(freqs, dtype=dtype, device=device)
+
+
+@functools.cache
+def shape_vectors(shape: tuple, dtype, device):
+    """``(mid, sizes)``, each ``[nd]``: ``fix(n / 2)`` and ``n`` per axis
+    of ``shape``."""
+    return (torch.as_tensor([np.fix(s / 2.0) for s in shape], dtype=dtype,
+                            device=device),
+            torch.as_tensor(shape, dtype=dtype, device=device))
+
+
+def _last_axis(x: torch.Tensor, order) -> torch.Tensor:
+    """``x[..., order]`` for a static ``order``, without an index tensor
+    made from host data."""
+    return torch.stack([x[..., i] for i in order], dim=-1)
 
 
 def _shift_window_mask(shape, lb: torch.Tensor,
@@ -143,9 +189,7 @@ def _upsampled_dft(data: torch.Tensor, region_size: int,
     out = data
     for d in range(nd - 1, -1, -1):
         n = data.shape[data.ndim - nd + d]
-        freqs = torch.as_tensor(
-            np.fft.ifftshift(np.arange(n)) - np.floor(n / 2.0), dtype=rdt,
-            device=data.device)
+        freqs = _centred_freqs(n, rdt, data.device)
         pts = (torch.arange(region_size, dtype=rdt, device=data.device)
                - axis_offsets[..., d:d + 1])  # [*batch, R]
         ang = (-2.0 * math.pi / (n * upsample_factor)) * (
@@ -175,7 +219,7 @@ def subpixel_refine(image_product: torch.Tensor, shifts: torch.Tensor,
     dftshift = float(np.fix(region_size / 2.0))
     offset = dftshift - shifts * usf
     if prod_layout is not None:
-        offset = offset[..., list(prod_layout)]
+        offset = _last_axis(offset, prod_layout)
     cc_up = torch.conj(_upsampled_dft(
         torch.conj(image_product), region_size, usf, offset)) / (
         float(np.prod(shape)) * usf ** 2)
@@ -183,7 +227,7 @@ def subpixel_refine(image_product: torch.Tensor, shifts: torch.Tensor,
     up_idx = torch.argmax(flat.abs(), dim=-1)  # first occurrence
     coords = _unravel(up_idx, (region_size,) * nd).to(shifts.dtype)
     if prod_layout is not None:
-        coords = coords[..., [prod_layout.index(d) for d in range(nd)]]
+        coords = _last_axis(coords, [prod_layout.index(d) for d in range(nd)])
     shifts = shifts + (coords - dftshift) / usf
     ccmax = torch.gather(flat, -1, up_idx[..., None])[..., 0]
     return shifts, ccmax
@@ -206,9 +250,7 @@ def correlate(src_freq: torch.Tensor, target_freq: torch.Tensor,
     flat_idx = torch.argmax(mag.flatten(-nd), dim=-1)  # first occurrence
     rdt = mag.dtype
     maxima = _unravel(flat_idx, shape).to(rdt)
-    mid = torch.as_tensor([np.fix(s / 2.0) for s in shape], dtype=rdt,
-                          device=mag.device)
-    sizes = torch.as_tensor(shape, dtype=rdt, device=mag.device)
+    mid, sizes = shape_vectors(shape, rdt, mag.device)
     shifts = torch.where(maxima > mid, maxima - sizes, maxima)
     ccmax = torch.gather(flat_cc, -1, flat_idx[..., None])[..., 0]
     coarse = shifts
@@ -226,7 +268,9 @@ def window_bounds(shape, max_shifts=None, shifts_lb=None, shifts_ub=None,
     """``(lb, ub)`` tensors of the shift window: explicit bounds, else
     ``[-max_shifts, max_shifts]``, else the whole axes."""
     def t(v):
-        return torch.as_tensor(v, dtype=dtype, device=device)
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device, dtype=dtype)
+        return device_vector(np.ravel(v), dtype, device).reshape(np.shape(v))
 
     if shifts_lb is not None or shifts_ub is not None:
         return t(shifts_lb), t(shifts_ub)
@@ -301,20 +345,17 @@ def apply_shifts_fourier(src: torch.Tensor, shifts, diffphase=0.0,
         rfft = True
         shape = tuple(src.shape[-nd:])
         src_freq = torch.fft.rfftn(src.to(rdt), dim=_dims(nd))
-    freq_shape = src_freq.shape[-nd:]
     ramp = 0.0
     for d in range(nd):
         n = shape[d]
-        if rfft and d == nd - 1:
-            freqs = np.arange(freq_shape[d])
-        else:
-            freqs = np.fft.ifftshift(np.arange(-np.fix(n / 2.0),
-                                               np.ceil(n / 2.0)))
-        freqs = torch.as_tensor(freqs, dtype=rdt, device=src.device)
+        freqs = _ramp_freqs(n, rfft and d == nd - 1, rdt, src.device)
         ramp = ramp + _spatial_view(shifts[..., d], nd) * _axis_view(
             freqs, d, nd) / n
     greg = src_freq * torch.polar(torch.ones_like(ramp), -2.0 * math.pi * ramp)
-    dp = torch.as_tensor(diffphase, dtype=rdt, device=src.device)
+    dp = (diffphase.to(device=src.device, dtype=rdt)
+          if isinstance(diffphase, torch.Tensor)
+          else torch.full((), float(diffphase), dtype=rdt,
+                          device=src.device))
     dp = _spatial_view(dp, nd)
     if rfft:
         out = torch.fft.irfftn(greg, s=shape, dim=_dims(nd)) * torch.cos(dp)

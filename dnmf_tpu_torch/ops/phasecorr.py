@@ -73,8 +73,8 @@ def phase_corr_block_plain(patches, tmpl_re, tmpl_im, bounds, z: int,
     prod = spec * torch.conj(tmpl)
     mag = torch.fft.ifftn(prod, dim=(-3, -2, -1)).abs()
     bnd = bounds.to(mag.dtype)
-    lb = bnd[:, [2, 0, 1]][:, None]  # (z, m, n) order, [B, 1, 3]
-    ub = bnd[:, [5, 3, 4]][:, None]
+    lb = fft_reg._last_axis(bnd, (2, 0, 1))[:, None]  # (z, m, n), [B, 1, 3]
+    ub = fft_reg._last_axis(bnd, (5, 3, 4))[:, None]
     keep = fft_reg._shift_window_mask((z, m, n), lb, ub)
     flat = torch.where(keep, mag, -1.0).flatten(2).argmax(-1)
     shifts = torch.stack([_signed((flat // n) % m, m),

@@ -12,7 +12,21 @@ It is the plain version of kernel G (:mod:`dnmf_tpu_torch.ops.warp`).
 
 from __future__ import annotations
 
+import functools
+import itertools
+
 import torch
+
+
+# Unbounded: a captured graph reads these tensors at their addresses.
+@functools.cache
+def _lattice(dims: tuple, device):
+    """``(dims [3], corners [8, 3])`` int64 on ``device``: the volume's
+    axis lengths and the (dx, dy, dz) offsets of a cell's corners in
+    loop order, made once per shape."""
+    return (torch.tensor(dims, device=device),
+            torch.tensor(list(itertools.product((0, 1), repeat=3)),
+                         device=device))
 
 
 def trilinear_resample(volume: torch.Tensor, coords: torch.Tensor,
@@ -24,7 +38,7 @@ def trilinear_resample(volume: torch.Tensor, coords: torch.Tensor,
         volume = volume[..., None]
     m, n, z, c = volume.shape
     flat = volume.reshape(-1, c)
-    dims = torch.tensor([m, n, z], device=coords.device)
+    dims, corners = _lattice((m, n, z), coords.device)
     if padding == "edge":
         coords = torch.minimum(torch.clamp_min(coords, 0.0),
                                (dims - 1).to(coords.dtype))
@@ -33,18 +47,15 @@ def trilinear_resample(volume: torch.Tensor, coords: torch.Tensor,
     lo = lo_f.long()
     out = torch.zeros((coords.shape[0], c), dtype=volume.dtype,
                       device=volume.device)
-    for dx in (0, 1):
-        for dy in (0, 1):
-            for dz in (0, 1):
-                corner = lo + torch.tensor([dx, dy, dz], device=lo.device)
-                w = ((frac[:, 0] if dx else 1.0 - frac[:, 0])
-                     * (frac[:, 1] if dy else 1.0 - frac[:, 1])
-                     * (frac[:, 2] if dz else 1.0 - frac[:, 2]))
-                valid = torch.all((corner >= 0) & (corner < dims), dim=-1)
-                cc = torch.minimum(corner.clamp_min(0), dims - 1)
-                idx = (cc[:, 0] * n + cc[:, 1]) * z + cc[:, 2]
-                out = out + torch.where(valid[:, None],
-                                        w[:, None] * flat[idx], 0.0)
+    for i, (dx, dy, dz) in enumerate(itertools.product((0, 1), repeat=3)):
+        corner = lo + corners[i]
+        w = ((frac[:, 0] if dx else 1.0 - frac[:, 0])
+             * (frac[:, 1] if dy else 1.0 - frac[:, 1])
+             * (frac[:, 2] if dz else 1.0 - frac[:, 2]))
+        valid = torch.all((corner >= 0) & (corner < dims), dim=-1)
+        cc = torch.minimum(corner.clamp_min(0), dims - 1)
+        idx = (cc[:, 0] * n + cc[:, 1]) * z + cc[:, 2]
+        out = out + torch.where(valid[:, None], w[:, None] * flat[idx], 0.0)
     return out[:, 0] if squeeze else out
 
 

@@ -49,6 +49,17 @@ def resize_matrix(g: int, size: int, dtype=np.float32) -> np.ndarray:
     return _resize_matrix64(int(g), int(size)).astype(dtype)
 
 
+# Unbounded: a captured graph reads these tensors at their addresses, so
+# none may be dropped while the process runs (one per axis shape).
+@functools.cache
+def device_matrix(g: int, size: int, dtype, device) -> torch.Tensor:
+    """:func:`resize_matrix` (made in float64) as a ``dtype`` tensor on
+    ``device``, made once per shape: after the first call no host copy is
+    made (:mod:`dnmf_tpu_torch.models.graphs` captures its users)."""
+    return torch.as_tensor(resize_matrix(g, size, np.float64), dtype=dtype,
+                           device=device)
+
+
 def upsample_field(field: torch.Tensor, grid_shape, new_shape) -> torch.Tensor:
     """Cubic upsampling of patch-grid fields ``[*batch, prod(grid_shape)]``
     to ``[*batch, *new_shape]`` (``jax.image.resize(..., "cubic")`` per
@@ -61,8 +72,7 @@ def upsample_field(field: torch.Tensor, grid_shape, new_shape) -> torch.Tensor:
     for d, (g, size) in enumerate(zip(grid_shape, new_shape)):
         if g == size:
             continue  # jax.image.resize leaves equal axes alone
-        r = torch.as_tensor(resize_matrix(g, size, np.float64),
-                            dtype=out.dtype, device=out.device)
+        r = device_matrix(g, size, out.dtype, out.device)
         ax = out.ndim - nd + d
         out = torch.matmul(out.movedim(ax, -1), r.T).movedim(-1, ax)
     return out

@@ -12,33 +12,43 @@ Counterpart of ``dnmf_tpu/ops/seeding.py``.
   peak-to-noise ratio ``(max - mean) / (std(diff) / sqrt(2))``.  With
   rigid ``shifts`` each block is first translated into the template's
   gauge (``fft_reg.apply_shifts_fourier``, edge-replicated borders).
+  Each block is one step (:func:`fold_block`), which the pass runs
+  through :func:`~dnmf_tpu_torch.models.graphs.summary_blocks`: one
+  captured CUDA graph per block shape, shifted or not, as the JAX package
+  jits ``_accum_block`` and ``_accum_block_shifted``.
 * :func:`detect_peaks_summary` picks the seeds on the ``corr * pnr``
   score (NumPy and SciPy on the host).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.ops import fft_reg
 
 
-def _accum_block(carry, frames: torch.Tensor, valid: int, size):
+def _accum_block(carry, frames: torch.Tensor, valid: torch.Tensor, size):
     """Fold one ``[B, P]`` frame block into the running moments ``carry =
     (ref, s1, s2, sxy [3, P], sdiff2, vmax, prev, count)``: sums of ``x' =
     x - ref``, ``x'^2`` and ``x'`` times its +1 neighbour along each axis,
     of squared first differences, the max, the last valid frame and the
     frame count.  Centring keeps the one-pass variance cancellation-free
-    in float32."""
+    in float32.  ``count`` and ``valid`` (the block's real frames) are
+    int64 device scalars, as JAX traces them: nothing is read back."""
     ref, s1, s2, sxy, sdiff2, vmax, prev, count = carry
     b = frames.shape[0]
     mask = (torch.arange(b, device=frames.device) < valid).to(frames.dtype)
     fr = frames * mask[:, None]
-    if count == 0:
-        ref = fr.sum(dim=0) / max(valid, 1)
+    # The first block's mean, times the reciprocal of the frame count (the
+    # product that a division by a host number makes on the card).
+    first_mean = fr.sum(dim=0) * torch.reciprocal(
+        torch.clamp_min(valid, 1).to(frames.dtype))
+    ref = torch.where(count == 0, first_mean, ref)
     frc = (frames - ref[None]) * mask[:, None]
     s1 = s1 + frc.sum(dim=0)
     s2 = s2 + (frc * frc).sum(dim=0)
@@ -51,12 +61,12 @@ def _accum_block(carry, frames: torch.Tensor, valid: int, size):
     # Temporal first differences, chained through prev across blocks; the
     # first frame of the recording has no predecessor.
     shifted = torch.cat([prev[None], fr[:-1]])
-    first = torch.tensor([float(count > 0)], dtype=frames.dtype,
-                         device=frames.device)
+    first = (count > 0).to(frames.dtype).reshape(1)
     dmask = mask * torch.cat([first, mask[:-1]])
     diff = (fr - shifted) * dmask[:, None]
     sdiff2 = sdiff2 + (diff * diff).sum(dim=0)
-    prev = fr[min(max(valid - 1, 0), b - 1)]
+    last = torch.clamp(valid - 1, 0, b - 1).reshape(1)
+    prev = fr.index_select(0, last)[0]
     return (ref, s1, s2, sxy, sdiff2, vmax, prev, count + valid)
 
 
@@ -66,6 +76,18 @@ def _shifted(frames: torch.Tensor, shifts: torch.Tensor, size):
     vol = frames.reshape((-1,) + tuple(size))
     vol = fft_reg.apply_shifts_fourier(vol, shifts, 0.0, border_nan="copy")
     return torch.clamp_min(vol.reshape(frames.shape[0], -1), 0.0)
+
+
+def fold_block(carry, frames, valid, shifts, size, clamp: bool):
+    """One block of the pass: ``frames`` clamped at 0 (``clamp``, array
+    inputs), rigid-corrected by ``shifts [B, 3]`` where given
+    (:func:`_shifted`), then folded into ``carry`` (:func:`_accum_block`).
+    Returns the new carry."""
+    if clamp:
+        frames = torch.clamp_min(frames, 0.0)
+    if shifts is not None:
+        frames = _shifted(frames, shifts, size)
+    return _accum_block(carry, frames, valid, size)
 
 
 def summary_images(video, size, frame_block: int = 16, shifts=None,
@@ -88,46 +110,51 @@ def summary_images(video, size, frame_block: int = 16, shifts=None,
     """
     size = tuple(int(s) for s in size)
     p = int(np.prod(size))
-    if shifts is not None:
-        shifts = np.asarray(shifts, np.float32)
-        if shifts.shape[1] < 3:
-            shifts = np.pad(shifts, ((0, 0), (0, 3 - shifts.shape[1])))
-    carry = None
+    streamed = hasattr(video, "blocks") and not hasattr(video, "frames_flat")
 
-    def fold(carry, frames, start, valid):
-        if carry is None:
-            dev = frames.device
-            zeros = torch.zeros(p, dtype=torch.float32, device=dev)
-            carry = (zeros, zeros, zeros, torch.zeros((3, p), device=dev),
-                     zeros, torch.full((p,), -torch.inf, device=dev), zeros, 0)
-        if shifts is not None:
-            sh = shifts[start:start + frames.shape[0]]
-            if sh.shape[0] < frames.shape[0]:  # padded tail block
-                sh = np.pad(sh, ((0, frames.shape[0] - sh.shape[0]), (0, 0)))
-            frames = _shifted(frames, torch.from_numpy(sh).to(frames.device),
-                              size)
-        return _accum_block(carry, frames, valid, size)
-
-    if hasattr(video, "blocks") and not hasattr(video, "frames_flat"):
-        for frames, start, valid in video.blocks():
-            carry = fold(carry, frames, start, valid)
-    else:
+    def array_blocks():
         t = int(video.shape[0])
         if isinstance(video, torch.Tensor):
             arr = video.reshape(t, -1).to(torch.float32)
-        else:
+        else:  # host blocks, copied to the device by the step's entry
             arr = torch.from_numpy(
                 np.asarray(video, np.float32).reshape(t, -1))
         for s in range(0, t, frame_block):
             blk = arr[s:s + frame_block]
             valid = int(blk.shape[0])
-            if not isinstance(video, torch.Tensor):
-                blk = blk.to(device)
-            blk = torch.clamp_min(blk, 0.0)
             if valid < frame_block:
                 blk = torch.nn.functional.pad(
                     blk, (0, 0, 0, frame_block - valid))
-            carry = fold(carry, blk, s, valid)
+            yield blk, s, valid
+
+    source = video.blocks() if streamed else array_blocks()
+    first = next(source)
+    dev = (first[0].device if streamed or isinstance(video, torch.Tensor)
+           else torch.device(device))
+    if shifts is not None:
+        shifts = np.asarray(shifts, np.float32)
+        if shifts.shape[1] < 3:
+            shifts = np.pad(shifts, ((0, 0), (0, 3 - shifts.shape[1])))
+        # On the device once, with zero rows past the end for a padded tail
+        # block; each block reads its rows in place.
+        shifts = torch.from_numpy(np.pad(
+            shifts, ((0, first[0].shape[0]), (0, 0)))).to(dev)
+    valids = {}  # valid -> its device scalar, made once per pass
+
+    def blocks():
+        for frames, start, valid in itertools.chain([first], source):
+            if valid not in valids:
+                valids[valid] = torch.full((), valid, dtype=torch.int64,
+                                           device=dev)
+            sh = (None if shifts is None
+                  else shifts[start:start + frames.shape[0]])
+            yield frames, valids[valid], sh
+
+    zeros = torch.zeros(p, dtype=torch.float32, device=dev)
+    carry = (zeros, zeros, zeros, torch.zeros((3, p), device=dev), zeros,
+             torch.full((p,), -torch.inf, device=dev), zeros,
+             torch.zeros((), dtype=torch.int64, device=dev))
+    carry = graphs.summary_blocks(carry, blocks(), size, clamp=not streamed)
 
     ref, s1, s2, sxy, sdiff2, vmax, _prev = (c.cpu().numpy()
                                               for c in carry[:7])

@@ -15,14 +15,13 @@ float64 inputs give the oracle).
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from dnmf_tpu_torch.ops.resample import separable_warp
-from dnmf_tpu_torch.ops.resize import resize_matrix, upsample_field
+from dnmf_tpu_torch.ops.resize import device_matrix, upsample_field
 
 
 WARP_TM, WARP_TN = 4, 64  # kernel G's tile: m rows x n columns (all of z)
@@ -54,12 +53,6 @@ def warp_tile_bytes(size, grid_shape, halo: int) -> int:
     return 4 * floats
 
 
-@functools.lru_cache(maxsize=64)
-def _device_matrix(g: int, size: int, device) -> torch.Tensor:
-    """:func:`resize_matrix` on the device, made once per shape."""
-    return torch.from_numpy(resize_matrix(g, size)).to(device)
-
-
 def fused_separable_warp_plain(frames, patch_shifts, rigid_shifts,
                                grid_shape: Tuple[int, int, int], size,
                                max_shifts, max_deviation_rigid: int = 3):
@@ -80,9 +73,8 @@ def warp_field_plain(patch_shifts, grid_shape, size) -> torch.Tensor:
     summed in another order)."""
     b = patch_shifts.shape[0]
     gm, gn, gz = (int(g) for g in grid_shape)
-    rm, rn, rz = (torch.as_tensor(resize_matrix(g, s, np.float64),
-                                  dtype=patch_shifts.dtype,
-                                  device=patch_shifts.device)
+    rm, rn, rz = (device_matrix(g, s, patch_shifts.dtype,
+                                patch_shifts.device)
                   for g, s in zip((gm, gn, gz), size))
     f = patch_shifts.reshape(b, gm, gn, gz, 3)
     h = torch.einsum("ze,bacei->bazci", rz, f)  # [B, gm, Z, gn, 3]
@@ -135,7 +127,7 @@ def fused_separable_warp(frames: torch.Tensor, patch_shifts: torch.Tensor,
             f"patch grid needs {smem} bytes of shared memory; a block has "
             f"{limit}")
     lib = _build.load()
-    rm, rn, rz = (_device_matrix(g, s, dev)
+    rm, rn, rz = (device_matrix(g, s, torch.float32, dev)
                   for g, s in ((gm, m), (gn, n), (gz, z)))
     frames = frames.contiguous()
     grid = patch_shifts.contiguous()

@@ -12,7 +12,9 @@ pwrigid_block`, kernels F and G on the card), forms its chunk template
 and one ``all_gather`` hands every rank all the chunk templates, whose
 median (:func:`dnmf_tpu_torch.ops.fft_reg.nanmedian`, NumPy's rule for an
 even count; not ``torch.nanmedian``, which takes the lower middle value)
-is the next template.
+is the next template.  The ranks run their block steps eagerly
+(:func:`~dnmf_tpu_torch.registration.motion_correct.eager_block`), not as
+the captured graphs of a single-process pass.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def _iterate(video, cfg: RegistrationConfig, mesh, template, iters: int,
     corrected = shifts = None
     for _ in range(max(iters, 1)):
         chunk_t, shifts, corrected = mc_lib._stream_chunk(
-            local, idx, cfg, device, correct_block(template), collect=True)
+            local, idx, cfg, correct_block(template), collect=True)
         template = fft_reg.nanmedian(
             torch.stack(all_gather(chunk_t, mesh, TIME_AXIS)), dim=0)
     return template, corrected, shifts
@@ -79,10 +81,8 @@ def sharded_register_rigid(video, cfg: RegistrationConfig, mesh,
                                                device)
 
     def correct_block(templ):
-        return lambda frames: mc_lib.rigid_correct_frames(
-            frames, templ, cfg.max_shifts,
-            upsample_factor=cfg.upsample_factor_fft,
-            border_nan=cfg.border_nan, add_to_movie=add_to_movie)
+        return mc_lib.eager_block(mc_lib.rigid_block, templ, cfg,
+                                  add_to_movie, device)
 
     return _iterate(video, cfg, mesh, template, cfg.niter_rig, correct_block,
                     device)
@@ -104,8 +104,8 @@ def sharded_register_pwrigid(video, cfg: RegistrationConfig, mesh,
             video, cfg, mesh, add_to_movie=add_to_movie, device=device)
 
     def correct_block(templ):
-        return lambda frames: mc_lib.pwrigid_block(frames, templ, cfg,
-                                                   add_to_movie)
+        return mc_lib.eager_block(mc_lib.pwrigid_block, templ, cfg,
+                                  add_to_movie, device)
 
     return _iterate(video, cfg, mesh, template, cfg.niter_rig, correct_block,
                     device)

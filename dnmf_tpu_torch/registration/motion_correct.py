@@ -21,11 +21,19 @@ Every per-frame operation of the JAX package runs here on a frame block
 and ``remap_mode="fused"`` picks kernel G (:mod:`dnmf_tpu_torch.ops.warp`).
 Videos are time-major ``[T, ...spatial]`` and stay on the host (NumPy or
 memmap); frame blocks go to the device ``frame_block`` at a time.
+
+A frame block's correction (:func:`rigid_block`, :func:`pwrigid_block`)
+and its finite sums (:func:`block_sums`) are one step, which the passes
+run through :func:`~dnmf_tpu_torch.models.graphs.rigid_block` and
+:func:`~dnmf_tpu_torch.models.graphs.pwrigid_block`: one captured CUDA
+graph per block shape and static settings (:data:`RIGID_STATICS`,
+:data:`PWRIGID_STATICS`), as the JAX package jits them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 from typing import List, Optional
@@ -35,8 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from dnmf_tpu_torch.config import RegistrationConfig
+from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.ops import fft_reg, phasecorr, warp
-from dnmf_tpu_torch.ops.basis import voxel_grid
+from dnmf_tpu_torch.ops.basis import device_vector, voxel_grid
 from dnmf_tpu_torch.ops.resample import separable_warp, trilinear_resample
 from dnmf_tpu_torch.ops.resize import upsample_field
 
@@ -114,6 +123,18 @@ def _feather_weights(window, overlaps, grid_pos, grid_shape) -> np.ndarray:
     return w
 
 
+@functools.cache  # unbounded: captured graphs read these tensors
+def _blend_weights(window, overlaps, grid_shape, dtype, device):
+    """``(feather, owner)``, each ``[n_patches, *window]`` on ``device``:
+    :func:`_feather_weights` and :func:`_ownership_weights` of every patch
+    of the grid, made once per grid."""
+    positions = list(itertools.product(*[range(g) for g in grid_shape]))
+    return tuple(torch.as_tensor(np.stack([
+        weights(window, overlaps, pos, grid_shape) for pos in positions]),
+        dtype=dtype, device=device)
+        for weights in (_feather_weights, _ownership_weights))
+
+
 def _ownership_weights(window, overlaps, grid_pos, grid_shape) -> np.ndarray:
     """Hard-stitch weights: each patch owns its interior half-overlap."""
     w = np.ones(window, dtype=np.float32)
@@ -144,23 +165,30 @@ def _gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+@functools.cache  # unbounded: captured graphs read these tensors
+def _high_pass_kernel(sigma: int, dtype, device) -> torch.Tensor:
+    """The mean-subtracted square Gaussian kernel ``[1, 1, k, k]`` of
+    ``gSig_filt[0] = sigma``, made once per width, dtype and device."""
+    ksize = (3 * sigma) // 2 * 2 + 1
+    ker1 = _gaussian_kernel_1d(ksize, sigma)
+    ker2d = np.outer(ker1, ker1)
+    peak_col = ker2d[:, 0].max()
+    nz = ker2d >= peak_col
+    ker2d[nz] -= ker2d[nz].mean()
+    ker2d[~nz] = 0.0
+    return torch.as_tensor(ker2d, dtype=dtype, device=device)[None, None]
+
+
 def _high_pass(frames: torch.Tensor, gSig_filt) -> torch.Tensor:
     """:func:`high_pass_filter_space` of a block of 2-D frames
     ``[B, M, N]``.  cuDNN convolutions default to TF32: it is off here."""
     if frames.ndim != 3:
         raise ValueError("gSig_filt high-pass filtering is 2-D only "
                          f"(got {frames.ndim - 1}-D frame)")
-    ksize = (3 * gSig_filt[0]) // 2 * 2 + 1
-    ker1 = _gaussian_kernel_1d(ksize, gSig_filt[0])
-    ker2d = np.outer(ker1, ker1)
-    peak_col = ker2d[:, 0].max()
-    nz = ker2d >= peak_col
-    ker2d[nz] -= ker2d[nz].mean()
-    ker2d[~nz] = 0.0
-    pad = ksize // 2
     x = frames.to(fft_reg._real_dtype(frames))[:, None]
+    w = _high_pass_kernel(gSig_filt[0], x.dtype, x.device)
+    pad = w.shape[-1] // 2
     x = F.pad(x, (pad, pad, pad, pad), mode="reflect")
-    w = torch.as_tensor(ker2d, dtype=x.dtype, device=x.device)[None, None]
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic, allow_tf32=False):
@@ -211,16 +239,16 @@ def _rigid_estimate(reg_frames, template, max_shifts, upsample_factor_fft,
         d = int(rigid_decimate)
         dec_ms = tuple(max(1.0, float(ms) / d)
                        for ms in max_shifts[:2]) + tuple(max_shifts[2:])
-        lb = torch.tensor([-m for m in dec_ms], **kw)
-        ub = torch.tensor([m + 1.0 for m in dec_ms], **kw)
+        lb = device_vector([-m for m in dec_ms], **kw)
+        ub = device_vector([m + 1.0 for m in dec_ms], **kw)
         tgt = torch.fft.fftn(_pool(template, d, nd), dim=fft_reg._dims(nd))
         rigid_dec = _register(_pool(reg_frames, d, nd), tgt, lb, ub,
                               upsample_factor_fft, nd)[0]
-        scale = torch.tensor((float(d), float(d)) + (1.0,) * (nd - 2), **kw)
-        bound = torch.tensor([float(np.ceil(ms)) + 1.0 for ms in max_shifts],
-                             **kw)
+        scale = device_vector((float(d), float(d)) + (1.0,) * (nd - 2), **kw)
+        bound = device_vector([float(np.ceil(ms)) + 1.0 for ms in max_shifts],
+                              **kw)
         return torch.minimum(torch.maximum(rigid_dec * scale, -bound), bound)
-    m = torch.as_tensor(max_shifts, **kw)
+    m = device_vector(max_shifts, **kw)
     tgt = torch.fft.fftn(template, dim=fft_reg._dims(nd))
     return _register(reg_frames, tgt, -m, m, upsample_factor_fft, nd)[0]
 
@@ -283,8 +311,7 @@ def rigid_correct_frames(frames, template, max_shifts,
     tgt = torch.fft.fftn(template.to(fft_reg._real_dtype(template)),
                          dim=fft_reg._dims(nd))
     frames = frames + add_to_movie
-    m = torch.as_tensor(max_shifts, dtype=torch.float32,
-                        device=frames.device)
+    m = device_vector(max_shifts, torch.float32, frames.device)
     shifts, phasediff, _ = _register(frames, tgt, -m, m, upsample_factor,
                                      nd)
     if apply_mode == "cubic":
@@ -363,14 +390,8 @@ def _tile_and_correct_plain(frames, template, strides, overlaps, max_shifts,
     max_shear = (torch.quantile(torch.stack(shear_terms, dim=-1), 0.75,
                                 dim=-1)
                  if shear_terms else torch.zeros(b, device=img.device))
-    positions = list(itertools.product(*[range(g) for g in new_grid_shape]))
-    kw = dict(dtype=img.dtype, device=img.device)
-    feather = torch.stack([torch.as_tensor(_feather_weights(
-        new_window, overlaps, pos, new_grid_shape), **kw)
-        for pos in positions])
-    owner = torch.stack([torch.as_tensor(_ownership_weights(
-        new_window, overlaps, pos, new_grid_shape), **kw)
-        for pos in positions])
+    feather, owner = _blend_weights(new_window, tuple(overlaps),
+                                    new_grid_shape, img.dtype, img.device)
     keep = (max_shear < 0.5).reshape((b,) + (1,) * (nd + 1))
     weights = torch.where(keep, feather, owner)
     corrected = _blend_patches(shifted, weights, new_starts, new_window,
@@ -391,13 +412,19 @@ def tile_and_correct(img, template, strides, overlaps, max_shifts,
     filtered frame and the shifts apply to the raw one.  ``remap_mode``
     ``"exact"`` (trilinear gather) or ``"separable"`` (three hat-weighted
     passes).  Returns ``(corrected, patch_shifts [n_patches, nd])``, the
-    applied corrections on the patch grid.
+    applied corrections on the patch grid.  It runs as a frame block of
+    one through :func:`~dnmf_tpu_torch.models.graphs.pwrigid_block` with
+    the plain per-patch correlation.
     """
-    corrected, shifts = _tile_and_correct_plain(
-        img[None], template, strides, overlaps, max_shifts,
-        max_deviation_rigid, upsample_factor_grid, upsample_factor_fft,
-        use_remap, remap_mode, border_nan, add_to_movie, gSig_filt,
-        rigid_decimate)
+    cfg = RegistrationConfig(
+        max_shifts=tuple(max_shifts), strides=tuple(strides),
+        overlaps=tuple(overlaps), max_deviation_rigid=max_deviation_rigid,
+        upsample_factor_grid=upsample_factor_grid,
+        upsample_factor_fft=upsample_factor_fft, use_remap=use_remap,
+        remap_mode=remap_mode, border_nan=border_nan, gSig_filt=gSig_filt,
+        rigid_decimate=rigid_decimate, phasecorr_impl="xla")
+    corrected, shifts, _, _ = graphs.pwrigid_block(
+        img[None], template, add_to_movie, cfg, collect=True)
     return corrected[0], shifts[0]
 
 
@@ -472,8 +499,8 @@ def tile_and_correct_block(frames, template, strides, overlaps, max_shifts,
     else:
         patch_shifts = sh_int
     # Singleton axes carry no shift information.
-    sizes = torch.as_tensor(window, dtype=patch_shifts.dtype,
-                            device=patch_shifts.device)
+    sizes = fft_reg.shape_vectors(window, patch_shifts.dtype,
+                                  patch_shifts.device)[1]
     patch_shifts = torch.where(sizes == 1, 0.0, patch_shifts)
     if remap_mode == "fused":
         corrected = warp.fused_separable_warp(
@@ -487,8 +514,43 @@ def tile_and_correct_block(frames, template, strides, overlaps, max_shifts,
     return (corrected - add_to_movie, -patch_shifts) + est
 
 
+# The settings that a frame block's correction reads: with the block's
+# shape, what the JAX package's jit takes as static (``static_argnames``);
+# models/graphs.py keys its entries by them.
+RIGID_STATICS = ("max_shifts", "upsample_factor_fft", "border_nan",
+                 "gSig_filt")
+PWRIGID_STATICS = ("strides", "overlaps", "max_shifts", "max_deviation_rigid",
+                   "upsample_factor_grid", "upsample_factor_fft", "use_remap",
+                   "remap_mode", "border_nan", "gSig_filt", "phasecorr_impl",
+                   "dft_precision", "rigid_decimate")
+
+
+def rigid_block(frames, template, cfg: RegistrationConfig,
+                add_to_movie=0.0):
+    """:func:`rigid_correct_frames` of a frame block with ``cfg``'s
+    settings, as the rigid pass runs it: with ``cfg.gSig_filt`` (1p data)
+    the shifts come from the high-passed frames and apply to the raw ones.
+    Returns ``(corrected, shifts [B, nd])``."""
+    kw = dict(upsample_factor=cfg.upsample_factor_fft,
+              border_nan=cfg.border_nan, add_to_movie=add_to_movie)
+    if cfg.gSig_filt is None:
+        return rigid_correct_frames(frames, template, cfg.max_shifts, **kw)
+    shifts = rigid_correct_frames(_high_pass(frames, cfg.gSig_filt),
+                                  template, cfg.max_shifts, **kw)[1]
+    corrected = fft_reg.apply_shifts_fourier(frames, shifts, 0.0,
+                                             border_nan=cfg.border_nan)
+    return corrected, shifts
+
+
+def block_sums(corrected: torch.Tensor):
+    """``(sum, count)`` over the frames of a corrected block, per voxel, of
+    its finite values: the parts of a chunk template."""
+    finite = torch.isfinite(corrected)
+    return torch.where(finite, corrected, 0.0).sum(dim=0), finite.sum(dim=0)
+
+
 def pwrigid_block(frames, template, cfg: RegistrationConfig,
-                  add_to_movie: float = 0.0, **kwargs):
+                  add_to_movie=0.0, **kwargs):
     """:func:`tile_and_correct_block` of a frame block with ``cfg``'s
     settings, as the piecewise-rigid pass runs it; ``kwargs``
     (``rigid_shifts``, ``estimates``) go to it as well."""
@@ -737,8 +799,8 @@ def _host_frames(video, idx) -> np.ndarray:
     return np.asarray(video[idx], dtype=np.float32)
 
 
-def _to_device(frames: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+def _host_tensor(frames: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(frames))
 
 
 def _streamed_min(video, block: int = 256) -> float:
@@ -763,7 +825,7 @@ def _streamed_bin_median(video, device, gSig_filt=None,
     means = []
     for n in range(num_windows):
         idx = np.arange(n, n + window * num_windows, num_windows)
-        frames = _to_device(_host_frames(video, idx), device)
+        frames = _host_tensor(_host_frames(video, idx)).to(device)
         if gSig_filt is not None:
             frames = _high_pass(frames, gSig_filt)
         means.append(torch.nanmean(frames, dim=0))
@@ -781,11 +843,24 @@ def _iteration_chunks(chunks, cfg: RegistrationConfig, is_last: bool,
     return [chunks[i] for i in sorted(set(sel.tolist()))]
 
 
-def _stream_chunk(video, idx, cfg: RegistrationConfig, device,
-                  correct_block, collect: bool):
+def eager_block(correct, template, cfg: RegistrationConfig, add_to_movie,
+                device):
+    """A block function of :func:`_stream_chunk` that runs ``correct``
+    (:func:`rigid_block` or :func:`pwrigid_block`) and :func:`block_sums`
+    eagerly on the frames moved to ``device`` (the mesh path's ranks)."""
+    def block(frames, collect):
+        corrected, shifts = correct(frames.to(device), template, cfg,
+                                    add_to_movie)
+        return (corrected, shifts) + block_sums(corrected)
+    return block
+
+
+def _stream_chunk(video, idx, cfg: RegistrationConfig, block,
+                  collect: bool):
     """Register one chunk in frame blocks.
 
-    ``correct_block(frames [B, ...]) -> (corrected [B, ...], shifts)``.
+    ``block(frames [B, ...] on the host, collect) -> (corrected [B, ...]
+    or None without collect, shifts, finite sum, finite count)``.
     Returns ``(chunk_template, shifts [len(idx), ...], corrected on the
     host or None)``.
     """
@@ -795,11 +870,8 @@ def _stream_chunk(video, idx, cfg: RegistrationConfig, device,
     mc = (np.empty((len(idx),) + tuple(video.shape[1:]), np.float32)
           if collect else None)
     for i in range(0, len(idx), fb):
-        frames = _to_device(_host_frames(video, idx[i:i + fb]), device)
-        corrected, shifts = correct_block(frames)
-        finite = torch.isfinite(corrected)
-        s = torch.where(finite, corrected, 0.0).sum(dim=0)
-        c = finite.sum(dim=0)
+        frames = _host_tensor(_host_frames(video, idx[i:i + fb]))
+        corrected, shifts, s, c = block(frames, collect)
         sum_img = s if sum_img is None else sum_img + s
         cnt_img = c if cnt_img is None else cnt_img + c
         shifts_out.append(shifts.cpu().numpy())
@@ -813,22 +885,21 @@ def _stream_chunk(video, idx, cfg: RegistrationConfig, device,
     return chunk_t, np.concatenate(shifts_out), mc
 
 
-def _iterate_templates(video, cfg, device, template, phase, num_iter,
-                       correct_block_factory):
+def _iterate_templates(video, cfg, template, phase, num_iter, block_factory):
     """Template iteration shared by the rigid and pw-rigid passes:
     register the chunks, then the NaN-aware median of the chunk templates
-    (high-passed again for 1p data).  Returns ``(template, chunk
-    templates, shifts, corrected movie or None)``."""
+    (high-passed again for 1p data).  ``block_factory(template)`` gives
+    the block function of :func:`_stream_chunk`.  Returns ``(template,
+    chunk templates, shifts, corrected movie or None)``."""
     new_templ = template
     chunks = _chunk_indices(video.shape[0], cfg.resolved_splits(phase))
     for it in range(num_iter):
         is_last = it == num_iter - 1
         chunk_templates, all_shifts, all_mc = [], [], []
-        correct_block = correct_block_factory(new_templ)
+        block = block_factory(new_templ)
         for idx in _iteration_chunks(chunks, cfg, is_last, phase=phase):
             chunk_t, shifts, mc = _stream_chunk(
-                video, idx, cfg, device, correct_block,
-                collect=is_last and cfg.return_mc)
+                video, idx, cfg, block, collect=is_last and cfg.return_mc)
             chunk_templates.append(chunk_t)
             all_shifts.append(shifts)
             if mc is not None:
@@ -852,26 +923,21 @@ def _batch_rigid(video, cfg: RegistrationConfig, device, template=None,
             max_frames=cfg.template_init_max_frames)
     if math.isnan(add_to_movie):
         raise Exception("The movie contains NaNs. NaNs are not allowed!")
+    add = _offset(add_to_movie, device)
 
-    def correct_block_factory(templ):
-        def correct_block(frames):
-            if cfg.gSig_filt is not None:
-                # Register on the filtered frames, apply to the raw ones.
-                shifts = rigid_correct_frames(
-                    _high_pass(frames, cfg.gSig_filt), templ,
-                    cfg.max_shifts, upsample_factor=cfg.upsample_factor_fft,
-                    border_nan=cfg.border_nan, add_to_movie=add_to_movie)[1]
-                corrected = fft_reg.apply_shifts_fourier(
-                    frames, shifts, 0.0, border_nan=cfg.border_nan)
-                return corrected, shifts
-            return rigid_correct_frames(
-                frames, templ, cfg.max_shifts,
-                upsample_factor=cfg.upsample_factor_fft,
-                border_nan=cfg.border_nan, add_to_movie=add_to_movie)
-        return correct_block
+    def block_factory(templ):
+        return lambda frames, collect: graphs.rigid_block(
+            frames, templ, add, cfg, collect)
 
-    return _iterate_templates(video, cfg, device, template, "rig",
-                              max(cfg.niter_rig, 1), correct_block_factory)
+    return _iterate_templates(video, cfg, template, "rig",
+                              max(cfg.niter_rig, 1), block_factory)
+
+
+def _offset(add_to_movie: float, device) -> torch.Tensor:
+    """``add_to_movie`` as a device scalar, made once per pass: an input
+    of the block steps, as JAX traces it."""
+    return torch.full((), float(add_to_movie), dtype=torch.float32,
+                      device=device)
 
 
 def _batch_pwrigid(video, cfg: RegistrationConfig, device, template,
@@ -889,12 +955,14 @@ def _batch_pwrigid(video, cfg: RegistrationConfig, device, template,
     starts, _, _ = patch_grid(dims, tuple(cfg.overlaps[:nd]),
                               tuple(cfg.strides[:nd]))
 
-    def correct_block_factory(templ):
-        return lambda frames: pwrigid_block(frames, templ, cfg, add_to_movie)
+    add = _offset(add_to_movie, device)
+
+    def block_factory(templ):
+        return lambda frames, collect: graphs.pwrigid_block(
+            frames, templ, add, cfg, collect)
 
     new_templ, templates, shifts, mc = _iterate_templates(
-        video, cfg, device, template, "els", max(cfg.niter_els, 1),
-        correct_block_factory)
+        video, cfg, template, "els", max(cfg.niter_els, 1), block_factory)
     xs = [shifts[t, :, 0] for t in range(shifts.shape[0])]
     ys = [shifts[t, :, 1] for t in range(shifts.shape[0])]
     zs = ([shifts[t, :, 2] for t in range(shifts.shape[0])] if nd == 3

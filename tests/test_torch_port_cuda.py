@@ -1531,3 +1531,178 @@ def test_replayed_programs_make_no_sync(graph_cache, dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# Registration's and seeding's block steps as captured graphs
+# (graphs.rigid_block, pwrigid_block, summary_blocks): equal to eager bit
+# for bit, one graph launch per step, kernels F and G counted from the
+# graph's nodes as the eager run launches them, no sync in a replay.
+REG_PW = dict(max_shifts=(3, 3, 1), strides=(16, 16, 6), overlaps=(8, 8, 0),
+              max_deviation_rigid=2, border_nan=False)
+REG_PW2 = dict(max_shifts=(5, 5), strides=(24, 24), overlaps=(8, 8),
+               max_deviation_rigid=2)
+REG_STEPS = {  # name: (entry, frame shape, config, F and G launched)
+    "rigid_3d": ("rigid", (48, 40, 6), dict(max_shifts=(3, 3, 1)), ()),
+    "rigid_gsig": ("rigid", (64, 56), dict(max_shifts=(5, 5),
+                                           gSig_filt=(3, 3),
+                                           border_nan=False), ()),
+    "pw_exact_F": ("pw", (48, 40, 6), dict(REG_PW, remap_mode="exact"),
+                   ("phase_corr_block",)),
+    "pw_fused_FG": ("pw", (48, 40, 6), dict(REG_PW, remap_mode="fused"),
+                    ("phase_corr_block", "fused_separable_warp")),
+    "pw_decimated_FG": ("pw", (48, 40, 6), dict(
+        REG_PW, remap_mode="fused", rigid_decimate=4),
+        ("phase_corr_block", "fused_separable_warp")),
+    "pw_plain_3d": ("pw", (48, 40, 6), dict(REG_PW, remap_mode="separable",
+                                            phasecorr_impl="xla"), ()),
+    "pw_plain_2d": ("pw", (64, 56), dict(REG_PW2, remap_mode="exact"), ()),
+    "pw_dft_2d": ("pw", (64, 56), dict(REG_PW2, use_remap=False), ()),
+    "pw_dft_3d": ("pw", (48, 40, 6), dict(REG_PW, use_remap=False,
+                                          upsample_factor_grid=2), ()),
+    "summary": ("summary", (24, 20, 6), None, ()),
+    "summary_shifted": ("summary", (24, 20, 6), None, ()),
+}
+
+
+def _reg_step_call(dev, name, seed=0):
+    """The step of ``name`` as a call on device inputs (frames, template,
+    offset or the seeding pass's blocks made beforehand), as a pass makes
+    them: nothing made on the host at the call."""
+    from dnmf_tpu_torch.models import graphs
+
+    kind, shape, kw, _ = REG_STEPS[name]
+    rng = np.random.default_rng(seed)
+    if kind == "summary":
+        b, t, p = 8, 21, int(np.prod(shape))
+        video = torch.tensor(rng.normal(1.0, 1.0, (t, p)),
+                             dtype=torch.float32, device=dev)
+        sh = torch.tensor(np.pad(rng.uniform(-2, 2, (t, 3)), ((0, b), (0, 0))),
+                          dtype=torch.float32, device=dev)
+        blocks = []
+        for s in range(0, t, b):
+            blk = torch.nn.functional.pad(video[s:s + b],
+                                          (0, 0, 0, b - min(b, t - s)))
+            valid = torch.tensor(min(b, t - s), device=dev)
+            blocks.append((blk, valid, sh[s:s + b]
+                           if name.endswith("shifted") else None))
+        zeros = torch.zeros(p, device=dev)
+        carry = (zeros, zeros, zeros, torch.zeros((3, p), device=dev), zeros,
+                 torch.full((p,), -torch.inf, device=dev), zeros,
+                 torch.zeros((), dtype=torch.int64, device=dev))
+        return lambda: graphs.summary_blocks(carry, blocks, shape,
+                                             clamp=True), len(blocks)
+    nd = len(shape)
+    shifts = [(0.0,) * nd, (1.3, -0.6) + (0.4,) * (nd - 2),
+              (-1.8, 1.2) + (-0.3,) * (nd - 2)]
+    video = _shifted_video(rng, shape, shifts) + 2.0
+    frames = torch.from_numpy(video).to(dev)
+    template = frames.mean(0) * 1.01
+    add = torch.full((), -1.5, device=dev)
+    fn = graphs.rigid_block if kind == "rigid" else graphs.pwrigid_block
+    cfg = RegistrationConfig(**kw)
+    return lambda: fn(frames, template, add, cfg, collect=True), 1
+
+
+def _bits(t):
+    if t.is_floating_point():
+        return t.contiguous().view(torch.int32).cpu()
+    return t.cpu()
+
+
+@pytest.mark.parametrize("name", sorted(REG_STEPS))
+def test_captured_registration_step_equals_eager(graph_cache, dev, name):
+    run, _ = _reg_step_call(dev, name)
+    with graph_cache.disabled():
+        ref = [_bits(t) for t in run()]
+    for _ in range(2):  # the capturing call, then a replay
+        got = [_bits(t) for t in run()]
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    (entry,) = graph_cache.entries()
+    assert entry.graph is not None and sum(entry.nodes.values()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(REG_STEPS))
+def test_registration_step_is_one_graph_launch(graph_cache, dev, name):
+    from torch.profiler import ProfilerActivity, profile
+
+    run, steps = _reg_step_call(dev, name)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.events():
+        calls[e.name] = calls.get(e.name, 0) + 1
+    assert calls.get("cudaGraphLaunch", 0) == steps, calls
+    for launch in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernel", "cuLaunchKernelEx"):
+        assert not calls.get(launch), calls
+
+
+@pytest.mark.parametrize("name", sorted(REG_STEPS))
+def test_registration_replay_launches_equal_eager(graph_cache, dev, name):
+    """Per wrapper, a replay's launches (read from the graph's nodes of
+    ``window_argmax`` and ``warp_tile``) are the eager step's; cuFFT's
+    nodes stand beside them, counted by no wrapper."""
+    run, _ = _reg_step_call(dev, name)
+    fused.reset_launch_counts()
+    with graph_cache.disabled():
+        run()
+    eager = fused.launch_counts()
+    run()  # warm-up and capture
+    fused.reset_launch_counts()
+    run()  # a replay only
+    assert fused.launch_counts() == eager
+    want = REG_STEPS[name][3]
+    assert {k for k, n in eager.items() if n} == set(want), eager
+    (entry,) = graph_cache.entries()
+    for wrapper, kernel in (("phase_corr_block", "window_argmax"),
+                            ("fused_separable_warp", "warp_tile")):
+        nodes = sum(n for k, n in entry.nodes.items() if kernel in k)
+        assert nodes == eager[wrapper] == entry.launches.get(wrapper, 0)
+
+
+def test_replayed_registration_steps_make_no_sync(graph_cache, dev):
+    """No synchronizing call in a replayed step; the pass reads the
+    block's shifts after it (the one sync per block, outside the
+    graph)."""
+    runs = [_reg_step_call(dev, name)[0] for name in REG_STEPS]
+    for run in runs:
+        run()
+    torch.cuda.synchronize()
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for run in runs:
+            outs.append(run())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for out in outs:
+        assert all(bool(torch.isfinite(t.float()).any()) for t in out
+                   if t is not None)
+
+
+def test_unsafe_registration_step_raises(graph_cache, dev, monkeypatch):
+    """A host copy inside a registration step (a constant made from host
+    data) raises at capture, and the card works on."""
+    from dnmf_tpu_torch.ops import fft_reg as F
+
+    correlate = F.correlate
+
+    def host_correlate(*args):
+        shifts, ccmax, coarse = correlate(*args)
+        return (shifts * torch.tensor(1.0, device=shifts.device), ccmax,
+                coarse)
+
+    run, _ = _reg_step_call(dev, "rigid_3d")
+    monkeypatch.setattr(F, "correlate", host_correlate)
+    with pytest.raises(RuntimeError):
+        run()
+    assert graph_cache.entries() == []
+    monkeypatch.setattr(F, "correlate", correlate)
+    out = run()
+    assert bool(torch.isfinite(out[1]).all())
+    assert len(graph_cache.entries()) == 1
