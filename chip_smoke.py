@@ -243,8 +243,31 @@ them against eager runs):
    launch from the host, kernel nodes equal to the eager launches; wall
    per stage, device ms, idle share, host API calls per block, capture
    seconds, peak memory and the MB that ``graphs.clear()`` gives back,
-   eager and captured.  Then a registration step that copies from host
-   memory raises at capture.
+   eager and captured.  Then each block step's memory: its eager working
+   set (the rise of ``max_memory_allocated`` over one call) and its entry
+   captured alone, whose pool (segments by ``segment_pool_id``) may hold at
+   most ``POOL_RATIO`` times that, with the allocator's history over the
+   pipeline default's ``"exact"`` block (frees completed late, peak live
+   bytes); the four entries in the graphs' one shared pool, replayed in
+   the reverse order, equal to eager.  Then a registration step that
+   copies from host memory raises at capture;
+33. the parity epoch and ``StaticFootprintNMF.fit`` as captured programs:
+   phase 17's parity fit (ROI, T=256, batches of 4, 2 epochs, 50 MU)
+   captured from an empty cache against eager, then one parity epoch at
+   the ROI shape and one at whole-brain (512x512x20, K=200, T=32) through
+   ``graphs.motion_epoch_parity``, each captured against eager: the
+   state and every metric bit-equal; a replayed epoch runs under
+   ``set_sync_debug_mode("error")``; one step profiled: one graph launch,
+   no kernel launch from the host, as many kernel nodes as the eager
+   step launches; then ``StaticFootprintNMF.fit`` (``STATIC_GRAPH_ITERS``
+   alternations on ``STATIC_FRAMES`` frames) at the ROI shape and at
+   whole-brain, captured against eager, one graph launch per
+   alternation.
+
+Phases 12 and 30-33 print the graphs' shared pool, the reserved memory
+and what ``graphs.clear()`` gives back beside the figures of the cache
+with a pool per entry (``POOL_PER_ENTRY_MB``), and the run ends with the
+reserved memory at the pipeline phase's peak beside that cache's.
 
 Every phase prints its seconds with the card's name and power limit.
 The last two lines are a JSON object of per-kernel results (the motion,
@@ -1177,7 +1200,7 @@ def idle_share(run):
         (e.key, dev_us(e) * 1e-3) for e in top]
 
 
-def pipeline_path(dev, size, k):
+def pipeline_path(dev, size, k, card):
     """``register_and_demix(RawFileVideo(...), num_neurons=k,
     refine_positions=True)`` at its defaults on a recording written to a
     raw file; the C4 op entry on the fitted state; one more streamed fit
@@ -1210,11 +1233,17 @@ def pipeline_path(dev, size, k):
         from dnmf_tpu_torch.models import graphs
         kept = [(e.name, e.replays, round(e.capture_seconds, 4))
                 for e in graphs.entries()]
+        pool = graph_pool_bytes()
         say(f"pipeline: graph entries (name, replays, capture s) {kept}; "
             f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
             f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.3f} GB "
-            f"reserved; graphs.clear() gave back "
-            f"{graph_cache_bytes() / 1e6:.3f} MB")
+            f"reserved (a pool per entry: 37.237 GB alone, 62.009 GB in the "
+            f"whole run); the entries' shared pool "
+            f"{pool / 1e6:.3f} MB, their buffers "
+            f"{sum(e.buffer_bytes for e in graphs.entries()) / 1e6:.3f} MB; "
+            f"graphs.clear() gave back {graph_cache_bytes() / 1e6:.3f} MB "
+            f"(a pool per entry: 14,303 MB alone, 36,082 MB in the whole run)"
+            f" ({card})")
         say("pipeline seconds: " + ", ".join(
             f"{stage} {sec:.3f}" for stage, sec in res.seconds.items())
             + f"; total {total:.3f} ({PIPE_T} frames, "
@@ -2560,11 +2589,56 @@ def stage_profile(label, card, run, steps, wrappers=True):
         f"in the graphs; wrappers' launches {wrap_c}")
 
 
-def captured_run(run, captured):
+# What ``graphs.clear()`` gave back after each captured run when every
+# entry held a pool of its own, before the shared pool (this script on an
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6), printed beside
+# this run's.
+POOL_PER_ENTRY_MB = {
+    "graphs roi T=256 exact fit": 29.360,
+    "graphs roi T=256 exact fit_fused": 25.166,
+    "graphs roi T=256 analytic fit": 31.457,
+    "graphs roi T=256 analytic fit_fused": 27.263,
+    "graphs whole_brain T=64 exact fit": 159.384,
+    "graphs whole_brain T=64 exact fit_fused": 155.189,
+    "graphs whole_brain T=64 analytic fit": 314.573,
+    "graphs whole_brain T=64 analytic fit_fused": 310.378,
+    "graphs batched_round (exact), 8 recordings x 64 frames, 2 round(s)":
+        1163.919,
+    "graphs batched_round (closed form), 8 recordings x 64 frames, "
+    "1 round(s)": 2554.331,
+    "graphs fit(fit_sigma) + refine() exact at 512x512x20, K=200, T=64":
+        654.311,
+    "graphs fit(fit_sigma) + refine() auto at 512x512x20, K=200, T=64":
+        1218.445,
+    "graphs MotionCorrect, pipeline default (2x2x1 patches, exact), 64 "
+    "frames of 512x512x20": 11463.033,
+    "graphs MotionCorrect, bench's settings (4x4x2, fused), 64 frames of "
+    "512x512x20": 9638.511,
+    "graphs summary_images, 64 frames of 512x512x20 with rigid shifts":
+        3256.877,
+}
+
+
+def graph_pool_bytes() -> int:
+    """Bytes of the segments of the graphs' shared memory pool (by the
+    allocator's ``segment_pool_id``; 0 without a captured entry)."""
+    from dnmf_tpu_torch.models import graphs
+
+    pools = {tuple(e.graph.pool()) for e in graphs.entries()
+             if e.graph is not None}
+    if len(pools) > 1:
+        fail(f"graphs: the entries' graphs use {len(pools)} pools, not one")
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", (0, 0))) in pools)
+
+
+def captured_run(run, captured, then=None):
     """``run()`` from an empty cache, captured or eager
     (``graphs.disabled()``): ``(result, wall s, peak bytes, launches less
     the entries' warm-ups, the entries as (name, replays, capture s),
-    buffer bytes, bytes that ``graphs.clear()`` gave back)``."""
+    buffer bytes, bytes that ``graphs.clear()`` gave back, bytes of the
+    graphs' pool, reserved bytes at the end)``.  ``then()`` runs after
+    the timed run, before the cache is cleared (its entries alive)."""
     from dnmf_tpu_torch.models import graphs
 
     graphs.clear()
@@ -2577,17 +2651,22 @@ def captured_run(run, captured):
     secs = time.perf_counter() - t0
     kept = [(e.name, e.replays, e.capture_seconds) for e in graphs.entries()]
     buffers = sum(e.buffer_bytes for e in graphs.entries())
+    if then is not None:
+        then()
+    pool, reserved = graph_pool_bytes(), torch.cuda.memory_reserved()
     return (out, secs, torch.cuda.max_memory_allocated(), launches, kept,
-            buffers, graph_cache_bytes())
+            buffers, graph_cache_bytes(), pool, reserved)
 
 
 def check_captured(label, card, eager, captured, same, wrappers=True):
     """Phase 31's gates on a :func:`captured_run` pair: ``same`` (the
     results bit-equal), and per wrapper the captured run's launches (its
     replays', read from the graphs) equal to the eager run's (all zero
-    with ``wrappers=False``)."""
-    (_, s_e, peak_e, n_e, _, _, _) = eager
-    (_, s_c, peak_c, n_c, kept, buffers, cache) = captured
+    with ``wrappers=False``).  The ``clear()`` figure of the cache with a
+    pool per entry, where the label has one, is shown beside this run's."""
+    before = POOL_PER_ENTRY_MB.get(label)
+    (_, s_e, peak_e, n_e, *_) = eager
+    (_, s_c, peak_c, n_c, kept, buffers, cache, pool, reserved) = captured
     if not same:
         fail(f"{label}: captured differs from eager")
     if n_c != n_e or any(n_e.values()) != wrappers:
@@ -2597,8 +2676,11 @@ def check_captured(label, card, eager, captured, same, wrappers=True):
         f"{sum(c for _, _, c in kept):.4f} s: "
         f"{[(n, r, round(c, 4)) for n, r, c in kept]} as (entry, replays, "
         f"capture s)); launches {n_e}; peak memory {peak_e / 1e9:.4f} / "
-        f"{peak_c / 1e9:.4f} GB; clear() gave back {cache / 1e6:.3f} MB "
-        f"({buffers / 1e6:.3f} MB of static buffers)")
+        f"{peak_c / 1e9:.4f} GB; the entries' shared pool "
+        f"{pool / 1e6:.3f} MB, reserved {reserved / 1e9:.3f} GB; clear() "
+        f"gave back {cache / 1e6:.3f} MB ({buffers / 1e6:.3f} MB of static "
+        f"buffers)" + ("" if before is None else
+                       f" (a pool per entry: {before:.3f} MB)"))
     return kept
 
 
@@ -2981,6 +3063,9 @@ def unsafe_registration_step(dev, card, video, template):
         f"({raised}); the step captured after it ({card})")
 
 
+POOL_RATIO = 1.5  # an entry's pool alone over its step's eager working set
+
+
 def graphs_registration_path(dev, card, video):
     """Phase 32 (module docstring)."""
     pipe = tcfg.RegistrationConfig(**PIPE_REG, pw_rigid=True, is3d=True,
@@ -2998,7 +3083,319 @@ def graphs_registration_path(dev, card, video):
         f"fused), {video.shape[0]} frames of {shape}", bench_cfg,
         ("phase_corr_block", "fused_separable_warp"))
     summary_graph_case(dev, card, video, np.asarray(mc.shifts_rig))
+    pool_anatomy(dev, card, video, mc.total_template_rig, pipe, bench_cfg)
     unsafe_registration_step(dev, card, video, mc.total_template_rig)
+
+
+def _deferred_frees(trace, segments):
+    """``(frees that completed after a later action, peak live bytes)`` of
+    the allocator's history ``trace`` in ``segments``: a free of a block
+    that another stream used completes only after the capture."""
+    spans = [(s["address"], s["address"] + s["total_size"]) for s in segments]
+    live = peak = late = 0
+    pending = {}
+    for i, e in enumerate(trace):
+        if not any(lo <= e["addr"] < hi for lo, hi in spans):
+            continue
+        if e["action"] == "alloc":
+            live += e["size"]
+            peak = max(peak, live)
+        elif e["action"] == "free_requested":
+            pending[e["addr"]] = i
+        elif e["action"] == "free_completed":
+            live -= e["size"]
+            late += (i - pending.pop(e["addr"], i - 1)) > 1
+    return late + len(pending), peak
+
+
+def pool_anatomy(dev, card, video, template, pipe, bench_cfg):
+    """Where a registration or seeding entry's memory goes (whole-brain,
+    one block of ``REG_BLOCK`` frames): each step's eager working set (the
+    rise of ``max_memory_allocated`` over one call), then its entry
+    captured alone from an empty cache, its pool's segments summed by
+    ``segment_pool_id`` and held to ``POOL_RATIO`` times that working
+    set; for the pipeline default's ``"exact"`` block the allocator's
+    history over its warm-up and capture (frees completed late, the peak
+    of live bytes).  Then the four entries in the one shared pool, the
+    pool's MB after each, and each replayed in the reverse order, its
+    outputs read right after its own replay, equal to eager."""
+    from dnmf_tpu_torch.models import graphs
+    from dnmf_tpu_torch.ops import seeding
+
+    size = tuple(video.shape[1:])
+    p = int(np.prod(size))
+    frames = torch.from_numpy(np.ascontiguousarray(video[:REG_BLOCK]))
+    on_card = frames.to(dev)
+    add = torch.zeros((), device=dev)
+    carry = (torch.zeros(p, device=dev),) * 3 + (
+        torch.zeros((3, p), device=dev), torch.zeros(p, device=dev),
+        torch.full((p,), -torch.inf, device=dev), torch.zeros(p, device=dev),
+        torch.zeros((), dtype=torch.int64, device=dev))
+    valid = torch.full((), REG_BLOCK, device=dev)
+    shifts = torch.zeros((REG_BLOCK, 3), device=dev)
+    block = [(frames.reshape(REG_BLOCK, p), valid, shifts)]
+
+    def eager_block(step, cfg):
+        def run():
+            corrected, sh = step(on_card, template, cfg, add)
+            return (corrected, sh) + mc_lib.block_sums(corrected)
+        return run
+
+    steps = {
+        "rigid, pipeline default": (
+            eager_block(mc_lib.rigid_block, pipe),
+            lambda: graphs.rigid_block(frames, template, add, pipe,
+                                       collect=True)),
+        "pw-rigid, pipeline default (F + exact)": (
+            eager_block(mc_lib.pwrigid_block, pipe),
+            lambda: graphs.pwrigid_block(frames, template, add, pipe,
+                                         collect=True)),
+        "pw-rigid, bench's (F + G)": (
+            eager_block(mc_lib.pwrigid_block, bench_cfg),
+            lambda: graphs.pwrigid_block(frames, template, add, bench_cfg,
+                                         collect=True)),
+        "seeding block": (
+            lambda: seeding.fold_block(carry, on_card.reshape(REG_BLOCK, p),
+                                       valid, shifts, size, True),
+            lambda: graphs.summary_blocks(carry, block, size, True)),
+    }
+    for label, (eager, captured) in steps.items():
+        graphs.clear()
+        eager()  # cuFFT's plans made
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = eager()
+        torch.cuda.synchronize()
+        working = torch.cuda.max_memory_allocated() - base
+        del out
+        torch.cuda.empty_cache()
+        history = label.startswith("pw-rigid, pipeline")
+        if history:
+            torch.cuda.memory._record_memory_history(max_entries=1_000_000)
+        captured()
+        torch.cuda.synchronize()
+        (entry,) = graphs.entries()
+        pool = tuple(entry.graph.pool())
+        segs = [s for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", (0, 0))) == pool]
+        held = sum(s["total_size"] for s in segs)
+        note = ""
+        if history:
+            trace = torch.cuda.memory._snapshot()["device_traces"][
+                dev.index or 0]
+            torch.cuda.memory._record_memory_history(enabled=None)
+            late, peak = _deferred_frees(trace, segs)
+            note = (f"; over its warm-up and capture {late} frees completed "
+                    f"late, peak live {peak / 1e6:.1f} MB in the pool; "
+                    f"{sum(entry.nodes.values())} kernel nodes")
+        say(f"graph memory, {label}, {REG_BLOCK} frames of "
+            f"{'x'.join(map(str, size))}: eager working set "
+            f"{working / 1e6:.1f} MB; its entry's pool alone {held / 1e6:.1f}"
+            f" MB in {len(segs)} segments ({held / working:.3f}x){note} "
+            f"({card})")
+        if not held <= POOL_RATIO * working:
+            fail(f"graph memory, {label}: pool {held / 1e6:.1f} MB over "
+                 f"{POOL_RATIO}x the eager working set {working / 1e6:.1f} MB")
+    graphs.clear()
+    torch.cuda.empty_cache()
+    grown = []
+    for label, (_, captured) in steps.items():
+        captured()
+        grown.append(f"{label} {graph_pool_bytes() / 1e6:.1f}")
+    for label, (eager, captured) in reversed(list(steps.items())):
+        got = [t for t in captured() if t is not None]
+        ref = eager()
+        if not all(map(same_bits, got, ref)):
+            fail(f"graph memory: {label} replayed after the others in the "
+                 "shared pool differs from eager")
+    say(f"graph memory: the four entries' shared pool, MB after each "
+        f"capture: {'; '.join(grown)}; each replayed in the reverse order "
+        f"equals eager; clear() gave back {graph_cache_bytes() / 1e6:.1f} MB "
+        f"(a pool per entry: the sum of the pools above) ({card})")
+
+
+# ------------------------------------------------------------------
+# Phase 33: the parity epoch and StaticFootprintNMF.fit as captured
+# programs (models/graphs.py).
+# ------------------------------------------------------------------
+PARITY_WB_FRAMES = 32  # the whole-brain parity epoch's frames
+STATIC_FRAMES = 64  # StaticFootprintNMF.fit's frames at both shapes
+STATIC_GRAPH_ITERS = 10  # its alternations, captured against eager
+
+
+def step_profile(label, card, entry, replays, step, steps_args):
+    """``replays`` replays of ``entry`` profiled (:func:`launch_profile`):
+    as many graph launches and no kernel launch from the host; the eager
+    step (``step(*steps_args)``, on the entry's buffers or copies of them)
+    launches as many kernels as the graph has kernel nodes.  Returns the
+    replays' idle share and the eager step's host API calls.  The eager
+    step's device time is not quoted: late in a long process the profiler
+    drops some of its device records."""
+    _, launches_c, api_c, wall_c, busy_c, _ = launch_profile(
+        lambda: [entry.replay() for _ in range(replays)])
+    _, launches_e, api_e, wall_e, _, _ = launch_profile(
+        lambda: step(*steps_args))
+    nodes = sum(entry.nodes.values())
+    if api_c.get("cudaGraphLaunch", 0) != replays or launches_c:
+        fail(f"{label}: host calls {api_c}, want {replays} graph launches "
+             "and no kernel launch")
+    if nodes != launches_e:
+        fail(f"{label}: {nodes} kernel nodes, the eager step launches "
+             f"{launches_e}")
+    say(f"{label}, one step profiled, eager / replayed ({card}): wall "
+        f"{wall_e * 1e3:.4f} / {wall_c / replays * 1e3:.4f} ms, replayed "
+        f"device {busy_c / replays * 1e3:.4f} ms (idle share "
+        f"{1 - busy_c / wall_c:.4f}), host API calls "
+        f"{sum(api_e.values())} / {sum(api_c.values()) / replays:g}, "
+        f"kernels {launches_e} launched / {nodes} nodes in one graph launch")
+    return 1 - busy_c / wall_c, sum(api_e.values())
+
+
+def parity_fit_case(dev, card):
+    """Phase 17's parity fit (ROI, T=256, batches of 4, 2 epochs, 50 MU,
+    gram_mode="auto") captured from an empty cache against eager."""
+    roi, _ = tcfg.baseline_workload("roi")
+    model = tcfg.ModelConfig(size=roi.size, num_neurons=roi.num_neurons,
+                             num_frames=PARITY_FRAMES,
+                             shape_std=roi.shape_std)
+    pos, _, video = ground_truth(dev, model.size, model.num_neurons,
+                                 model.num_frames, SEED)
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=1,
+                               motion_epochs=2, mu_iters=50, seed=SEED,
+                               motion_mode="parity", batch_size=4,
+                               shuffle=True)
+
+    def run():
+        return ttr.DeformableNMF(model, opt, tcfg.RuntimeConfig(frame_block=8),
+                                 positions=pos, device=dev).fit(video)
+
+    eager, captured = (captured_run(run, c) for c in (False, True))
+    res_e, res_c = eager[0], captured[0]
+    strip = [[{k: v for k, v in m.items() if k != "seconds"}
+              for m in r.metrics] for r in (res_c, res_e)]
+    same = all(torch.equal(getattr(res_c.state, f), getattr(res_e.state, f))
+               for f in model_lib.STATE_FIELDS) and strip[0] == strip[1]
+    check_captured(f"graphs parity fit, ROI T={PARITY_FRAMES}, 2 epochs of "
+                   f"{PARITY_FRAMES // 4} steps", card, eager, captured, same)
+    return model, pos, video
+
+
+def parity_epoch_case(dev, card, label, model, pos, video):
+    """One parity epoch (``graphs.motion_epoch_parity``, shuffled batches of
+    4 on the card) captured from an empty cache against eager; a replayed
+    epoch timed and run under ``set_sync_debug_mode("error")``; one step
+    profiled (:func:`step_profile`)."""
+    from dnmf_tpu_torch.models import graphs
+
+    state = model_lib.init_state(model, positions=pos, device=dev)
+    adam = model_lib.Adam(1e-3)
+    t = model.num_frames
+    order = torch.randperm(t, generator=torch.Generator().manual_seed(SEED))
+    times = order.reshape(t // 4, 4).to(dev)
+    weights = torch.ones((t // 4, 4), device=dev)
+
+    def run():
+        return graphs.motion_epoch_parity(state, video, times, weights,
+                                          model, adam, 1.0, True)
+
+    read = {}
+
+    def replayed():
+        """A replayed epoch timed under ``set_sync_debug_mode("error")``,
+        then one step profiled."""
+        (entry,) = graphs.entries()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        read["wall"] = time.perf_counter() - t0
+        bufs = [b.clone() for b in entry.inputs]
+        for b in (entry.inputs[10], bufs[10]):  # the step index
+            b.zero_()
+        read["idle"], read["calls"] = step_profile(
+            label, card, entry, 2,
+            graphs._parity_step(video, model, adam, 1.0), bufs)
+
+    eager = captured_run(run, False)
+    captured = captured_run(run, True, then=replayed)
+    (st_e, m_e), (st_c, m_c) = eager[0], captured[0]
+    same = all(torch.equal(getattr(st_c, f), getattr(st_e, f))
+               for f in model_lib.STATE_FIELDS) and all(
+        torch.equal(m_c[k], m_e[k]) for k in m_e)
+    check_captured(label, card, eager, captured, same, wrappers=False)
+    say(f"{label}: wall per epoch of {t // 4} steps eager {eager[1]:.4f} s, "
+        f"captured {captured[1]:.4f} s from an empty cache, "
+        f"{read['wall']:.4f} s replayed (a profiled replay's idle share "
+        f"{read['idle']:.4f}); host API calls per step {read['calls']} "
+        f"eager, 1 replayed; a replayed epoch ran under "
+        f"set_sync_debug_mode('error') ({card})")
+
+
+def static_graph_case(dev, card, label, size, k):
+    """``StaticFootprintNMF.fit`` (``STATIC_GRAPH_ITERS`` alternations on
+    ``STATIC_FRAMES`` frames) captured from an empty cache against eager;
+    one graph launch per alternation (:func:`step_profile`)."""
+    from dnmf_tpu_torch.models import graphs
+
+    model = tcfg.ModelConfig(size=size, num_neurons=k,
+                             num_frames=STATIC_FRAMES, shape_std=3.0)
+    pos, _, video = ground_truth(dev, size, k, STATIC_FRAMES, SEED)
+    eng = ttr.StaticFootprintNMF(model, pos, device=dev)
+    start = (eng.a, eng.c)
+
+    def run():
+        eng.a, eng.c = start
+        return eng.fit(video, iters=STATIC_GRAPH_ITERS)
+
+    walls = {}
+
+    def replayed():
+        """The fit again, replayed (its entry kept), then one alternation
+        profiled (the eager step on the entry's own buffers)."""
+        (entry,) = graphs.entries()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls["replayed"] = time.perf_counter() - t0
+        step_profile(label, card, entry, STATIC_GRAPH_ITERS,
+                     graphs._static_step(eng.d, eng.gamma_a), entry.inputs)
+
+    eager = captured_run(run, False)
+    captured = captured_run(run, True, then=replayed)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(eager[0], captured[0]))
+    check_captured(label, card, eager, captured, same, wrappers=False)
+    say(f"{label}: wall per fit of {STATIC_GRAPH_ITERS} alternations, "
+        f"eager {eager[1]:.4f} s, replayed with the entry kept "
+        f"{walls['replayed']:.4f} s ({card})")
+
+
+def graphs_parity_path(dev, card):
+    """Phase 33 (module docstring)."""
+    model, pos, video = parity_fit_case(dev, card)
+    parity_epoch_case(dev, card, f"graphs parity epoch, ROI T="
+                      f"{PARITY_FRAMES}", model, pos, video)
+    del video
+    wb, _ = tcfg.baseline_workload("whole_brain")
+    model = tcfg.ModelConfig(size=wb.size, num_neurons=wb.num_neurons,
+                             num_frames=PARITY_WB_FRAMES,
+                             shape_std=wb.shape_std)
+    pos, _, video = ground_truth(dev, wb.size, wb.num_neurons,
+                                 PARITY_WB_FRAMES, SEED)
+    parity_epoch_case(dev, card, f"graphs parity epoch, whole-brain T="
+                      f"{PARITY_WB_FRAMES}", model, pos, video)
+    del video
+    roi, _ = tcfg.baseline_workload("roi")
+    for name, w in (("ROI", roi), ("whole-brain", wb)):
+        static_graph_case(dev, card, f"graphs StaticFootprintNMF.fit, {name} "
+                          f"T={STATIC_FRAMES}", w.size, w.num_neurons)
 
 
 def main() -> int:
@@ -3058,7 +3455,8 @@ def main() -> int:
     reg, reg_video = registration_path(dev)
     for kname in ("phase_corr_block", "fused_separable_warp"):
         launches[kname] = reg[kname]
-    pipe, c4 = pipeline_path(dev, wb.size, wb.num_neurons)
+    pipe, c4 = pipeline_path(dev, wb.size, wb.num_neurons, card)
+    peak_reserved = torch.cuda.max_memory_reserved()
     launches["gram_block_rows"] = c4["gram_block_rows"]
     say(f"launches on the pipeline path: {pipe}")
     streamed_equals_resident(dev, roi.size, roi.num_neurons)
@@ -3095,6 +3493,13 @@ def main() -> int:
     del reg_video
     say(f"graphs of registration and seeding: "
         f"{time.perf_counter() - t0:.3f} s ({card})")
+    t0 = time.perf_counter()
+    graphs_parity_path(dev, card)
+    say(f"graphs of the parity epoch and StaticFootprintNMF.fit: "
+        f"{time.perf_counter() - t0:.3f} s ({card})")
+    say(f"device memory: {peak_reserved / 1e9:.3f} GB reserved at the "
+        f"pipeline phase's peak (a pool per entry: 62.009 GB), "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB at the end ({card})")
     say(f"chip_smoke: {time.perf_counter() - started:.3f} s in all")
 
     kernels = []

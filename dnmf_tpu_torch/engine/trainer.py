@@ -18,15 +18,18 @@ device.  ``runtime.checkpoint_dir`` saves every round
 ``runtime.profile_dir`` traces the last round with ``torch.profiler``.
 :class:`StaticFootprintNMF` is the static-footprint MU mode.
 
-Without a mesh, ``fit``'s steps (the motion epoch, the width fit, the
-Grams, the trace update), each round of ``fit_fused`` and ``refine``'s
-(the positions, the tracked Grams, the trace update) go through
+Without a mesh, ``fit``'s steps (the motion epoch or, in parity mode,
+one serial Adam step per batch, the width fit, the Grams, the trace
+update), each round of ``fit_fused`` and ``refine``'s (the positions, the
+tracked Grams, the trace update) go through
 :mod:`dnmf_tpu_torch.models.graphs` (the JAX package's ``jit``): with the
 kernels on the card each is a captured CUDA graph; the Gram audit, the
-finiteness checks and the metric reads run eagerly between them.  A
-streamed source's width fit goes through it too (its subsample is on
-the card), its streamed steps do not.  ``models.graphs.clear()`` drops
-the graphs.
+finiteness checks and the metric reads run eagerly between them.  Models
+that the kernels do not compute (``reference_demo_model(parity=True)``'s
+resampled footprints) run every step eagerly.  A streamed source's width
+fit goes through it too (its subsample is on the card), its streamed
+steps do not.  ``StaticFootprintNMF.fit``'s alternation is captured on the
+card.  ``models.graphs.clear()`` drops the graphs.
 
 ``runtime.mesh_time`` / ``mesh_pixel`` (and ``mesh_batch`` beside
 ``mesh_time``) shard the fit over the ranks of a process group
@@ -196,6 +199,7 @@ class DeformableNMF:
         self._base_sigma = self.state.sigma
         # Per-frame positions [T, K, 3] from refine(), None before it.
         self.pos_t: Optional[torch.Tensor] = None
+        self._positions_cache = None  # positions_all's (beta, pos, iters, out)
         if self.runtime.use_kernels is None:
             self._use_kernels = (self.device.type == "cuda"
                                  and model_lib.kernels_apply(model))
@@ -291,9 +295,11 @@ class DeformableNMF:
         return (torch.clamp_min(video, 0.0) if raw else video).contiguous()
 
     def _epoch_batches(self):
-        """One parity epoch's ``(times, weights)``, ``[num_batches, B]``:
-        the frames in shuffled (or natural) order, the last batch padded
-        with frame 0 at weight 0."""
+        """One parity epoch's ``(times, weights)``, ``[num_batches, B]``
+        host tensors: the frames in shuffled (or natural) order, the last
+        batch padded with frame 0 at weight 0.  The epoch copies them into
+        its entry's buffers (:func:`~dnmf_tpu_torch.models.graphs.
+        motion_epoch_parity`)."""
         t, b = self.model.num_frames, self.opt_config.batch_size
         order = (torch.randperm(t, generator=self._batch_gen)
                  if self.opt_config.shuffle else torch.arange(t))
@@ -301,8 +307,7 @@ class DeformableNMF:
         times = torch.cat([order, torch.zeros(pad, dtype=order.dtype)])
         weights = torch.cat([torch.ones(t), torch.zeros(pad)])
         nb = (t + pad) // b
-        return (times.reshape(nb, b).to(self.device),
-                weights.reshape(nb, b).to(self.device))
+        return times.reshape(nb, b), weights.reshape(nb, b)
 
     def _gram_window(self) -> Optional[int]:
         """Lattice window of the closed-form Grams, sized for the widest
@@ -358,9 +363,9 @@ class DeformableNMF:
                     mesh, use_kernels=self._use_kernels)
             elif self.opt_config.motion_mode == "parity":
                 times, weights = self._epoch_batches()
-                self.state, m = model_lib.motion_epoch_parity(
+                self.state, m = graphs.motion_epoch_parity(
                     self.state, video, times, weights, self.model,
-                    self.optimizer, gamma)
+                    self.optimizer, gamma, self._use_kernels)
             elif mesh is None:  # one device: the captured step
                 self.state, m = graphs.motion_epoch(
                     self.state, video, self.model, self.optimizer, gamma,
@@ -719,7 +724,16 @@ class DeformableNMF:
         """Apparent positions ``warp_t^{-1}(p_k)`` of every neuron in
         every frame: ``[T, K, 3]``, by fixed-point iteration.  After
         :meth:`refine`, the refined per-frame positions ``pos_t`` take the
-        anchors' place."""
+        anchors' place.  The host result is cached on the identity of
+        ``state.beta``, of the positions (``pos_t`` or ``state.pos``; on a
+        mesh the rank's own tensors) and on ``iters``, as the JAX
+        package caches it, so a loop of :meth:`positions_at` solves once;
+        a hit returns the same read-only array."""
+        local_pos = self.pos_t if self.pos_t is not None else self.state.pos
+        cache = self._positions_cache
+        if (cache is not None and cache[0] is self.state.beta
+                and cache[1] is local_pos and cache[2] == iters):
+            return cache[3]
         beta = self._whole(self.state.beta)
         pts = (self._whole(self.pos_t) if self.pos_t is not None else
                self.state.pos.expand((beta.shape[0],) + self.state.pos.shape))
@@ -729,7 +743,12 @@ class DeformableNMF:
             out = basis_ops.denormalize_points(inv, self.model.size)
         else:
             out = basis_ops.invert_warp_points(pts, beta, iters=iters)
-        return out.detach().cpu().numpy()
+        out = out.detach().cpu().numpy()
+        # Frozen: a caller writing to a hit's array would change every
+        # later positions_all / positions_at.
+        out.setflags(write=False)
+        self._positions_cache = (self.state.beta, local_pos, iters, out)
+        return out
 
 
 class StaticFootprintNMF:
@@ -738,7 +757,10 @@ class StaticFootprintNMF:
     distance-penalty field ``D`` around the positions) alternated with MU
     updates of the traces ``C [K, T]``.  Counterpart of the JAX
     package's class; its products are plain ``torch.matmul`` (TF32 off,
-    PyTorch's default).  ``generator`` (a ``torch.Generator``, default
+    PyTorch's default), and on the card one alternation is a captured
+    graph replayed once per iteration
+    (:func:`~dnmf_tpu_torch.models.graphs.static_nmf_fit`, the JAX
+    package's jitted step).  ``generator`` (a ``torch.Generator``, default
     seed 0) draws the initial traces on the CPU."""
 
     def __init__(self, model: ModelConfig, positions, gamma_a: float = 1.0,
@@ -764,9 +786,6 @@ class StaticFootprintNMF:
         clamped video; returns ``(A [P, K], C [K, T])``."""
         y = torch.as_tensor(video, dtype=torch.float32).to(self.device)
         y = torch.clamp_min(y.reshape(y.shape[0], -1), 0.0).T  # [P, T]
-        a, c = self.a, self.c
-        for _ in range(iters):
-            c = c * (a.T @ y) / ((a.T @ a) @ c + mu_ops.EPS)
-            a = mu_ops.mu_spatial_step(a, c, y, d=self.d, gamma=self.gamma_a)
-        self.a, self.c = a, c
-        return a, c
+        self.a, self.c = graphs.static_nmf_fit(self.a, self.c, y, self.d,
+                                               self.gamma_a, iters)
+        return self.a, self.c

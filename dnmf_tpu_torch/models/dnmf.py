@@ -8,9 +8,10 @@ the per-neuron width fit :func:`sigma_fit` and the diagnostic
 :func:`spatial_pushforward`.  The state is a dataclass of tensors;
 functions run eagerly and loop over frame blocks in Python.  On the card
 :mod:`dnmf_tpu_torch.models.graphs` captures the motion epoch, the Grams,
-the trace update, the width fit, a round of :func:`fused_rounds` and a
-round over stacked recordings as CUDA graphs (the JAX package's
-``jit``); the functions here are the steps it captures.
+the trace update, the width fit, a round of :func:`fused_rounds`, a
+round over stacked recordings and a parity step (:func:`parity_step`) as
+CUDA graphs (the JAX package's ``jit``); the functions here are the steps
+it captures.
 
 A stacked state (a leading recordings axis on every field: several
 recordings of one size, K and T, :func:`dnmf_tpu_torch.parallel.
@@ -32,7 +33,8 @@ volume, the reference's numerics) and unfaded ones
 they take the footprint ops, with gradients by autograd over pixel
 chunks, and ``use_kernels=True`` raises ``ValueError`` for them
 (:func:`kernels_apply`).  The parity epoch is plain PyTorch in every
-configuration, as the JAX package's is.
+configuration, as the JAX package's is; with ``use_kernels`` its step is
+captured, without (resampled footprints among them) it runs eagerly.
 """
 
 from __future__ import annotations
@@ -366,18 +368,27 @@ def motion_epoch_parity(state: DNMFState, video: torch.Tensor,
     """
     vb = model_voxel_basis(model, device=video.device)
     stored_a = _maybe_stored_a(state, model)
-    beta, count, mu, nu = state.beta, state.count, state.mu, state.nu
     mses, regs = [], []
     for times, weights in zip(batch_times, batch_weights):
-        grad, mse, reg = _batch_loss_grad(
-            beta, times, weights, video[times], state.c, state.pos,
-            state.sigma, model, vb, gamma, stored_a)
-        beta, count, mu, nu = optimizer.update(beta, grad, count, mu, nu)
+        state, mse, reg = parity_step(state, video, times, weights, model,
+                                      optimizer, gamma, vb, stored_a)
         mses.append(mse)
         regs.append(reg)
-    state = state.replace(beta=beta, count=count, mu=mu, nu=nu)
     return state, {"recon_mse": torch.stack(mses).mean(),
                    "reg": torch.stack(regs).mean()}
+
+
+def parity_step(state: DNMFState, video: torch.Tensor, times: torch.Tensor,
+                weights: torch.Tensor, model: ModelConfig, optimizer: Adam,
+                gamma: float, vb: torch.Tensor, stored_a=None):
+    """One serial Adam step of :func:`motion_epoch_parity` on the batch
+    ``times [B]``, ``weights [B]``: ``(state, mse, reg_mean)``."""
+    grad, mse, reg = _batch_loss_grad(
+        state.beta, times, weights, video[times], state.c, state.pos,
+        state.sigma, model, vb, gamma, stored_a)
+    beta, count, mu, nu = optimizer.update(state.beta, grad, state.count,
+                                           state.mu, state.nu)
+    return state.replace(beta=beta, count=count, mu=mu, nu=nu), mse, reg
 
 
 def _recording(state: DNMFState, r: int) -> DNMFState:

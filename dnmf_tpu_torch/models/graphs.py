@@ -7,7 +7,9 @@ epoch, the Grams, the trace update, the width fit), the whole
 (``jax.jit(jax.vmap(...))`` of ``parallel.batched_round``) into one
 device program each, and so registration's and seeding's frame-block
 steps (``rigid_correct_frames``, ``tile_and_correct_block`` with kernels F
-and G, ``_accum_block`` and ``_accum_block_shifted``).  Here a step runs once eagerly on a side stream
+and G, ``_accum_block`` and ``_accum_block_shifted``), the parity epoch
+(``lax.scan`` of serial Adam steps) and ``StaticFootprintNMF.fit``'s
+alternation.  Here a step runs once eagerly on a side stream
 (the warm-up: the kernels' build, cuBLAS's handle and workspace, the
 kernels' shared-memory attributes), is captured into a
 ``torch.cuda.CUDAGraph`` on the same stream, and from then on is
@@ -25,7 +27,9 @@ shapes and handles, at a fraction of the eager run.
 frame block (the correction and its finite sums), one entry per block
 shape serving every template iteration; :func:`summary_blocks` folds a
 seeding pass's blocks, its carry kept in the entry's buffers between
-blocks.
+blocks.  :func:`motion_epoch_parity` captures one serial Adam step and
+replays it once per batch, the step index on the card;
+:func:`static_nmf_fit` one alternation, replayed once per iteration.
 
 Where it applies.  Each function here decides for itself: with
 ``use_kernels`` (registration and seeding: always) and outside
@@ -45,6 +49,19 @@ the solver, ``use_kernels``) and every input's shape, dtype, strides and
 device, with the video's address, shape and strides.  At most
 :data:`MAX_ENTRIES` entries are kept, the least recently used dropped
 first; :func:`clear` drops them all and :func:`entries` lists them.
+
+Memory.  Every graph on a device is captured into one memory pool
+(:func:`_pool`), which holds the temporaries of the largest step once,
+beside each entry's outputs: a pool per entry held each step's whole
+working set (several GB for a whole-brain registration block).  Sharing
+is safe because no output of a graph is read after another entry's
+replay: each call clones the outputs it hands out right after its own
+replay (:meth:`Entry.outputs_for`, :func:`_registration_block`),
+:func:`fused_rounds` copies its metrics into a history allocated
+outside the capture after each of its replays, and the carries of
+:func:`fused_rounds`, :func:`summary_blocks`, :func:`motion_epoch_parity`
+and :func:`static_nmf_fit` live in the entries' input buffers, which are
+allocated outside the capture.
 
 Inputs and outputs.  A call copies the state's leaves (``beta``, ``c``,
 ``pos``, ``sigma``, ``count``, ``mu``, ``nu``; the trace update also the
@@ -82,6 +99,7 @@ import torch
 from dnmf_tpu_torch.models import dnmf as model_lib
 from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import fused
+from dnmf_tpu_torch.ops import mu as mu_ops
 
 # Entries kept.  One ``register_and_demix`` run holds at most fifteen:
 # registration four (the rigid and the piecewise-rigid block, each also
@@ -89,8 +107,11 @@ from dnmf_tpu_torch.ops import fused
 # shape), then the engine's nine: ``fit`` three (motion epoch, Grams,
 # trace update) and a fourth where the Gram audit falls back to exact
 # Grams, the width fit one, ``refine`` three (positions, tracked Grams, a
-# trace update of its own iterations) and ``fit_fused`` one.  Three more
-# keep a second run's entries (another video) alive beside them.
+# trace update of its own iterations) and ``fit_fused`` one.  A parity
+# fit's epoch takes the motion epoch's place; ``StaticFootprintNMF.fit``
+# holds one entry of its own.  Three more keep a second run's entries
+# (another video) alive beside them.  An entry costs its buffers and
+# outputs: the temporaries are the one shared pool's.
 MAX_ENTRIES = 18
 
 # The kernel that each wrapper of the captured steps launches last, once
@@ -109,6 +130,7 @@ LAST_KERNEL = {"motion_block": "motion_finish", "c1_block": "c1_finish",
 
 _entries: "collections.OrderedDict[tuple, Entry]" = collections.OrderedDict()
 _streams = {}  # device -> the side stream of warm-ups and captures
+_pools = {}  # device -> the memory pool that its entries' graphs share
 _disabled = 0  # depth of disabled() contexts
 
 
@@ -141,6 +163,18 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     if device not in _streams:
         _streams[device] = torch.cuda.Stream(device)
     return _streams[device]
+
+
+def _pool(device: torch.device) -> tuple:
+    """The memory pool of the graphs on ``device``: one for all of them,
+    so that the cache holds the largest step's temporaries once, beside
+    each entry's outputs, rather than a pool per entry.  A new pool once
+    no cached graph holds the last one (a pool whose graphs are all gone
+    cannot be shared again)."""
+    if not any(e.graph is not None and e.device == device
+               for e in _entries.values()):
+        _pools[device] = torch.cuda.graph_pool_handle()
+    return _pools[device]
 
 
 def _nbytes(tensors) -> int:
@@ -241,7 +275,7 @@ class Entry:
         self.replays = 0
         self.buffer_bytes = _nbytes(self.inputs)
         self.nodes, self.launches, self.warmup_launches = {}, {}, {}
-        device = self.inputs[0].device
+        self.device = device = self.inputs[0].device
         t0 = time.perf_counter()
         if device.type == "cuda":
             self.graph = self._capture(step, warmup or step, device)
@@ -264,7 +298,7 @@ class Entry:
         # read (:func:`kernel_nodes`).
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with torch.cuda.graph(graph, pool=_pool(device), stream=stream):
                 self.outputs = tuple(step(*self.inputs))
         finally:  # a capture launches nothing, even one that raised
             counted = {k: n - before[k]
@@ -451,6 +485,97 @@ def fused_rounds(state, video, model, optimizer, rounds: int, epochs: int,
             column[r].copy_(metric)
     return (_state(tuple(buf.clone() for buf in entry.inputs)),
             {"recon_mse": history[0], "reg": history[1]})
+
+
+def motion_epoch_parity(state, video, batch_times, batch_weights, model,
+                        optimizer, gamma: float, use_kernels: bool = False):
+    """:func:`~dnmf_tpu_torch.models.dnmf.motion_epoch_parity`: one serial
+    Adam step (:func:`~dnmf_tpu_torch.models.dnmf.parity_step`) captured
+    once and replayed once per batch.  The epoch's ``batch_times`` and
+    ``batch_weights`` (``[num_batches, B]``, on the host or the card) are
+    copied into the entry's buffers once; each replay selects its row by
+    a device step index, writes the new ``beta``, ``count``, ``mu`` and
+    ``nu`` into its own input buffers and its ``mse`` and ``reg`` into
+    the row's column of two ``[num_batches]`` buffers, and increments the
+    index.  The metrics are those buffers' means, as the eager epoch's."""
+    device = video.device
+    if not _cached(use_kernels):
+        return model_lib.motion_epoch_parity(
+            state, video, batch_times.to(device), batch_weights.to(device),
+            model, optimizer, gamma)
+    nb = batch_times.shape[0]
+    step = _parity_step(video, model, optimizer, gamma)
+    zeros = torch.zeros(nb, dtype=torch.float32, device=device)
+    args = _leaves(state) + (
+        model_lib.model_voxel_basis(model, device=device), batch_times,
+        batch_weights, torch.zeros(1, dtype=torch.int64, device=device),
+        zeros, zeros)
+    key = (("motion_epoch_parity", model, optimizer, gamma)
+           + _signature(*args) + _video_key(video))
+    entry = _entry(key, lambda: Entry("motion_epoch_parity", step, args,
+                                      device=device))
+    entry.load(args)
+    for _ in range(nb):
+        entry.replay()
+    buf = _state(entry.inputs[:7])
+    mses, regs = entry.inputs[-2:]
+    return (state.replace(beta=buf.beta.clone(), count=buf.count.clone(),
+                          mu=buf.mu.clone(), nu=buf.nu.clone()),
+            {"recon_mse": mses.mean(), "reg": regs.mean()})
+
+
+def _parity_step(video, model, optimizer, gamma: float):
+    """The step of :func:`motion_epoch_parity`'s entry, on its buffers:
+    the state's leaves, the voxel basis, the epoch's batches, the step
+    index and the two metric columns."""
+    def step(*args):
+        cur, (vb, times, weights, index, mses, regs) = (_state(args[:7]),
+                                                        args[7:])
+        st, mse, reg = model_lib.parity_step(
+            cur, video, times.index_select(0, index)[0],
+            weights.index_select(0, index)[0], model, optimizer, gamma, vb,
+            model_lib._maybe_stored_a(cur, model))
+        for name in ("beta", "count", "mu", "nu"):
+            getattr(cur, name).copy_(getattr(st, name))
+        mses.index_copy_(0, index, mse.reshape(1))
+        regs.index_copy_(0, index, reg.reshape(1))
+        index.add_(1)
+        return ()
+    return step
+
+
+def static_nmf_fit(a, c, y, d, gamma_a: float, iters: int):
+    """``StaticFootprintNMF.fit``'s ``iters`` alternations
+    (:func:`~dnmf_tpu_torch.ops.mu.static_alternation`), one captured
+    and replayed ``iters`` times; the carry ``(a, c)`` stays in the
+    entry's buffers between replays (eagerly inside :func:`disabled`).
+    The video ``y [P, T]``, made anew by each ``fit``, is copied in like
+    the carry; the engine's penalty field ``d [P, K]`` is read in place at
+    the address in the key, as a video is.  Returns ``(a, c)``, clones."""
+    if not _cached(True):
+        for _ in range(iters):
+            a, c = mu_ops.static_alternation(a, c, y, d, gamma_a)
+        return a, c
+
+    args = (a, c, y)
+    key = ("static_nmf_fit", gamma_a) + _signature(*args) + _video_key(d)
+    entry = _entry(key, lambda: Entry("static_nmf_fit",
+                                      _static_step(d, gamma_a), args))
+    entry.load(args)
+    for _ in range(iters):
+        entry.replay()
+    return tuple(buf.clone() for buf in entry.inputs[:2])
+
+
+def _static_step(d, gamma_a: float):
+    """The step of :func:`static_nmf_fit`'s entry: one alternation, its
+    result written into the carry's buffers ``(a, c)``."""
+    def step(a, c, y):
+        a_new, c_new = mu_ops.static_alternation(a, c, y, d, gamma_a)
+        a.copy_(a_new)
+        c.copy_(c_new)
+        return ()
+    return step
 
 
 def sigma_fit(state, video_sub, betas_sub, c_sub, model, steps: int = 4,

@@ -127,6 +127,15 @@ def mu_spatial_step(a: torch.Tensor, c: torch.Tensor, y: torch.Tensor,
     return a * (y @ c.T) / (a2 + EPS)
 
 
+def static_alternation(a: torch.Tensor, c: torch.Tensor, y: torch.Tensor,
+                       d: torch.Tensor, gamma: float):
+    """One alternation of ``StaticFootprintNMF.fit``: the traces ``c ->
+    c (A^T y) / ((A^T A) c)``, then :func:`mu_spatial_step` of ``a`` at
+    the new traces.  Returns ``(a, c)``."""
+    c = c * (a.T @ y) / ((a.T @ a) @ c + EPS)
+    return mu_spatial_step(a, c, y, d=d, gamma=gamma), c
+
+
 def distance_penalty(grid: torch.Tensor, pos: torch.Tensor,
                      rate: float = 0.01) -> torch.Tensor:
     """``D[p, k] = 1 - exp(-rate * ||grid_p - pos_k||)``: ``[P, K]``."""

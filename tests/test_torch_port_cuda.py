@@ -1706,3 +1706,249 @@ def test_unsafe_registration_step_raises(graph_cache, dev, monkeypatch):
     out = run()
     assert bool(torch.isfinite(out[1]).all())
     assert len(graph_cache.entries()) == 1
+
+
+# The parity epoch and StaticFootprintNMF.fit as captured programs
+# (graphs.motion_epoch_parity, graphs.static_nmf_fit): equal to eager bit
+# for bit, one graph launch per step with as many kernel nodes as the eager
+# step launches, no sync in a replayed epoch.  The entries' one memory
+# pool: entries replayed in any order hand out eager's results, and a
+# registration entry's pool stays near its step's eager working set.
+def _parity_epoch_call(dev, pad=False):
+    """A shuffled parity epoch on the card (batches of 4, the last one
+    padded with ``pad``) through the cache, as a call, and its entry's
+    step function."""
+    from dnmf_tpu_torch.models import dnmf as tM
+    from dnmf_tpu_torch.models import graphs
+
+    model, state, video = _graph_inputs(dev)
+    t = GRAPH_T - 1 if pad else GRAPH_T
+    order = np.random.default_rng(3).permutation(t)
+    nb = -(-t // 4)
+    times = torch.zeros(nb * 4, dtype=torch.int64)
+    times[:t] = torch.from_numpy(order)
+    weights = torch.zeros(nb * 4)
+    weights[:t] = 1.0
+    times, weights = times.reshape(nb, 4).to(dev), weights.reshape(nb, 4).to(
+        dev)
+    adam = tM.Adam(1e-3)
+    return (lambda: graphs.motion_epoch_parity(
+        state, video, times, weights, model, adam, 0.5, True),
+        graphs._parity_step(video, model, adam, 0.5), nb)
+
+
+def _static_call(dev):
+    from dnmf_tpu_torch.engine import trainer as ttr
+    from dnmf_tpu_torch.models import graphs
+
+    model, state, video = _graph_inputs(dev)
+    eng = ttr.StaticFootprintNMF(model, state.pos, device=dev)
+    start = (eng.a, eng.c)
+
+    def run():
+        eng.a, eng.c = start
+        return eng.fit(video, iters=5)
+    return run, graphs._static_step(eng.d, eng.gamma_a), 5
+
+
+def _replay_calls(entry, replays):
+    """Host calls by name of ``replays`` replays of ``entry``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(replays):
+            entry.replay()
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.events():
+        calls[e.name] = calls.get(e.name, 0) + 1
+    return calls
+
+
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx")
+
+
+@pytest.mark.parametrize("program", ["parity", "parity_padded", "static"])
+def test_captured_parity_and_static_equal_eager(graph_cache, dev, program):
+    run = (_static_call(dev) if program == "static" else
+           _parity_epoch_call(dev, program.endswith("padded")))[0]
+    with graph_cache.disabled():
+        ref = _flat(run())
+    assert graph_cache.entries() == []
+    for _ in range(2):  # the capturing call, then replays only
+        got = _flat(run())
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    (entry,) = graph_cache.entries()
+    assert sum(entry.nodes.values()) > 0
+
+
+@pytest.mark.parametrize("program", ["parity", "static"])
+def test_parity_and_static_steps_are_one_graph_launch(graph_cache, dev,
+                                                       program):
+    """A replay is one graph launch and no kernel launch; the graph has as
+    many kernel nodes as the eager step launches kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run, step, steps = (_static_call(dev) if program == "static" else
+                        _parity_epoch_call(dev))
+    run()
+    (entry,) = graph_cache.entries()
+    bufs = [b.clone() for b in entry.inputs]
+    if program == "parity":  # the step index, back to the first batch
+        entry.inputs[10].zero_()
+        bufs[10].zero_()
+    calls = _replay_calls(entry, steps)
+    assert calls.get("cudaGraphLaunch", 0) == steps, calls
+    assert not any(calls.get(k) for k in LAUNCHES), calls
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(*bufs)
+        torch.cuda.synchronize()
+    launched = sum(e.name in LAUNCHES for e in prof.events())
+    assert launched == sum(entry.nodes.values()) > 0
+
+
+def test_replayed_parity_epoch_and_static_fit_make_no_sync(graph_cache,
+                                                           dev):
+    parity, static = _parity_epoch_call(dev)[0], _static_call(dev)[0]
+    parity()
+    static()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, m = parity()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(m["recon_mse"])) and bool(
+        torch.isfinite(st.beta).all())
+
+
+def test_entries_share_one_pool_and_replay_in_any_order(graph_cache, dev):
+    """Two entries captured into the one pool, replayed X, Y, X and Y, X,
+    Y: each call's outputs, read right after its own replay, equal the
+    eager step's."""
+    model, state, video = _graph_inputs(dev)
+    steps = _graph_steps(model, state, video)
+    x, y = steps["grams_exact"], steps["motion"]
+    with graph_cache.disabled():
+        ref = {"x": _flat(x()), "y": _flat(y())}
+    x()
+    y()
+    pools = {tuple(e.graph.pool()) for e in graph_cache.entries()}
+    assert len(graph_cache.entries()) == 2 and len(pools) == 1
+    for order in ("xyx", "yxy"):
+        for name in order:
+            got = _flat({"x": x, "y": y}[name]())
+            assert all(torch.equal(a, b) for a, b in zip(got, ref[name]))
+
+
+POOL_SIZES = {"small": (128, 128, 16), "whole_brain": (512, 512, 20)}
+
+
+def _pool_configs(size):
+    """The block steps' settings: the pipeline default's rigid and
+    ``"exact"`` pw-rigid pass and ``bench``'s F + G pass at whole-brain,
+    patches of half and a quarter of the frame at the small size."""
+    from dnmf_tpu_torch.tools.kernel_check import BENCH_PW, PIPE_REG
+
+    if size == POOL_SIZES["whole_brain"]:
+        return (dict(PIPE_REG, border_nan=False),
+                dict(BENCH_PW, remap_mode="fused"))
+    return (dict(max_shifts=(4, 4, 1), strides=(64, 64, 16),
+                 overlaps=(16, 16, 0), max_deviation_rigid=2,
+                 border_nan=False),
+            dict(max_shifts=(4, 4, 1), strides=(32, 32, 16),
+                 overlaps=(16, 16, 0), max_deviation_rigid=2,
+                 border_nan=False, remap_mode="fused"))
+
+
+@pytest.mark.parametrize("size", sorted(POOL_SIZES))
+@pytest.mark.parametrize("name", ["rigid", "pw_exact_F", "pw_fused_FG",
+                                  "summary_shifted"])
+def test_registration_entry_pool_near_its_eager_working_set(graph_cache,
+                                                            dev, name, size):
+    """A registration or seeding entry captured alone (16 frames) holds a
+    pool (its segments, by ``segment_pool_id``) no larger than the same
+    step run eagerly into a pool of its own (``torch.cuda.MemPool``): the
+    capture keeps no more than the allocator's own segments for the
+    step's allocations.  At whole-brain, where F1 was measured, the pool
+    is also at most 1.5 times the step's eager working set (the rise of
+    ``max_memory_allocated`` over one call); at the small size requests of
+    1-10 MB take 20 MB segments eagerly and captured alike."""
+    from dnmf_tpu_torch.models import graphs
+    from dnmf_tpu_torch.ops import seeding
+    from dnmf_tpu_torch.registration import motion_correct as mc_lib
+
+    from scipy.ndimage import gaussian_filter
+
+    shape = POOL_SIZES[size]
+    rng = np.random.default_rng(5)
+    shifts = torch.tensor([(0.3 * i, -0.2 * i, 0.05 * i) for i in range(16)],
+                          dtype=torch.float32, device=dev)
+    tmpl = torch.from_numpy(gaussian_filter(rng.normal(size=shape), 2.0)
+                            .astype(np.float32)).to(dev)
+    frames = fft_reg.apply_shifts_fourier(tmpl.expand((16,) + shape),
+                                          shifts, border_nan=False)
+    frames = frames + 0.01 * torch.randn(frames.shape, device=dev)
+    template = frames.mean(0)
+    add = torch.zeros((), device=dev)
+    if name.startswith("summary"):
+        p = int(np.prod(shape))
+        zeros = torch.zeros(p, device=dev)
+        carry = (zeros, zeros, zeros, torch.zeros((3, p), device=dev), zeros,
+                 torch.full((p,), -torch.inf, device=dev), zeros,
+                 torch.zeros((), dtype=torch.int64, device=dev))
+        valid = torch.full((), 16, device=dev)
+        flat = frames.reshape(16, p)
+
+        def eager():
+            return seeding.fold_block(carry, flat, valid, shifts, shape,
+                                      True)
+
+        def captured():
+            return graphs.summary_blocks(carry, [(flat, valid, shifts)],
+                                         shape, True)
+    else:
+        pipe, bench = _pool_configs(shape)
+        cfg = RegistrationConfig(**(
+            dict(max_shifts=pipe["max_shifts"], border_nan=False)
+            if name == "rigid" else dict(pipe, remap_mode="exact")
+            if "exact" in name else bench), pw_rigid=name != "rigid",
+            is3d=True)
+        step = mc_lib.rigid_block if name == "rigid" else mc_lib.pwrigid_block
+        fn = graphs.rigid_block if name == "rigid" else graphs.pwrigid_block
+
+        def eager():
+            corrected, out = step(frames, template, cfg, add)
+            return (corrected, out) + mc_lib.block_sums(corrected)
+
+        def captured():
+            return fn(frames, template, add, cfg, collect=True)
+    def pool_bytes(pool):
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", (0, 0))) == tuple(pool))
+
+    eager()  # cuFFT's plans made
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ref = eager()
+    torch.cuda.synchronize()
+    working = torch.cuda.max_memory_allocated() - base
+    own = torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(own):
+        out = eager()
+        torch.cuda.synchronize()
+    reserved = pool_bytes(own.id)
+    del out
+    got = [t for t in captured() if t is not None]
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, ref))
+    (entry,) = graph_cache.entries()
+    held = pool_bytes(entry.graph.pool())
+    assert 0 < held <= reserved, (held, reserved, working)
+    if size == "whole_brain":
+        assert held <= 1.5 * working, (held, working)
