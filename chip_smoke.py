@@ -20,8 +20,8 @@ Phases, each of which exits non-zero on failure (every ``fit``,
 ``fit_fused`` and ``refine``, the width fit and ``batched_round`` with
 the kernels and without a mesh run their steps as captured CUDA graphs,
 ``models/graphs.py``, as do the recovery harness's rounds and, without
-a mesh, registration's and seeding's frame blocks; phases 30-32 hold
-them against eager runs):
+a mesh, registration's and seeding's frame blocks and a streamed
+source's block steps; phases 30-34 hold them against eager runs):
 
 1. device: a CUDA device is required (there is no CPU path);
 2. card: name and power limit from nvidia-smi;
@@ -96,9 +96,11 @@ them against eager runs):
    and F kernels must have run, 90% of the planted neurons must have a
    seed within ``SEED_PX`` in frame 0, the matched traces must correlate
    with the truth (mean >= 0.9), refine must lower the reconstruction
-   error, all factors finite; stage seconds, one streamed pass's read
-   rate, C4 on the fitted state's first block (its op entry), and the
-   idle share of one more streamed fit round under ``torch.profiler``;
+   error, all factors finite; stage seconds (beside two earlier runs'
+   with the streamed steps eager, ``PIPE_STAGE_SECONDS``), its reserved
+   memory by holder, one streamed pass's read rate, C4 on the fitted
+   state's first block (its op entry), and the idle share of one more
+   streamed fit round under ``torch.profiler``;
 13. streamed == resident: ``register_and_demix`` at the ROI shape (T=64,
    points pinned) on a NumPy recording and on a ``StreamingVideo`` over
    it: positions equal, traces within rtol 2e-4 / atol 1e-6, beta within
@@ -262,9 +264,30 @@ them against eager runs):
    step launches; then ``StaticFootprintNMF.fit`` (``STATIC_GRAPH_ITERS``
    alternations on ``STATIC_FRAMES`` frames) at the ROI shape and at
    whole-brain, captured against eager, one graph launch per
-   alternation.
+   alternation;
+34. the streamed block steps as captured programs: a whole-brain
+   recording (512x512x20, K=200, T=64, phase 12's planted recording)
+   written to a raw file and read as ``RawFileVideo(path, shape,
+   block=16)``; ``fit`` (2 rounds of 1 epoch + 50 MU) from the planted
+   frame-0 positions, then ``refine()`` at its defaults, with
+   ``gram_mode="auto"`` and then ``"exact"``, each captured from an
+   empty cache and eager: the state (beta, C, the widths, Adam's
+   moments), ``pos_t`` and every metric bit-equal; per kernel wrapper
+   the captured run's launches, less its entries' warm-ups, equal to the
+   eager run's; the streamed entries replayed once per block (the motion
+   epochs, the Gram passes, one refinement).  With the captured run's
+   entries alive, each streamed entry's block load and replay (and its
+   outputs' copies) under ``set_sync_debug_mode("error")``, and one
+   replay profiled: one graph launch, no kernel launch from the host,
+   as many kernel nodes as the eager block step launches kernels, host
+   API calls eager / replayed.  Then one whole streamed motion epoch,
+   Gram pass and ``refine()`` from the fitted state, eager and captured:
+   wall, idle share, host API calls per block and one graph launch per
+   block.
 
-Phases 12 and 30-33 print the graphs' shared pool, the reserved memory
+Phase 12 prints its reserved memory by holder (the graphs' pools and
+each stream's segments, :func:`reserved_by_holder`).  Phases 12 and
+30-34 print the graphs' shared pool, the reserved memory
 and what ``graphs.clear()`` gives back beside the figures of the cache
 with a pool per entry (``POOL_PER_ENTRY_MB``), and the run ends with the
 reserved memory at the pipeline phase's peak beside that cache's.
@@ -354,6 +377,15 @@ PIPE_NOISE = 0.05  # noise std (a neuron's peak is 0.3 to ~3)
 # the share measured 0.88 on an H100 (PERF.md).
 SEED_PX = 2.5
 SEED_SHARE = 0.9  # share of planted neurons that must be seeded
+# Phase 12's stage seconds in runs of this script from a ``git archive``
+# of commits 80b831d and a245122 (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md section 6), printed beside this run's: before the streamed
+# block steps were captured.
+PIPE_STAGE_SECONDS = {
+    "80b831d": {"registration": 3.508, "seeding": 2.757, "fit": 79.371,
+                "refine": 1.344},
+    "a245122": {"registration": 3.387, "seeding": 2.939, "fit": 79.080,
+                "refine": 1.332}}
 TRACE_CORR_MEAN = 0.9  # mean correlation with the truth, matched neurons
 # The dataset path: a fixture of the port's simulator at the ROI shape,
 # temporally smooth GP motion of ~0.7 px per neuron (no global warp).
@@ -1234,13 +1266,18 @@ def pipeline_path(dev, size, k, card):
         kept = [(e.name, e.replays, round(e.capture_seconds, 4))
                 for e in graphs.entries()]
         pool = graph_pool_bytes()
+        buffers = (sum(e.buffer_bytes for e in graphs.entries())
+                   + graphs.shared_bytes())
+        say(f"pipeline: reserved {torch.cuda.memory_reserved() / 1e9:.3f} "
+            f"GB by holder, reserved / allocated GB: "
+            f"{reserved_by_holder(src)} ({card})")
         say(f"pipeline: graph entries (name, replays, capture s) {kept}; "
             f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
             f" GB allocated, {torch.cuda.max_memory_reserved() / 1e9:.3f} GB "
             f"reserved (a pool per entry: 37.237 GB alone, 62.009 GB in the "
             f"whole run); the entries' shared pool "
             f"{pool / 1e6:.3f} MB, their buffers "
-            f"{sum(e.buffer_bytes for e in graphs.entries()) / 1e6:.3f} MB; "
+            f"{buffers / 1e6:.3f} MB; "
             f"graphs.clear() gave back {graph_cache_bytes() / 1e6:.3f} MB "
             f"(a pool per entry: 14,303 MB alone, 36,082 MB in the whole run)"
             f" ({card})")
@@ -1249,7 +1286,11 @@ def pipeline_path(dev, size, k, card):
             + f"; total {total:.3f} ({PIPE_T} frames, "
             f"{total / PIPE_T * 1e3:.4f} ms per frame); fit rounds "
             + ", ".join(f"{m['seconds']:.3f}" for m in res.fit.metrics
-                        if m["phase"] == "round") + " s")
+                        if m["phase"] == "round") + " s; "
+            + "; ".join(f"at {commit} " + ", ".join(
+                f"{stage} {sec:.3f}" for stage, sec in secs.items())
+                for commit, secs in PIPE_STAGE_SECONDS.items())
+            + f" ({card})")
         for kname in ("motion_block", "c1_block", "gram_block",
                       "refine_block", "c1_block_tracked", "phase_corr_block"):
             if launches[kname] <= 0:
@@ -2619,6 +2660,39 @@ POOL_PER_ENTRY_MB = {
 }
 
 
+def reserved_by_holder(source=None) -> str:
+    """The reserved memory by where the caching allocator keeps it, as
+    reserved / allocated GB: the graphs' pools, and the segments of each
+    stream (a block freed on a stream is reused by that stream only): the
+    compute stream, the graphs' side stream, ``source``'s copy stream and
+    the others, with their count.  What is held at the call: every
+    capture (``torch.cuda.graph``) empties the allocator's cache, so a
+    phase's peak may lie above it (``max_memory_reserved``)."""
+    from dnmf_tpu_torch.models import graphs
+
+    names = {torch.cuda.current_stream().cuda_stream: "compute stream"}
+    for s in graphs._streams.values():
+        names[s.cuda_stream] = "graphs' side stream"
+    side = getattr(source, "_side", None)
+    if side is not None:
+        names[side.cuda_stream] = "the source's copy stream"
+    parts, others = {}, set()
+    for seg in torch.cuda.memory_snapshot():
+        if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0):
+            name = "graph pools"
+        else:
+            name = names.get(seg["stream"], "other streams")
+            if name == "other streams":
+                others.add(seg["stream"])
+        held = parts.setdefault(name, [0, 0])
+        held[0] += seg["total_size"]
+        held[1] += seg["allocated_size"]
+    return ", ".join(
+        f"{name}{f' ({len(others)})' if name == 'other streams' else ''} "
+        f"{r / 1e9:.3f} / {a / 1e9:.3f}"
+        for name, (r, a) in sorted(parts.items(), key=lambda p: -p[1][0]))
+
+
 def graph_pool_bytes() -> int:
     """Bytes of the segments of the graphs' shared memory pool (by the
     allocator's ``segment_pool_id``; 0 without a captured entry)."""
@@ -2650,7 +2724,8 @@ def captured_run(run, captured, then=None):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     kept = [(e.name, e.replays, e.capture_seconds) for e in graphs.entries()]
-    buffers = sum(e.buffer_bytes for e in graphs.entries())
+    buffers = (sum(e.buffer_bytes for e in graphs.entries())
+               + graphs.shared_bytes())
     if then is not None:
         then()
     pool, reserved = graph_pool_bytes(), torch.cuda.memory_reserved()
@@ -2813,12 +2888,19 @@ def batched_graph_case(card, model, batched, videos):
                       lambda: one(batched), 1)
 
 
+def refine_defaults() -> dict:
+    """``DeformableNMF.refine``'s keyword defaults."""
+    import inspect
+
+    return {k: p.default for k, p in inspect.signature(
+        ttr.DeformableNMF.refine).parameters.items()
+        if p.default is not inspect.Parameter.empty}
+
+
 def graph_refine_case(dev, card, model, anchors, video, gram_mode):
     """Phase 31 (a): ``fit(fit_sigma=True)`` then ``refine()`` at its
     defaults, captured from an empty cache against eager, and the width
     fit and refine profiled as stages."""
-    import inspect
-
     from dnmf_tpu_torch.models import graphs
 
     opt = tcfg.OptimizerConfig(learning_rate=1e-3,
@@ -2850,9 +2932,7 @@ def graph_refine_case(dev, card, model, anchors, video, gram_mode):
              f"{model.size[0]}x{model.size[1]}x{model.size[2]}, K="
              f"{model.num_neurons}, T={model.num_frames}")
     kept = check_captured(label, card, eager, captured, same)
-    refine_kw = {k: p.default for k, p in inspect.signature(
-        ttr.DeformableNMF.refine).parameters.items()
-        if p.default is not inspect.Parameter.empty}
+    refine_kw = refine_defaults()
     replays = {n: r for n, r, _ in kept}
     tracked = ("c1_block_tracked" if eng._gram_mode == "analytic"
                else "gram_block_tracked")
@@ -3398,6 +3478,189 @@ def graphs_parity_path(dev, card):
                           f"T={STATIC_FRAMES}", w.size, w.num_neurons)
 
 
+# ------------------------------------------------------------------
+# Phase 34: the streamed block steps as captured programs
+# (models/graphs.py motion_epoch_streaming, compute_grams_streaming,
+# refined_rounds_streaming).
+# ------------------------------------------------------------------
+STREAM_FIT_ROUNDS = 2
+STREAM_FIT_EPOCHS = 1
+STREAM_ENTRIES = ("motion_epoch_streaming", "compute_grams_streaming",
+                  "refined_rounds_streaming")
+
+
+def _streamed_block_step(name, eng, bufs):
+    """The block step of the streamed entry ``name``, eagerly on ``bufs``
+    (copies of the entry's buffers, in its order), with the engine's
+    settings (``refine()``'s defaults for the alternation)."""
+    cfg, model = eng.opt_config, eng.model
+    if name == "motion_epoch_streaming":
+        pos, sigma, beta, c, frames, valid = bufs
+        return model_lib.stream_block_grads(
+            model_lib.DNMFState(beta, c, pos, sigma, None, None, None),
+            frames, valid, model, cfg.gamma_motion, PIPE_BLOCK, True)
+    if name == "compute_grams_streaming":
+        pos, sigma, beta, frames = bufs
+        return model_lib.grams_local(
+            model_lib.DNMFState(beta, None, pos, sigma, None, None, None),
+            frames, model, PIPE_BLOCK, True, eng._gram_mode,
+            eng._gram_window())
+    kw = refine_defaults()
+    pos, sigma, beta, c, pos_b, frames, valid = bufs
+    return refine_lib.refine_block_rounds(
+        model_lib.DNMFState(beta, c, pos, sigma, None, None, None), pos_b,
+        frames, valid, model, kw["rounds"], kw["epochs"], kw["mu_iters"],
+        kw["learning_rate"], kw["prior"], True, eng._gram_mode,
+        eng._gram_window(), cfg.trace_solver)
+
+
+def streamed_blocks(label, card, eng):
+    """Each streamed entry (alive after the captured run): one block's
+    load and replay, and the copies of its outputs, under
+    ``set_sync_debug_mode("error")``; then one replay profiled against
+    the eager block step (:func:`step_profile`)."""
+    from dnmf_tpu_torch.models import graphs
+
+    for entry in graphs.entries():
+        if entry.name not in STREAM_ENTRIES:
+            continue
+        bufs = [b.clone() for b in entry.inputs]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            entry.load(bufs)
+            if bufs[-1].dtype == torch.int64:  # the valid count
+                entry.inputs[-1].fill_(PIPE_BLOCK)
+            entry.replay()
+            outs = [o.clone() for o in entry.outputs]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not all(bool(torch.isfinite(o).all()) for o in outs):
+            fail(f"{label}: {entry.name}'s block step gave non-finite "
+                 "values")
+        step_profile(f"{label}: one {entry.name} block (its load and "
+                     "replay ran under set_sync_debug_mode('error'))", card,
+                     entry, 1, lambda *b, n=entry.name: _streamed_block_step(
+                         n, eng, b), [b.clone() for b in bufs])
+
+
+def streamed_calls(label, card, eng, src):
+    """One whole streamed call of each step from the fitted state, eager
+    and captured (:func:`launch_profile`: a warm call, then the profiled
+    one): wall, idle share, host API calls per block, graph launches per
+    call (one per block)."""
+    from dnmf_tpu_torch.models import graphs
+
+    cfg, model = eng.opt_config, eng.model
+    blocks = src.num_blocks()
+    kw = refine_defaults()
+    calls = {
+        "motion epoch": lambda: graphs.motion_epoch_streaming(
+            eng.state, src, model, eng.optimizer, cfg.gamma_motion, True),
+        "Grams": lambda: graphs.compute_grams_streaming(
+            eng.state, src, model, True, eng._gram_mode,
+            eng._gram_window()),
+        "refine()": lambda: graphs.refined_rounds_streaming(
+            eng.state, src, model, pos_t=eng.pos_t, use_kernels=True,
+            gram_mode=eng._gram_mode, gram_window=eng._gram_window(),
+            trace_solver=cfg.trace_solver, **kw)}
+    for name, run in calls.items():
+        def eager(run=run):
+            with graphs.disabled():
+                run()
+        _, _, api_e, wall_e, busy_e, _ = launch_profile(eager)
+        _, _, api_c, wall_c, busy_c, _ = launch_profile(run)
+        if api_c.get("cudaGraphLaunch", 0) != blocks:
+            fail(f"{label} {name}: {api_c.get('cudaGraphLaunch', 0)} graph "
+                 f"launches, want one per block ({blocks})")
+        say(f"{label}: one streamed {name} from the fitted state, eager / "
+            f"captured ({card}): wall {wall_e:.4f} / {wall_c:.4f} s, idle "
+            f"share {1 - busy_e / wall_e:.4f} / {1 - busy_c / wall_c:.4f}, "
+            f"host API calls per block {sum(api_e.values()) / blocks:.1f} / "
+            f"{sum(api_c.values()) / blocks:.1f}, graph launches "
+            f"{api_c.get('cudaGraphLaunch', 0)} for {blocks} blocks")
+
+
+def streamed_graph_case(dev, card, path, size, pos0, gram_mode):
+    """Phase 34 for one Gram mode: ``fit`` (``STREAM_FIT_ROUNDS`` rounds of
+    ``STREAM_FIT_EPOCHS`` epochs + 50 MU) then ``refine()`` at its
+    defaults on a ``RawFileVideo``, captured from an empty cache against
+    eager, with the blocks' checks (:func:`streamed_blocks`) while the
+    captured run's entries are alive."""
+    from dnmf_tpu_torch.data.streaming import RawFileVideo
+
+    src = RawFileVideo(path, (PIPE_T,) + size, block=PIPE_BLOCK, device=dev)
+    model = tcfg.ModelConfig(size=size, num_neurons=len(pos0),
+                             num_frames=PIPE_T, shape_std=3.0)
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3,
+                               outer_rounds=STREAM_FIT_ROUNDS,
+                               motion_epochs=STREAM_FIT_EPOCHS, mu_iters=50,
+                               seed=SEED)
+    rt = tcfg.RuntimeConfig(frame_block=PIPE_BLOCK, gram_mode=gram_mode)
+    label = (f"graphs streamed fit + refine() {gram_mode} from a raw file, "
+             f"{'x'.join(map(str, size))}, K={len(pos0)}, T={PIPE_T}, "
+             f"block {PIPE_BLOCK}")
+    stages, engines = {}, []
+
+    def run():
+        eng = ttr.DeformableNMF(model, opt, rt, positions=pos0, device=dev)
+        t0 = time.perf_counter()
+        eng.fit(src)  # synchronizes the device after each round
+        t1 = time.perf_counter()
+        res = eng.refine(src)  # synchronizes the device
+        stages.setdefault("fit", []).append(t1 - t0)
+        stages.setdefault("refine", []).append(time.perf_counter() - t1)
+        engines.append(eng)
+        return eng, res
+
+    eager = captured_run(run, False)
+    captured = captured_run(run, True,
+                            then=lambda: streamed_blocks(label, card,
+                                                         engines[-1]))
+    (eng_e, res_e), (eng, res) = eager[0], captured[0]
+    strip = [[{k: v for k, v in m.items() if k != "seconds"}
+              for m in r.metrics] for r in (res, res_e)]
+    same = (all(torch.equal(getattr(res.state, f), getattr(res_e.state, f))
+                for f in model_lib.STATE_FIELDS)
+            and torch.equal(eng.pos_t, eng_e.pos_t) and strip[0] == strip[1])
+    kept = check_captured(label, card, eager, captured, same)
+    blocks = src.num_blocks()
+    replays = {n: sum(r for m, r, _ in kept if m == n) for n in STREAM_ENTRIES}
+    want = {"motion_epoch_streaming": STREAM_FIT_ROUNDS * STREAM_FIT_EPOCHS
+            * blocks, "compute_grams_streaming": STREAM_FIT_ROUNDS * blocks,
+            "refined_rounds_streaming": blocks}
+    if replays != want or not all(eager[3][k] for k in ("motion_block",
+                                                         "refine_block")):
+        fail(f"{label}: entries {kept}, want replays {want}; launches "
+             f"{eager[3]}")
+    say(f"{label}: stage wall s, eager / captured: fit "
+        f"{stages['fit'][0]:.4f} / {stages['fit'][1]:.4f}, refine "
+        f"{stages['refine'][0]:.4f} / {stages['refine'][1]:.4f} ({card})")
+    return eng, src
+
+
+def graphs_streamed_path(dev, card):
+    """Phase 34 (module docstring)."""
+    import tempfile
+
+    wb, _ = tcfg.baseline_workload("whole_brain")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        path = f"{tmp}/recording.raw"
+        with open(path, "wb") as f:
+            _, pos0, _ = pipeline_recording(dev, wb.size, wb.num_neurons,
+                                            PIPE_T, SEED + 4, out=f)
+        pos0 = pos0.astype(np.float32)
+        for gram_mode in ("auto", "exact"):
+            eng, src = streamed_graph_case(dev, card, path, tuple(wb.size),
+                                           pos0, gram_mode)
+        streamed_calls(f"graphs streamed, {eng._gram_mode} Grams", card,
+                       eng, src)
+        from dnmf_tpu_torch.models import graphs
+        graphs.clear()
+        del eng, src
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path needs one",
@@ -3497,6 +3760,10 @@ def main() -> int:
     graphs_parity_path(dev, card)
     say(f"graphs of the parity epoch and StaticFootprintNMF.fit: "
         f"{time.perf_counter() - t0:.3f} s ({card})")
+    t0 = time.perf_counter()
+    graphs_streamed_path(dev, card)
+    say(f"graphs of the streamed block steps: {time.perf_counter() - t0:.3f} "
+        f"s ({card})")
     say(f"device memory: {peak_reserved / 1e9:.3f} GB reserved at the "
         f"pipeline phase's peak (a pool per entry: 62.009 GB), "
         f"{torch.cuda.memory_reserved() / 1e9:.3f} GB at the end ({card})")

@@ -13,8 +13,9 @@ On a CUDA device each host block is staged in one of two pinned buffers
 and copied with ``non_blocking=True`` on a side stream, one block ahead of
 the compute: block ``i + 1`` is read and copied while the card computes
 on block ``i``, and the compute stream waits on the copy's event before
-it touches the frames.  :class:`RawFileVideo` also reads the next block
-on native threads (:mod:`dnmf_tpu_torch.native`).
+it touches the frames; one side stream serves every pass of a source.
+:class:`RawFileVideo` also reads the next block on native threads
+(:mod:`dnmf_tpu_torch.native`).
 """
 
 from __future__ import annotations
@@ -77,12 +78,22 @@ class _BlockSource:
             return
         yield from self._cuda_blocks(ranges, voxels, whole)
 
+    def _side_stream(self) -> torch.cuda.Stream:
+        """The source's copy stream, one for all its passes: the caching
+        allocator keeps a freed block for the stream it was allocated on,
+        so a stream per pass (``torch.cuda.Stream()`` cycles through a pool
+        of 32) left each pass's frame blocks cached on a stream of their
+        own, reserved and unused."""
+        if getattr(self, "_side", None) is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
+
     def _cuda_blocks(self, ranges, voxels, whole):
         shape = (self.block, voxels.stop - voxels.start)
         pinned = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
                   for _ in range(min(2, len(ranges)))]
         copied = [None] * len(pinned)  # copy-done event per pinned buffer
-        side = torch.cuda.Stream(self.device)
+        side = self._side_stream()
 
         def issue(i):
             start, stop = ranges[i]

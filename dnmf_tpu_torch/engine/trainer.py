@@ -26,9 +26,11 @@ tracked Grams, the trace update) go through
 kernels on the card each is a captured CUDA graph; the Gram audit, the
 finiteness checks and the metric reads run eagerly between them.  Models
 that the kernels do not compute (``reference_demo_model(parity=True)``'s
-resampled footprints) run every step eagerly.  A streamed source's width
-fit goes through it too (its subsample is on the card), its streamed
-steps do not.  ``StaticFootprintNMF.fit``'s alternation is captured on the
+resampled footprints) run every step eagerly.  A streamed source goes
+through it too: its motion epoch and Grams replay one captured block
+step per frame block, its refinement one captured alternation per block,
+and its width fit's subsample is on the card; on a mesh its steps run
+eagerly.  ``StaticFootprintNMF.fit``'s alternation is captured on the
 card.  ``models.graphs.clear()`` drops the graphs.
 
 ``runtime.mesh_time`` / ``mesh_pixel`` (and ``mesh_batch`` beside
@@ -58,7 +60,6 @@ from dnmf_tpu_torch import parallel
 from dnmf_tpu_torch.config import ModelConfig, OptimizerConfig, RuntimeConfig
 from dnmf_tpu_torch.models import dnmf as model_lib
 from dnmf_tpu_torch.models import graphs
-from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import footprints as fp_ops
 from dnmf_tpu_torch.ops import gram_analytic as ga
@@ -357,7 +358,12 @@ class DeformableNMF:
         last = {}
         mesh = self._mesh
         for _ in range(epochs):
-            if self._is_streaming(video):
+            if self._is_streaming(video) and mesh is None:
+                # one device: the captured block step
+                self.state, m = graphs.motion_epoch_streaming(
+                    self.state, video, self.model, self.optimizer, gamma,
+                    self._use_kernels)
+            elif self._is_streaming(video):
                 self.state, m = parallel.sharded_motion_epoch_streaming(
                     self.state, video, self.model, self.optimizer, gamma,
                     mesh, use_kernels=self._use_kernels)
@@ -389,7 +395,11 @@ class DeformableNMF:
         kw = dict(use_kernels=self._use_kernels, gram_mode=self._gram_mode,
                   gram_window=self._gram_window())
         mesh = self._mesh  # None: the sharded steps on one device
-        if self._is_streaming(video):
+        if self._is_streaming(video) and mesh is None:
+            # one device: the captured block step
+            grams, c1 = graphs.compute_grams_streaming(
+                self.state, video, self.model, **kw)
+        elif self._is_streaming(video):
             grams, c1 = parallel.sharded_compute_grams_streaming(
                 self.state, video, self.model, mesh, **kw)
         elif mesh is None:  # one device: the captured step
@@ -625,7 +635,9 @@ class DeformableNMF:
         positions on ``self.pos_t`` (``[T, K, 3]``, model frame); a later
         call starts from them.  A streamed source runs the alternation
         block by block in one pass over the recording
-        (:func:`dnmf_tpu_torch.models.refine.refined_rounds_streaming`).
+        (:func:`dnmf_tpu_torch.models.refine.refined_rounds_streaming`,
+        each block's alternation one captured graph:
+        ``graphs.refined_rounds_streaming``).
         On a time mesh each rank refines its own frames
         (:func:`~dnmf_tpu_torch.parallel.sharded_refined_rounds`;
         ``pos_t`` holds the rank's ``[T_loc, K, 3]``); pixel meshes and
@@ -647,8 +659,8 @@ class DeformableNMF:
                   use_kernels=self._use_kernels, gram_mode=self._gram_mode,
                   gram_window=self._gram_window(),
                   trace_solver=self.opt_config.trace_solver)
-        if self._is_streaming(video):
-            self.state, self.pos_t, m = refine_lib.refined_rounds_streaming(
+        if self._is_streaming(video):  # one device: captured per block
+            self.state, self.pos_t, m = graphs.refined_rounds_streaming(
                 self.state, video, self.model, **kw)
         elif self._mesh is None:  # one device: the captured programs
             self.state, self.pos_t, m = graphs.refined_rounds(

@@ -729,31 +729,96 @@ def block_state(state: DNMFState, start: int, block: int) -> DNMFState:
     return state.replace(beta=beta, c=c)
 
 
-def _valid_mask(block: int, valid: int, device) -> torch.Tensor:
+def _valid_mask(block: int, valid, device) -> torch.Tensor:
+    """``[block]`` float mask of a block's first ``valid`` frames;
+    ``valid`` is an int or an int64 device scalar (a captured block
+    step's, loaded per block)."""
     return (torch.arange(block, device=device) < valid).to(torch.float32)
+
+
+def stream_block_grads(state: DNMFState, frames: torch.Tensor, valid,
+                       model: ModelConfig, gamma: float, block: int,
+                       use_kernels: bool = False):
+    """One streamed block's per-frame gradients, masked by ``valid``
+    (:func:`_valid_mask`), and the masked sums of its mse and reg: the
+    block step of :func:`motion_epoch_streaming` (``state``: the block's,
+    :func:`block_state`)."""
+    g, ms, rs = frame_grads_local(state, frames, model, gamma, block,
+                                  use_kernels)
+    mask = _valid_mask(block, valid, g.device)
+    return g * mask[:, None, None], torch.sum(ms * mask), torch.sum(rs * mask)
+
+
+def stream_block(state: DNMFState, source) -> int:
+    """The block of a streamed loop's source; ``ValueError`` unless the
+    source holds the state's frames (its blocks would leave frames of the
+    state out, or run past them)."""
+    t = state.beta.shape[0]
+    if source.num_frames != t:
+        raise ValueError(f"model has {t} frames but the streaming source "
+                         f"holds {source.num_frames}")
+    return int(source.block)
+
+
+def eager_blocks(step, source, fixed: tuple, per_block, with_valid=True,
+                 warmup=None):
+    """The plain block runner of the streamed loops: ``step(*fixed,
+    *per_block(start), frames)``, then (``with_valid``) the block's count
+    of valid frames, on each block of ``source.blocks()``, yielding
+    ``(start, outputs)``.  ``models.graphs`` hands the loops a runner
+    that replays the step as one captured graph instead (``warmup`` is
+    its warm-up's step), so each loop copies a block's outputs out before
+    it asks for the next."""
+    del warmup
+    for frames, start, valid in source.blocks():
+        yield start, step(*fixed, *per_block(start), frames,
+                          *((valid,) if with_valid else ()))
+
+
+def block_outputs(state: DNMFState, block: int, *shape) -> torch.Tensor:
+    """A streamed loop's output buffer over the blocks that cover the
+    recording, ``[T rounded up to the block, *shape]``: what the loop
+    hands out is its first ``T`` rows."""
+    rows = -(-state.beta.shape[0] // block) * block
+    return state.beta.new_empty((rows,) + tuple(shape))
 
 
 def motion_epoch_streaming(state: DNMFState, source, model: ModelConfig,
                            optimizer: Adam, gamma: float,
-                           use_kernels: bool = False
+                           use_kernels: bool = False,
+                           run_blocks=eager_blocks
                            ) -> Tuple[DNMFState, dict]:
     """One parallel-mode epoch over a host-streamed video: per-frame
-    gradients block by block, then one Adam step on all frames (the math
-    of :func:`motion_epoch_parallel`).  The per-block metrics stay on the
-    device: a host read per block would serialize the copies and the
-    compute."""
-    grads, mses, regs = [], [], []
-    block = source.block
-    for frames, start, valid in source.blocks():
+    gradients block by block (:func:`stream_block_grads`), then one Adam
+    step on all frames (the math of :func:`motion_epoch_parallel`).  The
+    per-block metrics stay on the device: a host read per block would
+    serialize the copies and the compute.
+
+    ``run_blocks`` runs the block step (:func:`eager_blocks`);
+    ``graphs.motion_epoch_streaming``, which the engine calls on one
+    device, passes one that replays it as a captured graph.  The eager
+    epoch is what that one is held against; ``bench``'s ``streamed_io``
+    section times it."""
+    block = stream_block(state, source)
+
+    def step(pos, sigma, beta, c, frames, valid):
+        return stream_block_grads(DNMFState(beta, c, pos, sigma, None, None,
+                                            None), frames, valid, model,
+                                  gamma, block, use_kernels)
+
+    def per_block(start):
         st = block_state(state, start, block)
-        g, ms, rs = frame_grads_local(st, frames, model, gamma, block,
-                                      use_kernels)
-        mask = _valid_mask(block, valid, g.device)
-        grads.append(g * mask[:, None, None])
-        mses.append(torch.sum(ms * mask))
-        regs.append(torch.sum(rs * mask))
+        return st.beta, st.c
+
     t = state.beta.shape[0]
-    state = optimizer.step(state, torch.cat(grads)[:t])
+    grads = block_outputs(state, block, *state.beta.shape[1:])
+    mses, regs = [], []
+    fixed = (state.pos, state.sigma)
+    for start, (g, ms, rs) in run_blocks(step, source, fixed, per_block):
+        grads[start:start + block].copy_(g)
+        mses.append(ms.clone())
+        regs.append(rs.clone())
+    state = optimizer.step(state, grads[:t])
     return state, {"recon_mse": torch.stack(mses).sum() / t,
                    "reg": torch.stack(regs).sum() / t}
 
@@ -761,18 +826,29 @@ def motion_epoch_streaming(state: DNMFState, source, model: ModelConfig,
 def compute_grams_streaming(state: DNMFState, source, model: ModelConfig,
                             use_kernels: bool = False,
                             gram_mode: str = "exact",
-                            gram_window: Optional[int] = None):
+                            gram_window: Optional[int] = None,
+                            run_blocks=eager_blocks):
     """Per-frame MU statistics ``(grams [T, K, K], c1 [T, K])`` over a
-    host-streamed video."""
-    gs, c1s = [], []
-    block = source.block
-    for frames, start, _valid in source.blocks():
-        g, c1 = grams_local(block_state(state, start, block), frames, model,
-                            block, use_kernels, gram_mode, gram_window)
-        gs.append(g)
-        c1s.append(c1)
-    t = state.beta.shape[0]
-    return torch.cat(gs)[:t], torch.cat(c1s)[:t]
+    host-streamed video, one :func:`grams_local` per block, run by
+    ``run_blocks`` as in :func:`motion_epoch_streaming`
+    (``graphs.compute_grams_streaming`` replays it)."""
+    block = stream_block(state, source)
+
+    def step(pos, sigma, beta, frames):
+        return grams_local(DNMFState(beta, None, pos, sigma, None, None,
+                                     None), frames, model, block,
+                           use_kernels, gram_mode, gram_window)
+
+    t, k = state.beta.shape[0], state.pos.shape[0]
+    grams, c1s = block_outputs(state, block, k, k), block_outputs(
+        state, block, k)
+    for start, (g, c1) in run_blocks(
+            step, source, (state.pos, state.sigma),
+            lambda start: (block_state(state, start, block).beta,),
+            with_valid=False):
+        grams[start:start + block].copy_(g)
+        c1s[start:start + block].copy_(c1)
+    return grams[:t], c1s[:t]
 
 
 def fused_round(state: DNMFState, video: torch.Tensor, model: ModelConfig,

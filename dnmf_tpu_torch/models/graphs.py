@@ -30,6 +30,17 @@ seeding pass's blocks, its carry kept in the entry's buffers between
 blocks.  :func:`motion_epoch_parity` captures one serial Adam step and
 replays it once per batch, the step index on the card;
 :func:`static_nmf_fit` one alternation, replayed once per iteration.
+A host-streamed source's block steps (JAX's ``_stream_block_grads``,
+``_stream_block_grams`` and ``_refined_rounds_block``) are
+:func:`motion_epoch_streaming`, :func:`compute_grams_streaming` and
+:func:`refined_rounds_streaming`, which run the plain streamed loops with
+a block runner that replays the step (:func:`_stream`; one loop per step,
+so the two routes' layouts are one): one entry per step and block shape,
+replayed once per block of ``source.blocks()``, the zero-padded tail
+included (its count of valid frames an int64 device scalar filled per
+block); the motion epoch's one Adam step follows the pass eagerly, as in
+the JAX package, and the refinement's entry holds a block's whole
+alternation.
 
 Where it applies.  Each function here decides for itself: with
 ``use_kernels`` (registration and seeding: always) and outside
@@ -71,7 +82,11 @@ replays.  The video (the recordings' videos) is read in place at the
 address in the key, never copied; a registration or seeding block's
 frames are copied into the entry's frame buffer (from the host where
 they arrive from there), with the template, ``add_to_movie``, the
-block's valid count and its shifts.  What a call returns
+block's valid count and its shifts; a streamed block's frames (a device
+tensor from the source's side stream) device to device into the one
+frame buffer that the streamed entries share (each loads it just before
+its own replay), with its slices of beta, C and the positions, padded at
+the tail.  What a call returns
 is a clone of the graph's output, or the caller's own input where the
 step passes it through: no tensor handed out is one that a later replay
 overwrites.
@@ -91,7 +106,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import time
+import weakref
 from typing import Optional
 
 import torch
@@ -109,8 +126,12 @@ from dnmf_tpu_torch.ops import mu as mu_ops
 # Grams, the width fit one, ``refine`` three (positions, tracked Grams, a
 # trace update of its own iterations) and ``fit_fused`` one.  A parity
 # fit's epoch takes the motion epoch's place; ``StaticFootprintNMF.fit``
-# holds one entry of its own.  Three more keep a second run's entries
-# (another video) alive beside them.  An entry costs its buffers and
+# holds one entry of its own.  A streamed source's run holds fewer: its
+# streamed motion epoch and Grams (and the audit's exact Grams) take the
+# resident ones' places, one entry takes refine's three, and a streamed
+# source has no ``fit_fused``, so registration, seeding and the engine's
+# seven make twelve.  Three more keep a second run's entries (another
+# video) alive beside the fifteen.  An entry costs its buffers and
 # outputs: the temporaries are the one shared pool's.
 MAX_ENTRIES = 18
 
@@ -131,6 +152,10 @@ LAST_KERNEL = {"motion_block": "motion_finish", "c1_block": "c1_finish",
 _entries: "collections.OrderedDict[tuple, Entry]" = collections.OrderedDict()
 _streams = {}  # device -> the side stream of warm-ups and captures
 _pools = {}  # device -> the memory pool that its entries' graphs share
+# a streamed block's layout -> the frame buffer that the streamed entries
+# share (:func:`_frame_buffer`)
+_frame_buffers: "weakref.WeakValueDictionary[tuple, torch.Tensor]" = (
+    weakref.WeakValueDictionary())
 _disabled = 0  # depth of disabled() contexts
 
 
@@ -259,21 +284,27 @@ class Entry:
     the step function (on the CPU) and its outputs.
 
     ``replays`` counts the calls, ``capture_seconds`` is the warm-up and
-    the capture, ``buffer_bytes`` the static buffers'; on the card
+    the capture, ``buffer_bytes`` its own static buffers' (not a shared
+    one's: :func:`shared_bytes`); on the card
     ``nodes`` are the graph's kernel nodes by kernel name,
     ``launches`` each wrapper's launches in one replay (held to them)
     and ``warmup_launches`` the wrappers' launches in the warm-up.
     ``warmup`` (default: ``step``) is the warm-up's function.
     """
 
-    def __init__(self, name: str, step, args, warmup=None, device=None):
+    def __init__(self, name: str, step, args, warmup=None, device=None,
+                 shared=()):
         self.name = name
         # ``device``: the buffers' (default the first input's), where an
-        # input arrives from elsewhere (host frames).
-        self.inputs = tuple(a.clone() if device is None
-                            else a.to(device, copy=True) for a in args)
+        # input arrives from elsewhere (host frames).  ``shared``: the
+        # places of inputs that are buffers already, which other entries
+        # hold too (the streamed frame buffer): kept, not copied.
+        self.inputs = tuple(
+            a if i in shared else a.clone() if device is None
+            else a.to(device, copy=True) for i, a in enumerate(args))
         self.replays = 0
-        self.buffer_bytes = _nbytes(self.inputs)
+        self.buffer_bytes = _nbytes(
+            [a for i, a in enumerate(self.inputs) if i not in shared])
         self.nodes, self.launches, self.warmup_launches = {}, {}, {}
         self.device = device = self.inputs[0].device
         t0 = time.perf_counter()
@@ -706,6 +737,151 @@ def batched_round(states, videos, model, optimizer, gamma: float,
     out = _run("batched_round", (model, optimizer) + tuple(sorted(
         kw.items())), step, _leaves(states), videos)
     return _state(out[:7]), {"recon_mse": out[7], "reg": out[8]}
+
+
+# ----------------------------------------------------------------------
+# Host-streamed block steps
+# ----------------------------------------------------------------------
+def _layout(*tensors) -> tuple:
+    """Shapes, dtypes and devices, without strides: a streamed step's
+    inputs are all copied, so the buffers' layout is their own (a full
+    block's C is a strided slice, the padded tail's a new tensor)."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
+
+
+def _frame_buffer(frames: torch.Tensor) -> torch.Tensor:
+    """The streamed entries' one frame buffer of ``frames``' layout: each
+    streamed step copies its block's frames into it just before its own
+    replay, so one buffer serves them all.  It lives while an entry holds
+    it."""
+    key = _layout(frames)
+    buf = _frame_buffers.get(key)
+    if buf is None:
+        buf = torch.empty_like(frames, memory_format=torch.contiguous_format)
+        _frame_buffers[key] = buf
+    return buf
+
+
+def shared_bytes() -> int:
+    """Bytes of the frame buffers that the streamed entries share (no
+    entry's ``buffer_bytes`` counts them)."""
+    return _nbytes(list(_frame_buffers.values()))
+
+
+def _stream(name: str, statics: tuple, step, source, fixed: tuple,
+            per_block, with_valid: bool = True, warmup=None):
+    """The captured block runner of the streamed loops (the protocol of
+    :func:`~dnmf_tpu_torch.models.dnmf.eager_blocks`): replay one entry
+    per block of ``source.blocks()`` and yield ``(start, outputs)`` after
+    each replay.  The step takes ``fixed + per_block(start) + (frames,)``,
+    then (``with_valid``) the block's valid count as an int64 device
+    scalar: ``fixed`` (the anchors, the widths) is copied in once per
+    call, the block's state slices (``per_block``) and frames (a device
+    tensor from the source's side stream, copied device to device into
+    the shared :func:`_frame_buffer`) at every block, and the valid count
+    is a fill.  One key serves every block, the zero-padded tail too."""
+    entry = None
+    for frames, start, valid in source.blocks():
+        varying = tuple(per_block(start)) + (frames,)
+        if entry is None:
+            entry = _stream_entry(name, statics, step, fixed, varying,
+                                  valid if with_valid else None, warmup)
+        else:
+            # The fixed inputs' buffers stand for themselves: not copied.
+            entry.load(entry.inputs[:len(fixed)] + varying)
+            if with_valid:
+                entry.inputs[-1].fill_(valid)
+        entry.replay()
+        yield start, entry.outputs
+
+
+def _stream_entry(name, statics, step, fixed, varying, valid, warmup):
+    """The entry of a streamed step, loaded with its first block; nothing
+    here outlives the call, so the pass holds no reference to that
+    block's frames."""
+    frames = varying[-1]
+    args = fixed + varying + (() if valid is None else (torch.full(
+        (), valid, dtype=torch.int64, device=frames.device),))
+    key = (name,) + statics + _layout(*args)
+    at = len(fixed) + len(varying) - 1  # the frames' place
+
+    def make():
+        buf = _frame_buffer(frames)
+        buf.copy_(frames)
+        return Entry(name, step, args[:at] + (buf,) + args[at + 1:], warmup,
+                     shared=(at,))
+
+    entry = _entry(key, make)
+    entry.load(args)
+    return entry
+
+
+def _runner(name: str, statics: tuple, use_kernels: bool):
+    """The block runner that a streamed loop is given: :func:`_stream`
+    under ``name`` and ``statics`` (what the key holds beyond the inputs'
+    shapes), or the plain :func:`~dnmf_tpu_torch.models.dnmf.eager_blocks`
+    without ``use_kernels`` or inside :func:`disabled`."""
+    if not _cached(use_kernels):
+        return model_lib.eager_blocks
+    return functools.partial(_stream, name, statics)
+
+
+def motion_epoch_streaming(state, source, model, optimizer, gamma: float,
+                           use_kernels: bool = False):
+    """:func:`~dnmf_tpu_torch.models.dnmf.motion_epoch_streaming` with its
+    block step (:func:`~dnmf_tpu_torch.models.dnmf.stream_block_grads`,
+    JAX's ``_stream_block_grads``) as one captured graph, replayed once
+    per block; the loop copies the grads and sums out after each replay,
+    and one Adam step follows the pass, eagerly, as in the JAX package.
+    The key holds ``model``, ``gamma``, the block and the inputs'
+    shapes."""
+    return model_lib.motion_epoch_streaming(
+        state, source, model, optimizer, gamma, use_kernels,
+        run_blocks=_runner("motion_epoch_streaming",
+                           (model, gamma, source.block, use_kernels),
+                           use_kernels))
+
+
+def compute_grams_streaming(state, source, model, use_kernels: bool = False,
+                            gram_mode: str = "exact",
+                            gram_window: Optional[int] = None):
+    """:func:`~dnmf_tpu_torch.models.dnmf.compute_grams_streaming` with its
+    block step (:func:`~dnmf_tpu_torch.models.dnmf.grams_local` on the
+    block, JAX's ``_stream_block_grams``) as one captured graph, replayed
+    once per block into ``(G [T, K, K], c1 [T, K])``.  The key also holds
+    ``gram_mode`` and ``gram_window``: the audit's fallback to exact Grams
+    is a second entry."""
+    return model_lib.compute_grams_streaming(
+        state, source, model, use_kernels, gram_mode, gram_window,
+        run_blocks=_runner("compute_grams_streaming",
+                           (model, source.block, use_kernels, gram_mode,
+                            gram_window), use_kernels))
+
+
+def refined_rounds_streaming(state, source, model, rounds: int = 2,
+                             epochs: int = 20, mu_iters: int = 30,
+                             learning_rate: float = 0.05,
+                             prior: float = 1e-3, pos_t=None,
+                             use_kernels: bool = False,
+                             gram_mode: str = "exact",
+                             gram_window: Optional[int] = None,
+                             trace_solver: str = "mu"):
+    """:func:`~dnmf_tpu_torch.models.refine.refined_rounds_streaming` with
+    a block's whole alternation (:func:`~dnmf_tpu_torch.models.refine.
+    refine_block_rounds`: ``rounds x (epochs Adam steps on the positions
+    + tracked Grams + MU or FISTA)``, JAX's ``_refined_rounds_block``, one
+    ``lax.scan``) as one captured graph, replayed once per block and
+    warmed up on one round of one epoch.  The block's positions and C are
+    its buffers, loaded per block."""
+    kw = dict(rounds=rounds, epochs=epochs, mu_iters=mu_iters,
+              learning_rate=learning_rate, prior=prior,
+              use_kernels=use_kernels, gram_mode=gram_mode,
+              gram_window=gram_window, trace_solver=trace_solver)
+    return refine_lib.refined_rounds_streaming(
+        state, source, model, pos_t=pos_t, run_blocks=_runner(
+            "refined_rounds_streaming",
+            (model, source.block) + tuple(sorted(kw.items())), use_kernels),
+        **kw)
 
 
 # ----------------------------------------------------------------------

@@ -20,7 +20,9 @@ unfaded ones (``mask_out_of_bounds=False``) take the plain versions only.
 On the card :mod:`dnmf_tpu_torch.models.graphs` captures
 :func:`refine_positions` (every epoch) and :func:`tracked_grams` as CUDA
 graphs, and ``graphs.refined_rounds`` replays them with the trace
-update round by round (the JAX package's ``jit``).
+update round by round (the JAX package's ``jit``);
+``graphs.refined_rounds_streaming`` captures a streamed block's whole
+alternation (:func:`refine_block_rounds`) and replays it once per block.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from typing import Optional, Tuple
 import torch
 
 from dnmf_tpu_torch.config import ModelConfig
-from dnmf_tpu_torch.models.dnmf import (Adam, DNMFState, block_state,
-                                        check_kernels, grams_local,
-                                        _blocks, _valid_mask)
+from dnmf_tpu_torch.models.dnmf import (Adam, DNMFState, block_outputs,
+                                        block_state, check_kernels,
+                                        eager_blocks, grams_local,
+                                        stream_block, _blocks, _valid_mask)
 from dnmf_tpu_torch.ops import fused
 from dnmf_tpu_torch.ops import mu as mu_ops
 
@@ -130,6 +133,33 @@ def refined_rounds(state: DNMFState, video: torch.Tensor, model: ModelConfig,
     return state, pos_t, metrics
 
 
+def refine_block_rounds(state: DNMFState, pos_b: torch.Tensor,
+                        frames: torch.Tensor, valid, model: ModelConfig,
+                        rounds: int, epochs: int, mu_iters: int,
+                        learning_rate: float, prior: float,
+                        use_kernels: bool = False, gram_mode: str = "exact",
+                        gram_window: Optional[int] = None,
+                        trace_solver: str = "mu"):
+    """One streamed block's whole ``rounds x (epochs + trace update)``
+    alternation (``state``: the block's, :func:`~dnmf_tpu_torch.models.
+    dnmf.block_state`; ``pos_b [block, K, 3]``): ``(pos_b, c [K, block],
+    the last round's data term summed over the first ``valid`` frames)``.
+    ``valid`` is an int or an int64 device scalar."""
+    solve = (mu_ops.nnls_temporal if trace_solver == "fista"
+             else mu_ops.run_mu_temporal)
+    block = frames.shape[0]
+    for _ in range(rounds):
+        pos_b, m = refine_positions(
+            state, pos_b, frames, model, epochs=epochs,
+            learning_rate=learning_rate, prior=prior, frame_block=block,
+            use_kernels=use_kernels)
+        g, c1 = tracked_grams(state, pos_b, frames, model, block,
+                              use_kernels, gram_mode, gram_window)
+        state = state.replace(c=solve(state.c, g, c1, iters=mu_iters))
+    mask = _valid_mask(block, valid, frames.device)
+    return pos_b, state.c, torch.sum(m["recon_mse"] * mask)
+
+
 def refined_rounds_streaming(state: DNMFState, source, model: ModelConfig,
                              rounds: int = 2, epochs: int = 20,
                              mu_iters: int = 30, learning_rate: float = 0.05,
@@ -138,44 +168,52 @@ def refined_rounds_streaming(state: DNMFState, source, model: ModelConfig,
                              use_kernels: bool = False,
                              gram_mode: str = "exact",
                              gram_window: Optional[int] = None,
-                             trace_solver: str = "mu"
+                             trace_solver: str = "mu",
+                             run_blocks=eager_blocks
                              ) -> Tuple[DNMFState, torch.Tensor, dict]:
     """:func:`refined_rounds` over a host-streamed video, in one pass.
 
     Positions, tracked Grams and the trace update all factor over frames,
     so each block of ``source.blocks()`` runs the whole ``rounds x
-    (epochs + trace update)`` alternation on its own frames: the
-    recording is read once.  The zero-padded tail block is padded with
-    identity warps, zero traces and the anchors, and masked out.
-    Returns ``(state with updated C, pos_t [T, K, 3], {"recon_mse"})``,
-    the last round's mean data term.
+    (epochs + trace update)`` alternation on its own frames
+    (:func:`refine_block_rounds`): the recording is read once.  The
+    zero-padded tail block is padded with identity warps, zero traces and
+    the anchors, and masked out.  Returns ``(state with updated C, pos_t
+    [T, K, 3], {"recon_mse"})``, the last round's mean data term.
+    ``run_blocks`` runs the block step (:func:`~dnmf_tpu_torch.models.
+    dnmf.eager_blocks`); ``graphs.refined_rounds_streaming`` passes one
+    that replays each block's alternation as one captured graph, warmed
+    up on one round of one epoch.
     """
     if trace_solver not in ("mu", "fista"):
         raise ValueError(f"unknown trace solver: {trace_solver!r}")
-    solve = (mu_ops.nnls_temporal if trace_solver == "fista"
-             else mu_ops.run_mu_temporal)
+    block = stream_block(state, source)
     t, k = state.beta.shape[0], state.pos.shape[0]
-    block = source.block
     if pos_t is None:
         pos_t = state.pos.expand(t, k, 3)
     pos_pad = torch.cat([pos_t, state.pos.expand(block, k, 3)])
-    pos_out, c_out, sse = [], [], []
-    for frames, start, valid in source.blocks():
-        st = block_state(state, start, block)
-        pos_b = pos_pad[start:start + block]
-        for _ in range(rounds):
-            pos_b, m = refine_positions(
-                st, pos_b, frames, model, epochs=epochs,
-                learning_rate=learning_rate, prior=prior, frame_block=block,
-                use_kernels=use_kernels)
-            g, c1 = tracked_grams(st, pos_b, frames, model, block,
-                                  use_kernels, gram_mode, gram_window)
-            st = st.replace(c=solve(st.c, g, c1, iters=mu_iters))
-        mask = _valid_mask(block, valid, frames.device)
-        sse.append(torch.sum(m["recon_mse"] * mask))
-        pos_out.append(pos_b)
-        c_out.append(st.c)
-    c_new = torch.cat(c_out, dim=1)[:, :t]
-    return (state.replace(c=c_new), torch.cat(pos_out)[:t],
-            {"recon_mse": torch.stack(sse).sum() / t})
 
+    def alternation(n_rounds, n_epochs):
+        def step(pos, sigma, beta, c, pos_b, frames, valid):
+            return refine_block_rounds(
+                DNMFState(beta, c, pos, sigma, None, None, None), pos_b,
+                frames, valid, model, n_rounds, n_epochs, mu_iters,
+                learning_rate, prior, use_kernels, gram_mode, gram_window,
+                trace_solver)
+        return step
+
+    def per_block(start):
+        st = block_state(state, start, block)
+        return st.beta, st.c, pos_pad[start:start + block]
+
+    pos_out = block_outputs(state, block, k, 3)
+    c_out = state.c.new_empty((k, pos_out.shape[0]))
+    sse = []
+    for start, (pos_b, c_b, s) in run_blocks(
+            alternation(rounds, epochs), source, (state.pos, state.sigma),
+            per_block, warmup=alternation(1, 1)):
+        pos_out[start:start + block].copy_(pos_b)
+        c_out[:, start:start + block].copy_(c_b)
+        sse.append(s.clone())
+    return (state.replace(c=c_out[:, :t]), pos_out[:t],
+            {"recon_mse": torch.stack(sse).sum() / t})

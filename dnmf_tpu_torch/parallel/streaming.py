@@ -9,6 +9,11 @@ the JAX package's block rows hand that shard; on a ``pixel`` axis a rank
 reads only its own run of voxels.  Per-rank gradient and Gram
 buffers collect the blocks, and one Adam step follows the pass: the math
 of the device-resident sharded epoch.
+
+These run on a mesh, op by op (the sharded steps are not captured).
+Without a mesh the engine runs a streamed source's steps through
+``models.graphs.motion_epoch_streaming`` and ``compute_grams_streaming``
+instead, each block step one captured graph on the card.
 """
 
 from __future__ import annotations

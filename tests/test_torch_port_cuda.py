@@ -18,7 +18,9 @@ in a replayed round, and autograd's backward inside a capture; the
 same for the programs of refinement (``refine_positions``,
 ``tracked_grams``, ``refined_rounds``), the width fit and the
 recordings round, whose replays count the tracked kernels' launches as
-their own.  The data layer on the card: the simulator against its CPU run on
+their own, and for the streamed block steps (one entry per step serving
+every block of a ``StreamingVideo`` or ``RawFileVideo``, the padded tail
+included).  The data layer on the card: the simulator against its CPU run on
 one CPU generator's draws, a ``SimulatedVideoDataset`` on the card
 feeding ``fit``, and the recovery harness with and without the kernels.
 Marked ``cuda``; every test skips where no CUDA device exists.
@@ -1952,3 +1954,216 @@ def test_registration_entry_pool_near_its_eager_working_set(graph_cache,
     assert 0 < held <= reserved, (held, reserved, working)
     if size == "whole_brain":
         assert held <= 1.5 * working, (held, working)
+
+
+# The streamed block steps as captured graphs (graphs.motion_epoch_streaming,
+# compute_grams_streaming, refined_rounds_streaming): one entry per step
+# serving every block of a StreamingVideo or a RawFileVideo, the padded
+# tail included, equal to the eager streamed functions bit for bit.
+STREAM_BLOCK = 5  # of GRAPH_T = 12 frames: the last block holds 2
+STREAM_STEPS = ["motion", "grams_exact", "grams_analytic", "refine_mu",
+                "refine_fista"]
+
+
+def _streamed_source(dev, video, kind, tmp_path):
+    host = video.cpu().numpy()
+    if kind == "stream":
+        return StreamingVideo(host, block=STREAM_BLOCK, device=dev)
+    path = tmp_path / "rec.raw"
+    host.tofile(path)
+    return RawFileVideo(str(path), host.shape, block=STREAM_BLOCK,
+                        device=dev)
+
+
+def _streamed_call(dev, step, kind, tmp_path):
+    """``(fn(), model, state)``: one streamed call of ``step`` on a source
+    over ``_graph_inputs``' recording."""
+    from dnmf_tpu_torch.models import dnmf as tM
+    from dnmf_tpu_torch.models import graphs
+
+    model, state, video = _graph_inputs(dev)
+    src = _streamed_source(dev, video, kind, tmp_path)
+    if step == "motion":
+        return (lambda: graphs.motion_epoch_streaming(
+            state, src, model, tM.Adam(1e-3), 0.5, True)), model, state
+    if step.startswith("grams"):
+        return (lambda: graphs.compute_grams_streaming(
+            state, src, model, True, step.split("_")[1])), model, state
+    return (lambda: graphs.refined_rounds_streaming(
+        state, src, model, rounds=2, epochs=3, mu_iters=10,
+        use_kernels=True, gram_mode="analytic",
+        trace_solver=step.split("_")[1])), model, state
+
+
+def _streamed_step(step, model, bufs):
+    """The block step that ``step``'s entry captures, eagerly on ``bufs``
+    (copies of the entry's buffers, in its order)."""
+    from dnmf_tpu_torch.models import dnmf as tM
+    from dnmf_tpu_torch.models import refine as tR
+
+    if step == "motion":
+        pos, sigma, beta, c, frames, valid = bufs
+        return tM.stream_block_grads(tM.DNMFState(beta, c, pos, sigma, None,
+                                                  None, None),
+                                     frames, valid, model, 0.5,
+                                     STREAM_BLOCK, True)
+    if step.startswith("grams"):
+        pos, sigma, beta, frames = bufs
+        return tM.grams_local(tM.DNMFState(beta, None, pos, sigma, None,
+                                           None, None),
+                              frames, model, STREAM_BLOCK, True,
+                              step.split("_")[1])
+    pos, sigma, beta, c, pos_b, frames, valid = bufs
+    return tR.refine_block_rounds(
+        tM.DNMFState(beta, c, pos, sigma, None, None, None), pos_b, frames,
+        valid, model, 2, 3, 10, 0.05, 1e-3, True, "analytic",
+        trace_solver=step.split("_")[1])
+
+
+@pytest.mark.parametrize("kind", ["stream", "raw"])
+@pytest.mark.parametrize("step", STREAM_STEPS)
+def test_captured_streamed_step_equals_eager(graph_cache, dev, tmp_path,
+                                             step, kind):
+    run, _, _ = _streamed_call(dev, step, kind, tmp_path)
+    with graph_cache.disabled():
+        ref = _flat(run())
+    assert graph_cache.entries() == []
+    for call in range(2):  # the capturing call, then replays only
+        got = _flat(run())
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        (entry,) = graph_cache.entries()
+        assert entry.replays == 3 * (call + 1)  # one per block
+    assert sum(entry.nodes.values()) > 0
+
+
+@pytest.mark.parametrize("step", STREAM_STEPS)
+def test_streamed_block_replay_is_one_graph_launch(graph_cache, dev,
+                                                   tmp_path, step):
+    """A block's replay is one graph launch and no kernel launch; the
+    graph has as many kernel nodes as the eager block step launches
+    kernels; a streamed call launches one graph per block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run, model, _ = _streamed_call(dev, step, "stream", tmp_path)
+    run()
+    (entry,) = graph_cache.entries()
+    bufs = [b.clone() for b in entry.inputs]
+    calls = _replay_calls(entry, 1)
+    assert calls.get("cudaGraphLaunch", 0) == 1, calls
+    assert not any(calls.get(k) for k in LAUNCHES), calls
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _streamed_step(step, model, bufs)
+        torch.cuda.synchronize()
+    launched = sum(e.name in LAUNCHES for e in prof.events())
+    assert launched == sum(entry.nodes.values()) > 0
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run()
+        torch.cuda.synchronize()
+    assert sum(e.name == "cudaGraphLaunch" for e in prof.events()) == 3
+
+
+@pytest.mark.parametrize("step", STREAM_STEPS)
+def test_streamed_replay_launches_equal_eager(graph_cache, dev, tmp_path,
+                                              step):
+    run, _, _ = _streamed_call(dev, step, "raw", tmp_path)
+    fused.reset_launch_counts()
+    with graph_cache.disabled():
+        run()
+    eager = fused.launch_counts()
+    run()  # warm-up and capture
+    fused.reset_launch_counts()
+    run()  # replays only
+    assert fused.launch_counts() == eager
+    # Per block: one pass; refinement 2 rounds x (3 epochs + a c1 pass).
+    wanted = {"motion": {"motion_block": 3}, "grams_exact": {"gram_block": 3},
+              "grams_analytic": {"c1_block": 3},
+              "refine_mu": {"refine_block": 18, "c1_block_tracked": 6},
+              "refine_fista": {"refine_block": 18,
+                               "c1_block_tracked": 6}}[step]
+    assert {k: eager[k] for k in wanted} == wanted, eager
+
+
+def test_replayed_streamed_block_makes_no_sync(graph_cache, dev, tmp_path):
+    """One block step of each kind, its load (the block's state, frames
+    and valid count) and replay and its outputs' copies, under
+    ``set_sync_debug_mode("error")``."""
+    entries = []
+    for step in ("motion", "grams_exact", "refine_mu"):
+        run, _, _ = _streamed_call(dev, step, "stream", tmp_path)
+        run()
+        entries.append(graph_cache.entries()[-1])
+    loads = [[b.clone() for b in e.inputs] for e in entries]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = []
+        for entry, bufs in zip(entries, loads):
+            entry.load(bufs)
+            if bufs[-1].dtype == torch.int64:
+                entry.inputs[-1].fill_(2)  # the tail's valid count
+            entry.replay()
+            outs += [o.clone() for o in entry.outputs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
+def test_streamed_and_resident_entries_share_the_pool(graph_cache, dev,
+                                                      tmp_path):
+    """A streamed entry and a resident one in the one pool, called X, Y, X
+    and Y, X, Y: each call's outputs equal the eager call's."""
+    x, model, state = _streamed_call(dev, "refine_mu", "stream", tmp_path)
+    _, _, video = _graph_inputs(dev)
+    y = _graph_steps(model, state, video)["motion"]
+    with graph_cache.disabled():
+        ref = {"x": _flat(x()), "y": _flat(y())}
+    x()
+    y()
+    pools = {tuple(e.graph.pool()) for e in graph_cache.entries()}
+    assert len(graph_cache.entries()) == 2 and len(pools) == 1
+    for order in ("xyx", "yxy"):
+        for name in order:
+            got = _flat({"x": x, "y": y}[name]())
+            assert all(torch.equal(a, b) for a, b in zip(got, ref[name]))
+
+
+def test_streamed_entries_share_one_frame_buffer_on_the_card(
+        graph_cache, dev, tmp_path):
+    """The motion and refinement entries hold one frame buffer; called in
+    alternation, each call equals its eager call."""
+    x, _, _ = _streamed_call(dev, "motion", "raw", tmp_path)
+    y, _, _ = _streamed_call(dev, "refine_mu", "raw", tmp_path)
+    with graph_cache.disabled():
+        ref = {"x": _flat(x()), "y": _flat(y())}
+    for name in "xyxy":
+        got = _flat({"x": x, "y": y}[name]())
+        assert all(torch.equal(a, b) for a, b in zip(got, ref[name]))
+    shape = (STREAM_BLOCK, int(np.prod(GRAPH_SIZE)))
+    frames = [[b for b in e.inputs if tuple(b.shape) == shape]
+              for e in graph_cache.entries()]
+    assert [len(f) for f in frames] == [1, 1]
+    assert frames[0][0] is frames[1][0]
+    assert graph_cache.shared_bytes() == frames[0][0].numel() * 4
+
+
+def test_streamed_source_reuses_its_blocks_across_passes(dev):
+    """One copy stream serves every pass of a source, so the allocator
+    reuses the frame blocks that the last pass freed: passes after the
+    first reserve nothing more."""
+    _, _, video = _graph_inputs(dev)
+    src = StreamingVideo(video.cpu().numpy(), block=STREAM_BLOCK, device=dev)
+
+    def one_pass():
+        for frames, _, _ in src.blocks():
+            frames.sum()
+        torch.cuda.synchronize()
+
+    one_pass()
+    one_pass()
+    side, reserved = src._side, torch.cuda.memory_reserved()
+    for _ in range(8):
+        one_pass()
+    assert src._side is side
+    assert torch.cuda.memory_reserved() == reserved
