@@ -18,10 +18,11 @@ the loop of single-recording rounds, and stops.
 
 Phases, each of which exits non-zero on failure (every ``fit``,
 ``fit_fused`` and ``refine``, the width fit and ``batched_round`` with
-the kernels and without a mesh run their steps as captured CUDA graphs,
-``models/graphs.py``, as do the recovery harness's rounds and, without
-a mesh, registration's and seeding's frame blocks and a streamed
-source's block steps; phases 30-34 hold them against eager runs):
+the kernels run their steps as captured CUDA graphs, ``models/graphs.py``,
+as do the recovery harness's rounds, registration's and seeding's frame
+blocks and a streamed source's block steps, and on a mesh each rank's
+steps between its collectives; phases 25-26 and 30-34 hold them against
+eager runs):
 
 1. device: a CUDA device is required (there is no CPU path);
 2. card: name and power limit from nvidia-smi;
@@ -162,14 +163,27 @@ source's block steps; phases 30-34 hold them against eager runs):
    same run in this process: time 2 x pixel 2 with exact Grams (2
    rounds; A and C over voxel ranges); time 4 with ``gram_mode="auto"``,
    the audit and the MU halo, then ``refine(rounds=1, epochs=4)``; time 4
-   ``refine`` with exact Grams.  Every rank's launch counters must show
-   the path's kernels (A, B, C, D, B-tracked, E; the audit's C on the
-   rank that owns its frame);
+   ``refine`` with exact Grams; and ``parallel.batched_round`` of 2
+   whole-brain recordings (T=32) over a batch 2 x time 2 mesh.  Each rank
+   runs each of them three ways: eagerly (``graphs.disabled()``, once,
+   then under the profiler), captured (each rank's local work between two
+   collectives replayed as a graph, the collectives eager between the
+   replays) and captured again, replays only, under the profiler; the
+   three must agree bit for bit on every rank, every rank must replay
+   the run's entries (``SHARD_ENTRIES``) with one graph launch per
+   replay, and the replays' kernel launches (read from the graphs'
+   kernel nodes) must equal the eager run's.  Every rank's launch
+   counters must show the path's kernels (A, B, C, D, B-tracked, E; the
+   audit's C on the rank that owns its frame).  Per rank: the seconds of
+   each run, host API calls per step both ways, graph launches, entries
+   and peak reserved memory;
 26. (d) ``sharded_register_pwrigid`` at the ROI patch grid on 2 time
-   shards (time 2 x batch 2) against the single-process chunked run:
-   F and G ran on every rank;
+   shards (time 2 x batch 2), the same three ways, against the
+   single-process chunked run: F and G ran on every rank, inside the
+   replayed block graphs;
 27. (e) a one-rank NCCL group: collectives on the card and a
-   ``mesh_time=1`` fit equal to the fit without a mesh.
+   ``mesh_time=1`` fit (its steps captured) equal to the same fit inside
+   ``graphs.disabled()`` and to the fit without a mesh.
    Ranks that share one card measure correctness, not scaling;
 28. the benchmark: ``dnmf_tpu_torch.tools.bench.main(["--quick",
    "--sections", ...])``, every section but ``correctness`` (phases 1-4
@@ -1840,6 +1854,21 @@ SHARD_FRAMES = 32  # frames of the sharded whole-brain fits
 SHARD_OPT = dict(learning_rate=1e-3, outer_rounds=2, motion_epochs=4,
                  mu_iters=50, seed=SEED)
 SHARD_TIMEOUT_S = 420  # the sharded ranks, start-up included
+SHARD_BATCHED = "batch 2 x time 2, batched_round"  # the recordings run
+SHARD_RECORDINGS = 2  # of SHARD_FRAMES whole-brain frames each
+# The entries that each sharded run replays on every rank (phase (c),
+# (d)): the captured steps between the collectives.
+SHARD_ENTRIES = {
+    "time 2 x pixel 2, exact": {"sharded_frame_grads", "sharded_adam",
+                                "compute_grams", "sharded_mu"},
+    "time 4, auto + halo + refine": {
+        "sharded_motion_epoch", "compute_grams", "sharded_mu_halo",
+        "refine_positions", "tracked_grams", "footprint_update"},
+    "time 4, exact refine": {"refine_positions", "tracked_grams",
+                             "footprint_update"},
+    SHARD_BATCHED: {"batched_round"},
+    "registration": {"pwrigid_block"},
+}
 SHARD_REG_CFG = dict(max_shifts=(6, 6, 2), strides=(96, 96, 10),
                      overlaps=(32, 32, 0), max_deviation_rigid=3,
                      pw_rigid=True, niter_rig=1, niter_els=1, splits=2,
@@ -1967,7 +1996,9 @@ def pod_check_phase():
 
 def _shard_runs():
     """The sharded runs of phase (c): (label, runtime, optimizer, calls);
-    the runtime's mesh options are dropped for the single-process run."""
+    the runtime's mesh options are dropped for the single-process run.
+    The last is ``parallel.batched_round`` of ``SHARD_RECORDINGS`` over
+    the mesh's batch axis (:func:`_batched_round`), not an engine."""
     return [
         ("time 2 x pixel 2, exact", dict(mesh_time=2, mesh_pixel=2,
                                          gram_mode="exact"),
@@ -1977,6 +2008,8 @@ def _shard_runs():
          [("fit", {}), ("refine", dict(rounds=1, epochs=4))]),
         ("time 4, exact refine", dict(mesh_time=4, gram_mode="exact"),
          dict(SHARD_OPT), [("refine", dict(rounds=1, epochs=4))]),
+        (SHARD_BATCHED, dict(mesh_time=2, mesh_batch=2), dict(SHARD_OPT),
+         []),
     ]
 
 
@@ -2001,11 +2034,140 @@ def _run_engine(model, rt, opt, calls, spec, video, device):
     return eng, res, time.perf_counter() - t0
 
 
+def _batched_states(spec, device):
+    """The recordings of the batched shard run: ``SHARD_RECORDINGS``
+    stacked states (the fixture's anchors and registration seed, each
+    recording's traces its own draw) and videos ``[R, T, P]`` (the
+    fixture's recording, then flipped in time)."""
+    from dnmf_tpu_torch import parallel
+
+    model = spec["model"]
+    states = [model_lib.init_state(
+        model, positions=spec["pos"], device=device, beta0=spec["beta0"],
+        generator=torch.Generator().manual_seed(SEED + r))
+        for r in range(SHARD_RECORDINGS)]
+    video = torch.from_numpy(np.load(spec["video"])).to(device)
+    videos = torch.stack([video if r % 2 == 0 else video.flip(0)
+                          for r in range(SHARD_RECORDINGS)])
+    return parallel.stack_states(states), videos.reshape(
+        SHARD_RECORDINGS, model.num_frames, -1)
+
+
+def _batched_round(spec, states, videos, mesh):
+    """One ``parallel.batched_round`` of the batched shard run (``mesh``
+    None: the single process)."""
+    from dnmf_tpu_torch import parallel
+
+    opt = spec["runs"][-1][2]
+    new, m = parallel.batched_round(
+        states, videos, spec["model"], model_lib.Adam(opt["learning_rate"]),
+        0.1, opt["mu_iters"], frame_block=8, use_kernels=True, mesh=mesh)
+    return new, m["recon_mse"]
+
+
+def _profiled_run(run, dev):
+    """``(run(), seconds, host CUDA API calls by name, the wrappers'
+    launches)``, under ``torch.profiler`` (host activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fused.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = run()
+        _sync(dev)
+    secs = time.perf_counter() - t0
+    api = {}
+    for e in prof.events():
+        if e.name.startswith("cu") and e.name != "cudaDeviceSynchronize":
+            api[e.name] = api.get(e.name, 0) + 1
+    return out, secs, api, fused.launch_counts()
+
+
+def _flat_result(out):
+    if isinstance(out, model_lib.DNMFState):
+        return [getattr(out, f) for f in model_lib.STATE_FIELDS]
+    if isinstance(out, (tuple, list)):
+        return [t for part in out for t in _flat_result(part)]
+    return [] if out is None else [out]
+
+
+def _routes(run, dev):
+    """``run()`` on this rank three ways: eagerly (``graphs.disabled()``;
+    once, then again under the profiler), captured from an empty cache (its warm-ups and
+    captures), and captured again under the profiler (replays, and the
+    captures of any key whose video address moved, as a pixel shard's
+    copy may: ``recaptured``).
+    Returns ``(the replayed run's result, stats)``: whether the three
+    agree bit for bit, the seconds of each, the host CUDA API calls of
+    the two profiled runs, the replayed run's graph launches, its entries
+    ``(name, replays, kernel nodes)``, the wrappers' launches both ways
+    (the replayed run's less its new entries' warm-ups) and the peak
+    reserved memory."""
+    from dnmf_tpu_torch.models import graphs
+
+    cuda = torch.device(dev).type == "cuda"
+    graphs.clear()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    with graphs.disabled():
+        run()  # the process's first calls (modules, handles) off the clock
+        eager, secs_e, api_e, launch_e = _profiled_run(run, dev)
+    torch.distributed.barrier()
+    _sync(dev)
+    t0 = time.perf_counter()
+    captured = run()
+    _sync(dev)
+    secs_c = time.perf_counter() - t0
+    before = [(e, e.replays) for e in graphs.entries()]
+    torch.distributed.barrier()
+    replayed, secs_r, api_r, launch_r = _profiled_run(run, dev)
+    entries, recaptured = [], 0
+    for e in graphs.entries():
+        old = [n for b, n in before if b is e]
+        entries.append((e.name, e.replays - (old[0] if old else 0),
+                        sum(e.nodes.values())))
+        if not old:  # captured in the profiled run: less its warm-up
+            recaptured += 1
+            for k, n in e.warmup_launches.items():
+                launch_r[k] -= n
+    flat = [_flat_result(x) for x in (eager, captured, replayed)]
+    equal = all(len(f) == len(flat[0]) and all(
+        same_bits(a, b) for a, b in zip(f, flat[0])) for f in flat[1:])
+    stats = {"equal": equal, "eager_s": secs_e, "capture_s": secs_c,
+             "replay_s": secs_r, "api_eager": sum(api_e.values()),
+             "api_replay": sum(api_r.values()),
+             "graph_launches": api_r.get("cudaGraphLaunch", 0),
+             "entries": entries, "recaptured": recaptured,
+             "launches_eager": launch_e,
+             "launches_replay": launch_r,
+             "reserved": torch.cuda.max_memory_reserved() if cuda else 0}
+    graphs.clear()
+    return replayed, stats
+
+
+class _OnCard:
+    """A recording already on the card, which an engine takes as it is
+    (a dataset's ``frames_flat()``)."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def frames_flat(self):
+        return self.frames
+
+
 def _shard_rank(rank, world, address, out, spec):
     """A rank of phases (c) and (d): the runs of :func:`_shard_runs` on
-    its shard, then the sharded piecewise-rigid registration; puts
-    ``(rank, label, launches, seconds, result file or None)``."""
+    its shard, then the sharded piecewise-rigid registration, each through
+    :func:`_routes`; an engine run once more on the host array (the
+    engine's own ingestion: the rank's shard of it copied to the card and
+    clamped), captured; puts ``(rank, label, stats, result file or
+    None)``."""
     from dnmf_tpu_torch import parallel
+    from dnmf_tpu_torch.models import graphs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     # The ranks share the host's cores, as they share the card.
@@ -2014,35 +2176,58 @@ def _shard_rank(rank, world, address, out, spec):
                                     local_device_ids=[0], backend="gloo")
     dev = torch.device(spec["device"])
     model = spec["model"]
-    video = np.load(spec["video"], mmap_mode="c")
+    # The recording on the card once, clamped as an engine clamps an
+    # array: each run's engine takes its frames as they are, so the video
+    # keeps its address (a key of the graphs) from run to run.
+    video = _OnCard(torch.clamp_min(torch.from_numpy(
+        np.load(spec["video"])).to(dev), 0.0))
+    _profiled_run(lambda: None, dev)  # the profiler's first start, ~9 s
     for i, (label, rt, opt, calls) in enumerate(spec["runs"]):
-        fused.reset_launch_counts()
-        torch.distributed.barrier()
-        eng, res, secs = _run_engine(model, rt, opt, calls, spec, video, dev)
-        launches = fused.launch_counts()
-        pos_t = eng._whole(eng.pos_t) if eng.pos_t is not None else None
+        if label == SHARD_BATCHED:
+            mesh = parallel.make_mesh(num_time=rt["mesh_time"],
+                                      num_batch=rt["mesh_batch"])
+            states, videos = _batched_states(spec, dev)
+            res, stats = _routes(lambda: _batched_round(spec, states, videos,
+                                                        mesh), dev)
+            del states, videos
+            arrays = {"beta": res[0].beta, "c": res[0].c,
+                      "recon_mse": res[1]}
+        else:
+            rounds = []  # the last run's seconds per round
+
+            def run():
+                eng, res, _ = _run_engine(model, rt, opt, calls, spec, video,
+                                          dev)
+                rounds[:] = [m["seconds"] for m in eng.metrics
+                             if m["phase"] == "round"]
+                return res.state, (eng._whole(eng.pos_t)
+                                   if eng.pos_t is not None else None)
+
+            (state, pos_t), stats = _routes(run, dev)
+            arrays = {**{k: getattr(state, k) for k in model_lib.STATE_FIELDS},
+                      **({} if pos_t is None else {"pos_t": pos_t}),
+                      "round_s": torch.tensor(rounds)}
+            torch.distributed.barrier()
+            eng, res, _ = _run_engine(
+                model, rt, opt, calls, spec,
+                np.load(spec["video"], mmap_mode="c"), dev)
+            arrays.update(raw_beta=res.state.beta, raw_c=res.state.c)
+            if eng.pos_t is not None:
+                arrays["raw_pos_t"] = eng._whole(eng.pos_t)
+            del eng, res
+            graphs.clear()
         path = None
         if rank == 0:
             path = os.path.join(spec["dir"], f"run{i}.npz")
-            np.savez(path, **model_lib.state_to_numpy(res.state),
-                     **({} if pos_t is None else
-                        {"pos_t": pos_t.cpu().numpy()}),
-                     round_s=np.array([m["seconds"] for m in eng.metrics
-                                       if m["phase"] == "round"]))
-        out.put((rank, label, launches, secs, path))
+            np.savez(path, **{k: v.cpu().numpy() for k, v in arrays.items()})
+        out.put((rank, label, stats, path))
     mesh = parallel.make_mesh(num_time=2, num_batch=world // 2)
     reg_video = np.load(spec["reg_video"])
     template = np.load(spec["reg_template"])
     cfg = tcfg.RegistrationConfig(**spec["reg_cfg"])
-    fused.reset_launch_counts()
-    torch.distributed.barrier()
-    _sync(dev)
-    t0 = time.perf_counter()
-    templ, corrected, shifts = parallel.sharded_register_pwrigid(
-        reg_video, cfg, mesh, template=template, device=dev)
-    _sync(dev)
-    secs = time.perf_counter() - t0
-    launches = fused.launch_counts()
+    (templ, corrected, shifts), stats = _routes(
+        lambda: parallel.sharded_register_pwrigid(
+            reg_video, cfg, mesh, template=template, device=dev), dev)
     corrected = parallel.gather_time(torch.from_numpy(corrected).to(dev),
                                      mesh)
     shifts = parallel.gather_time(torch.as_tensor(shifts).to(dev), mesh)
@@ -2052,7 +2237,7 @@ def _shard_rank(rank, world, address, out, spec):
         np.savez(path, template=templ.cpu().numpy(),
                  corrected=corrected.cpu().numpy(),
                  shifts=shifts.cpu().numpy())
-    out.put((rank, "registration", launches, secs, path))
+    out.put((rank, "registration", stats, path))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
 
@@ -2126,10 +2311,18 @@ def sharded_paths(dev, card):
         np.save(spec["reg_template"], reg_template.cpu().numpy())
         singles = {}
         for label, rt, opt, calls in spec["runs"]:
+            if label == SHARD_BATCHED:
+                t0 = time.perf_counter()
+                states, videos = _batched_states(spec, dev)
+                new, _ = _batched_round(spec, states, videos, None)
+                _sync(dev)
+                singles[label] = (new, None, time.perf_counter() - t0, [])
+                del states, videos
+                continue
             rt1 = {k_: v for k_, v in rt.items() if not k_.startswith("mesh")}
             eng, res, secs = _run_engine(model, rt1, opt, calls, spec,
                                          host_video, dev)
-            singles[label] = (res, eng.pos_t, secs, [
+            singles[label] = (res.state, eng.pos_t, secs, [
                 m["seconds"] for m in eng.metrics if m["phase"] == "round"])
         t0 = time.perf_counter()
         reg_single = mc_lib._batch_pwrigid(
@@ -2142,20 +2335,44 @@ def sharded_paths(dev, card):
             f"{time.perf_counter() - t0:.3f} s in all, start-up included "
             f"({card})")
         results = {}
-        for rank, label, launches, secs, path in sorted(
-                rows, key=lambda r: (r[1], r[0])):
-            say(f"sharded {label} rank {rank}: {secs:.3f} s; launches "
-                f"{ {kn: n for kn, n in launches.items() if n} }")
-            results.setdefault(label, {"launches": [], "secs": []})
-            results[label]["launches"].append(launches)
-            results[label]["secs"].append(secs)
+        for rank, label, stats, path in sorted(rows,
+                                               key=lambda r: (r[1], r[0])):
+            _say_rank(label, rank, stats, card)
+            results.setdefault(label, {"stats": []})
+            results[label]["stats"].append(stats)
             if path is not None:
                 results[label]["data"] = dict(np.load(path))
         _check_sharded(results, singles, reg_single, reg_single_s, card)
 
 
+def _say_rank(label, rank, st, card):
+    """One rank's line of a sharded run: seconds, host API calls per step
+    both ways, graph launches, entries, peak reserved memory."""
+    steps = sum(n for _, n, _ in st["entries"])
+    per = max(steps, 1)
+    entries = {}
+    for name, n, nodes in st["entries"]:
+        entries.setdefault(name, []).append((n, nodes))
+    say(f"sharded {label} rank {rank}: eager {st['eager_s']:.3f} s "
+        f"(profiled), capturing {st['capture_s']:.3f} s, replaying "
+        f"{st['replay_s']:.3f} s (profiled); host API calls "
+        f"{st['api_eager']} eager / {st['api_replay']} captured, per step "
+        f"{st['api_eager'] / per:.1f} / {st['api_replay'] / per:.1f} over "
+        f"{steps} steps; {st['graph_launches']} graph launches; entries "
+        f"(replays, kernel nodes) {entries}, {st['recaptured']} captured "
+        f"in the profiled run; peak reserved "
+        f"{st['reserved'] / 1e9:.3f} GB; launches "
+        f"{ {kn: n for kn, n in st['launches_replay'].items() if n} }; "
+        f"captured == eager: {st['equal']} ({card})")
+
+
 def _check_sharded(results, singles, reg_single, reg_single_s, card):
-    """The gates of phases (c) and (d)."""
+    """The gates of phases (c) and (d): on every rank the captured runs
+    equal the eager run bit for bit, replay each of the run's entries
+    (``SHARD_ENTRIES``) with one graph launch per replay, and launch each
+    kernel as often as the eager run (the replays' launches are read from
+    the graphs' kernel nodes); then the rank 0 results against the
+    single process."""
     need = {  # kernels that every rank, or some rank, must have launched
         "time 2 x pixel 2, exact": ({"motion_block", "gram_block"}, set()),
         "time 4, auto + halo + refine": (
@@ -2163,41 +2380,63 @@ def _check_sharded(results, singles, reg_single, reg_single_s, card):
             {"gram_block"}),  # the audit: the owner of the frame
         "time 4, exact refine": ({"refine_block", "gram_block_tracked"},
                                  set()),
+        SHARD_BATCHED: ({"motion_block", "gram_block"}, set()),
         "registration": ({"phase_corr_block", "fused_separable_warp"},
                          set()),
     }
     for label, (every, some) in need.items():
         got = results.get(label)
-        if got is None or len(got["launches"]) != SHARD_WORLD:
+        if got is None or len(got["stats"]) != SHARD_WORLD:
             fail(f"sharded {label}: not every rank reported")
+        launches = [st["launches_replay"] for st in got["stats"]]
         for kn in every:
-            if min(ln[kn] for ln in got["launches"]) <= 0:
+            if min(ln[kn] for ln in launches) <= 0:
                 fail(f"sharded {label}: a rank did not launch {kn}")
         for kn in some:
-            if max(ln[kn] for ln in got["launches"]) <= 0:
+            if max(ln[kn] for ln in launches) <= 0:
                 fail(f"sharded {label}: no rank launched {kn}")
-    for label, (res, pos_t, secs, round_s) in singles.items():
+        for st in got["stats"]:
+            if not st["equal"]:
+                fail(f"sharded {label}: a rank's captured run differs from "
+                     "its eager run")
+            if st["launches_replay"] != st["launches_eager"]:
+                fail(f"sharded {label}: kernel launches from the graphs "
+                     f"{st['launches_replay']}, want the eager run's "
+                     f"{st['launches_eager']}")
+            replayed = {name for name, n, _ in st["entries"] if n > 0}
+            steps = sum(n for _, n, _ in st["entries"])
+            if not SHARD_ENTRIES[label] <= replayed:
+                fail(f"sharded {label}: a rank replayed {sorted(replayed)}, "
+                     f"want {sorted(SHARD_ENTRIES[label])}")
+            if st["graph_launches"] != steps:
+                fail(f"sharded {label}: {st['graph_launches']} graph "
+                     f"launches for {steps} replays")
+    for label, (state, pos_t, secs, round_s) in singles.items():
         data = results[label]["data"]
-        rank_round_s = [float(x) for x in data["round_s"]]
-        say(f"sharded {label}: {max(results[label]['secs']):.3f} s (slowest "
-            f"rank), seconds per round {rank_round_s}; single process "
-            f"{secs:.3f} s, seconds per round {round_s} ({card})")
-        _allclose(f"sharded {label}", data["beta"],
-                  res.state.beta.cpu().numpy(), "beta")
-        _allclose(f"sharded {label}", data["c"], res.state.c.cpu().numpy(),
-                  "c")
-        if pos_t is not None:
-            _allclose(f"sharded {label}", data["pos_t"],
-                      pos_t.cpu().numpy(), "pos_t")
-        for name in ("beta", "c"):
-            if not np.all(np.isfinite(data[name])):
-                fail(f"sharded {label}: non-finite {name}")
+        rank_round_s = [float(x) for x in data.get("round_s", [])]
+        say(f"sharded {label}: {max(st['replay_s'] for st in results[label]['stats']):.3f} s "
+            f"replaying (slowest rank, profiled), seconds per round "
+            f"{rank_round_s}; single process {secs:.3f} s, seconds per "
+            f"round {round_s} ({card})")
+        # The routes' result, and an engine run's on the host array.
+        for pre in ("", "raw_") if label != SHARD_BATCHED else ("",):
+            what = f"sharded {label}" + (" (host array)" if pre else "")
+            _allclose(what, data[pre + "beta"], state.beta.cpu().numpy(),
+                      "beta")
+            _allclose(what, data[pre + "c"], state.c.cpu().numpy(), "c")
+            if pos_t is not None:
+                _allclose(what, data[pre + "pos_t"], pos_t.cpu().numpy(),
+                          "pos_t")
+            for name in ("beta", "c"):
+                if not np.all(np.isfinite(data[pre + name])):
+                    fail(f"{what}: non-finite {name}")
     data = results["registration"]["data"]
     templ, _, xs, ys, zs, _, mc = reg_single
     shifts = np.stack([np.stack(s, -1) for s in zip(xs, ys, zs)])
-    say(f"sharded registration (time 2 x batch 2): "
-        f"{max(results['registration']['secs']):.3f} s (slowest rank); "
-        f"single-process chunked run {reg_single_s:.3f} s ({card})")
+    slowest = max(st["replay_s"] for st in results["registration"]["stats"])
+    say(f"sharded registration (time 2 x batch 2): {slowest:.3f} s "
+        f"replaying (slowest rank, profiled); single-process chunked run "
+        f"{reg_single_s:.3f} s ({card})")
     _allclose("sharded registration", data["shifts"], shifts, "shifts")
     _allclose("sharded registration", data["template"],
               templ.cpu().numpy(), "template")
@@ -2206,7 +2445,8 @@ def _check_sharded(results, singles, reg_single, reg_single_s, card):
 
 def _nccl_rank(rank, world, address, out):
     """(e) a one-rank NCCL group: collectives on the card, and a mesh fit
-    (``mesh_time=1``) against the same fit without a mesh."""
+    (``mesh_time=1``, its steps captured) against the same fit eagerly
+    (``graphs.disabled()``) and without a mesh."""
     from dnmf_tpu_torch import parallel
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2223,14 +2463,29 @@ def _nccl_rank(rank, world, address, out):
     pos, _, video = ground_truth(dev, model.size, model.num_neurons, 16, SEED)
     opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=1,
                                motion_epochs=2, gamma_traces=0.01, seed=SEED)
-    fits = [ttr.DeformableNMF(model, opt, tcfg.RuntimeConfig(
-        frame_block=8, **kw), positions=pos, device=dev).fit(video).state
-        for kw in ({"mesh_time": 1}, {})]
-    same = all(torch.equal(getattr(fits[0], f), getattr(fits[1], f))
-               for f in ("beta", "c"))
+    from dnmf_tpu_torch.models import graphs
+
+    def fit(mesh, eager=False):
+        graphs.clear()
+        rt = tcfg.RuntimeConfig(frame_block=8, mesh_time=1 if mesh else None)
+        with graphs.disabled() if eager else contextlib.nullcontext():
+            state = ttr.DeformableNMF(model, opt, rt, positions=pos,
+                                      device=dev).fit(video).state
+        return state, sorted(e.name for e in graphs.entries())
+
+    (captured, names), (eager, _), (single, _) = (
+        fit(True), fit(True, eager=True), fit(False))
+    graphs.clear()
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f))
+                   for f in ("beta", "c"))
+
     out.put({"backend": torch.distributed.get_backend(),
              "all_reduce": x.tolist(), "all_gather": parts[0].tolist(),
-             "mesh_fit_equal": same})
+             "mesh_fit_equal": same(captured, single),
+             "mesh_captured_equals_eager": same(captured, eager),
+             "mesh_entries": names})
     torch.distributed.destroy_process_group()
 
 
@@ -2243,7 +2498,9 @@ def nccl_phase():
     say(f"one-rank NCCL group: {res}")
     if (res["backend"] != "nccl" or res["all_reduce"] != [0.0, 1.0, 2.0, 3.0]
             or res["all_gather"] != res["all_reduce"]
-            or not res["mesh_fit_equal"]):
+            or not res["mesh_fit_equal"]
+            or not res["mesh_captured_equals_eager"]
+            or "sharded_motion_epoch" not in res["mesh_entries"]):
         fail(f"one-rank NCCL group: {res}")
 
 

@@ -18,20 +18,25 @@ device.  ``runtime.checkpoint_dir`` saves every round
 ``runtime.profile_dir`` traces the last round with ``torch.profiler``.
 :class:`StaticFootprintNMF` is the static-footprint MU mode.
 
-Without a mesh, ``fit``'s steps (the motion epoch or, in parity mode,
-one serial Adam step per batch, the width fit, the Grams, the trace
-update), each round of ``fit_fused`` and ``refine``'s (the positions, the
-tracked Grams, the trace update) go through
-:mod:`dnmf_tpu_torch.models.graphs` (the JAX package's ``jit``): with the
-kernels on the card each is a captured CUDA graph; the Gram audit, the
-finiteness checks and the metric reads run eagerly between them.  Models
-that the kernels do not compute (``reference_demo_model(parity=True)``'s
-resampled footprints) run every step eagerly.  A streamed source goes
-through it too: its motion epoch and Grams replay one captured block
-step per frame block, its refinement one captured alternation per block,
-and its width fit's subsample is on the card; on a mesh its steps run
-eagerly.  ``StaticFootprintNMF.fit``'s alternation is captured on the
-card.  ``models.graphs.clear()`` drops the graphs.
+``fit``'s steps (the motion epoch or, in parity mode, one serial Adam
+step per batch, the width fit, the Grams, the trace update), each round
+of ``fit_fused`` and ``refine``'s (the positions, the tracked Grams, the
+trace update) go through :mod:`dnmf_tpu_torch.models.graphs` (the JAX
+package's ``jit``): with the kernels on the card each is a captured CUDA
+graph; the Gram audit, the finiteness checks and the metric reads run
+eagerly between them.  Models that the kernels do not compute
+(``reference_demo_model(parity=True)``'s resampled footprints) run every
+step eagerly.  A streamed source goes through it too: its motion epoch
+and Grams replay one captured block step per frame block, its refinement
+one captured alternation per block, and its width fit's subsample is on
+the card.  On a mesh each rank replays the same steps on its shard
+between the collectives (``graphs.mesh_steps``: the sharded epoch, Grams
+and trace update of :mod:`dnmf_tpu_torch.parallel`, a smoothed update
+one replay per iteration with the halo's exchange between; refinement
+and the width fit as on one device), which run eagerly.
+``StaticFootprintNMF.fit``'s alternation is captured on the card.
+``models.graphs.clear()`` drops the graphs, ``models.graphs.disabled()``
+runs every step eagerly.
 
 ``runtime.mesh_time`` / ``mesh_pixel`` (and ``mesh_batch`` beside
 ``mesh_time``) shard the fit over the ranks of a process group
@@ -394,7 +399,7 @@ class DeformableNMF:
         self._maybe_audit_analytic()
         kw = dict(use_kernels=self._use_kernels, gram_mode=self._gram_mode,
                   gram_window=self._gram_window())
-        mesh = self._mesh  # None: the sharded steps on one device
+        mesh = self._mesh  # None: the steps on one device
         if self._is_streaming(video) and mesh is None:
             # one device: the captured block step
             grams, c1 = graphs.compute_grams_streaming(
@@ -418,7 +423,8 @@ class DeformableNMF:
                 **update)
         else:
             self.state = parallel.sharded_footprint_update(
-                self.state, grams, c1, mesh, **update)
+                self.state, grams, c1, mesh, use_kernels=self._use_kernels,
+                **update)
         m = {"phase": "traces", "c_mean": self._c_mean()}
         self.metrics.append(m)
         return m
@@ -454,10 +460,10 @@ class DeformableNMF:
             video_sub = self._gather_frames(video, idx_np)
         else:
             video_sub = video[idx]
-        # On a mesh every rank fits the widths on the same whole frames.
+        # On a mesh every rank fits the widths on the same whole frames:
+        # no collective inside, so the same captured fit.
         beta, c = self._whole(self.state.beta), self._whole(self.state.c, 1)
-        fit = graphs.sigma_fit if self._mesh is None else model_lib.sigma_fit
-        sigma, mses = fit(
+        sigma, mses = graphs.sigma_fit(
             self.state, video_sub, beta[idx], c[:, idx].T, self.model,
             steps=steps or cfg.sigma_steps, lr=cfg.sigma_lr,
             lo=cfg.sigma_bounds[0] * self.model.shape_std,
@@ -638,9 +644,10 @@ class DeformableNMF:
         (:func:`dnmf_tpu_torch.models.refine.refined_rounds_streaming`,
         each block's alternation one captured graph:
         ``graphs.refined_rounds_streaming``).
-        On a time mesh each rank refines its own frames
-        (:func:`~dnmf_tpu_torch.parallel.sharded_refined_rounds`;
-        ``pos_t`` holds the rank's ``[T_loc, K, 3]``); pixel meshes and
+        On a time mesh each rank refines its own frames through the same
+        captured programs (:func:`~dnmf_tpu_torch.parallel.
+        sharded_refined_rounds`; ``pos_t`` holds the rank's ``[T_loc, K,
+        3]``); pixel meshes and
         streamed sources on a mesh raise ``NotImplementedError``, as in
         the JAX package."""
         if self._mesh is not None and (self.runtime.mesh_pixel or 1) > 1:

@@ -42,6 +42,23 @@ block); the motion epoch's one Adam step follows the pass eagerly, as in
 the JAX package, and the refinement's entry holds a block's whole
 alternation.
 
+On a mesh (JAX's ``shard_map`` programs of ``parallel/sharded.py``,
+``parallel/streaming.py`` and ``parallel/registration.py``) each rank
+replays the same kind of entries between its collectives, which run
+eagerly, outside any graph: on the clones of a step's outputs, on a
+loop's own input buffers (the halo's exchange), and on a streamed
+block's outputs in place, which its caller copies into the rank's
+buffers before the next block's replay.  :func:`mesh_steps` is the step
+runner that the sharded functions of :mod:`dnmf_tpu_torch.parallel` take
+from their ``use_kernels`` (the motion epoch one entry on a
+time-only mesh, two on a pixel axis with the mean over it between; the
+Grams one, ``p_offset`` in the key, then the sum over the pixel axis; the
+trace update one, or with smoothing one iteration replayed ``iters``
+times with the halo's ``all_gather`` between; the streamed blocks through
+:func:`_stream`), and refinement, the width fit, the recordings round on
+a ``batch`` axis and registration's frame blocks go through the entries
+of one device, on the rank's shard.
+
 Where it applies.  Each function here decides for itself: with
 ``use_kernels`` (registration and seeding: always) and outside
 :func:`disabled` it goes through the cache,
@@ -56,7 +73,8 @@ nothing falls back to the eager path.
 Cache.  One entry per key; the key holds what ``jax.jit`` treats as
 static (the model, the optimizer, ``gamma``, the frame block, the Gram
 mode and window, the iterations, epochs or steps, the learning rate,
-the solver, ``use_kernels``) and every input's shape, dtype, strides and
+the solver, ``use_kernels``, a pixel shard's voxel range ``p_offset``)
+and every input's shape, dtype, strides and
 device, with the video's address, shape and strides.  At most
 :data:`MAX_ENTRIES` entries are kept, the least recently used dropped
 first; :func:`clear` drops them all and :func:`entries` lists them.
@@ -130,9 +148,15 @@ from dnmf_tpu_torch.ops import mu as mu_ops
 # streamed motion epoch and Grams (and the audit's exact Grams) take the
 # resident ones' places, one entry takes refine's three, and a streamed
 # source has no ``fit_fused``, so registration, seeding and the engine's
-# seven make twelve.  Three more keep a second run's entries (another
-# video) alive beside the fifteen.  An entry costs its buffers and
-# outputs: the temporaries are the one shared pool's.
+# seven make twelve.  A rank of a mesh holds fewer still: a sharded
+# registration four, and an engine on a time mesh eight (``fit``'s motion
+# epoch, Grams, the audit's exact Grams, one trace update, smoothed or
+# not, with either solver; the width fit; ``refine``'s three; no
+# ``fit_fused``), on a pixel axis five (the motion epoch's two entries,
+# exact Grams, the trace update, the width fit; no refinement), a
+# streamed fit five: at most twelve together.  Three more keep a second
+# run's entries (another video) alive beside the fifteen.  An entry costs
+# its buffers and outputs: the temporaries are the one shared pool's.
 MAX_ENTRIES = 18
 
 # The kernel that each wrapper of the captured steps launches last, once
@@ -882,6 +906,53 @@ def refined_rounds_streaming(state, source, model, rounds: int = 2,
             "refined_rounds_streaming",
             (model, source.block) + tuple(sorted(kw.items())), use_kernels),
         **kw)
+
+
+# ----------------------------------------------------------------------
+# A mesh's steps between its collectives
+# ----------------------------------------------------------------------
+class _MeshSteps:
+    """The captured step runner of the sharded functions
+    (:class:`~dnmf_tpu_torch.parallel.sharded.EagerSteps`' protocol): a
+    step is an entry keyed by ``name``, ``statics`` (what the step closes
+    over: the model, the optimizer, the rank's voxel range ``p_offset``,
+    ...) and its inputs' shapes, replayed once per call, its outputs
+    cloned; a loop's step carries its state in its own input buffers
+    between its ``iters`` replays, with ``between(entry.inputs)`` (a
+    halo's exchange) run eagerly before each, and clones of the buffers
+    at ``writes`` come out; a streamed loop's blocks replay through
+    :func:`_stream`, whose outputs are read in place until the next
+    block's replay.  The collectives run between the replays, never
+    inside a graph."""
+
+    def __call__(self, name, statics, step, args, video=None) -> tuple:
+        return _run(name, statics, step, args, video)
+
+    def loop(self, name, statics, step, args, writes, iters,
+             between) -> tuple:
+        key = (name,) + statics + _signature(*args)
+        entry = _entry(key, lambda: Entry(name, step, args))
+        entry.load(args)
+        for _ in range(iters):
+            between(entry.inputs)
+            entry.replay()
+        return tuple(entry.inputs[i].clone() for i in writes)
+
+    def blocks(self, name, statics):
+        return functools.partial(_stream, name, statics)
+
+
+_MESH_STEPS = _MeshSteps()
+
+
+def mesh_steps(use_kernels: bool):
+    """The step runner of the sharded functions of
+    :mod:`dnmf_tpu_torch.parallel`: captured (:class:`_MeshSteps`) with
+    ``use_kernels`` and outside :func:`disabled`, else their plain
+    :data:`~dnmf_tpu_torch.parallel.sharded.EAGER`."""
+    from dnmf_tpu_torch.parallel import sharded
+
+    return _MESH_STEPS if _cached(use_kernels) else sharded.EAGER
 
 
 # ----------------------------------------------------------------------

@@ -83,34 +83,40 @@ def gram_lipschitz(grams: torch.Tensor, gamma: Optional[float] = None,
     return torch.clamp_min(lmax, 1e-12)
 
 
+def fista_step(c_prev: torch.Tensor, y_c: torch.Tensor, tk: torch.Tensor,
+               grams: torch.Tensor, c1: torch.Tensor, inv_l: torch.Tensor,
+               gamma: Optional[float] = None,
+               halo: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """One FISTA iteration of :func:`nnls_temporal` from the last iterate
+    ``c_prev``, the extrapolated point ``y_c`` and the momentum scalar
+    ``tk``, with the step ``inv_l = 1 / L``; ``halo`` as
+    :func:`mu_temporal_step`'s, at ``y_c``.  Returns ``(c_new, y_new,
+    tk_new)``."""
+    g = torch.einsum("tkl,lt->kt", grams, y_c) - c1.T
+    if gamma is not None and gamma != 0.0:
+        g = g + gamma * (2.0 * y_c - _neighbor_sum(y_c, halo))
+    c_new = torch.clamp_min(y_c - inv_l * g, 0.0)
+    tk1 = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tk * tk))
+    y_new = c_new + ((tk - 1.0) / tk1) * (c_new - c_prev)
+    return c_new, y_new, tk1
+
+
 def nnls_temporal(c: torch.Tensor, grams: torch.Tensor, c1: torch.Tensor,
                   iters: int, gamma: Optional[float] = None,
-                  lipschitz: Optional[torch.Tensor] = None,
-                  halo_fn=None) -> torch.Tensor:
+                  lipschitz: Optional[torch.Tensor] = None) -> torch.Tensor:
     """FISTA (accelerated projected gradient) on the convex trace
     subproblem ``sum_t (1/2 c_t^T G_t c_t - c1_t^T c_t)`` (+ smoothing)
-    over ``C >= 0`` — the objective the multiplicative rule descends.
-
-    ``halo_fn`` (a time shard): given the iterate ``[K, T_loc]``, the
-    neighbouring shards' edge columns (:func:`mu_temporal_step`'s
-    ``halo``); ``lipschitz`` is then the whole recording's constant."""
+    over ``C >= 0`` — the objective the multiplicative rule descends:
+    ``iters`` of :func:`fista_step` (edge-replicated; a time shard's
+    update runs them with its halo, ``parallel.sharded_footprint_update``).
+    ``lipschitz``: the constant, default :func:`gram_lipschitz`'s."""
     lv = lipschitz if lipschitz is not None else gram_lipschitz(grams, gamma)
     inv_l = 1.0 / lv
-
-    def grad(x):
-        g = torch.einsum("tkl,lt->kt", grams, x) - c1.T
-        if gamma is not None and gamma != 0.0:
-            halo = halo_fn(x) if halo_fn is not None else None
-            g = g + gamma * (2.0 * x - _neighbor_sum(x, halo))
-        return g
-
     c_prev, y_c = c, c
     tk = torch.ones((), dtype=c.dtype, device=c.device)
     for _ in range(iters):
-        c_new = torch.clamp_min(y_c - inv_l * grad(y_c), 0.0)
-        tk1 = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tk * tk))
-        y_c = c_new + ((tk - 1.0) / tk1) * (c_new - c_prev)
-        c_prev, tk = c_new, tk1
+        c_prev, y_c, tk = fista_step(c_prev, y_c, tk, grams, c1, inv_l,
+                                     gamma)
     return c_prev
 
 

@@ -15,9 +15,10 @@ runs over the recordings (the models that no kernel computes excepted:
 they take the footprint ops recording by recording).  On a mesh with a
 ``batch`` axis the recordings split over it: each rank runs its own run
 of them so, and one ``all_gather`` over the axis gives every rank all
-the results.  Without a mesh the round is one captured CUDA graph on
-the card (:func:`dnmf_tpu_torch.models.graphs.batched_round`).  All
-recordings share (size, K, T).
+the results.  The round (a rank's, on a mesh) is one captured CUDA graph
+on the card (:func:`dnmf_tpu_torch.models.graphs.batched_round`), the
+``all_gather`` running after its replay.  All recordings share (size, K,
+T).
 """
 
 from __future__ import annotations
@@ -67,10 +68,10 @@ def batched_round(states: model_lib.DNMFState, videos: torch.Tensor,
       states: stacked state (leading recordings axis on every field).
       videos: ``[R, T, P]`` flattened frames.
       mesh: with a ``batch`` axis of ``nb`` ranks, ``R / nb`` recordings
-        per rank, the results gathered on every rank.  Without a mesh the
-        round is :func:`dnmf_tpu_torch.models.graphs.batched_round`: with
-        the kernels one captured graph (the JAX package's ``jit`` of the
-        ``vmap``-ed round), else eager.
+        per rank, the results gathered on every rank.  The round (of the
+        rank's recordings) is :func:`dnmf_tpu_torch.models.graphs.
+        batched_round`: with the kernels one captured graph (the JAX
+        package's ``jit`` of the ``vmap``-ed round), else eager.
 
     Returns:
       The stacked updated states and the per-recording metrics ``[R]``.
@@ -90,9 +91,8 @@ def batched_round(states: model_lib.DNMFState, videos: torch.Tensor,
     mine = slice(ib * per, (ib + 1) * per)
     state = model_lib.DNMFState(**{name: getattr(states, name)[mine]
                                    for name in model_lib.STATE_FIELDS})
-    local, metrics = model_lib.fused_round(
-        state, videos[mine], model, optimizer, epochs=1, mu_iters=mu_iters,
-        gamma=gamma, **kw)
+    local, metrics = graphs.batched_round(state, videos[mine], model,
+                                          optimizer, gamma, mu_iters, **kw)
     if nb > 1:
         local = model_lib.DNMFState(**{
             name: torch.cat(all_gather(getattr(local, name), mesh,

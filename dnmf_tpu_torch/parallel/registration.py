@@ -12,9 +12,11 @@ pwrigid_block`, kernels F and G on the card), forms its chunk template
 and one ``all_gather`` hands every rank all the chunk templates, whose
 median (:func:`dnmf_tpu_torch.ops.fft_reg.nanmedian`, NumPy's rule for an
 even count; not ``torch.nanmedian``, which takes the lower middle value)
-is the next template.  The ranks run their block steps eagerly
-(:func:`~dnmf_tpu_torch.registration.motion_correct.eager_block`), not as
-the captured graphs of a single-process pass.
+is the next template.  A rank's frame blocks replay the captured block
+steps of a single-process pass (:func:`~dnmf_tpu_torch.models.graphs.
+rigid_block`, :func:`~dnmf_tpu_torch.models.graphs.pwrigid_block`;
+eagerly inside ``models.graphs.disabled()``); the ``all_gather`` and the
+median run eagerly, once per iteration.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from dnmf_tpu_torch.config import RegistrationConfig
+from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.ops import fft_reg
 from dnmf_tpu_torch.parallel.mesh import (TIME_AXIS, all_gather, axis_size,
                                           video_sharding)
@@ -80,9 +83,11 @@ def sharded_register_rigid(video, cfg: RegistrationConfig, mesh,
         template = mc_lib._streamed_bin_median(mc_lib._host_video(video),
                                                device)
 
+    add = mc_lib._offset(add_to_movie, device)
+
     def correct_block(templ):
-        return mc_lib.eager_block(mc_lib.rigid_block, templ, cfg,
-                                  add_to_movie, device)
+        return lambda frames, collect: graphs.rigid_block(
+            frames, templ, add, cfg, collect)
 
     return _iterate(video, cfg, mesh, template, cfg.niter_rig, correct_block,
                     device)
@@ -103,9 +108,11 @@ def sharded_register_pwrigid(video, cfg: RegistrationConfig, mesh,
         template, _, _ = sharded_register_rigid(
             video, cfg, mesh, add_to_movie=add_to_movie, device=device)
 
+    add = mc_lib._offset(add_to_movie, device)
+
     def correct_block(templ):
-        return mc_lib.eager_block(mc_lib.pwrigid_block, templ, cfg,
-                                  add_to_movie, device)
+        return lambda frames, collect: graphs.pwrigid_block(
+            frames, templ, add, cfg, collect)
 
     return _iterate(video, cfg, mesh, template, cfg.niter_rig, correct_block,
                     device)

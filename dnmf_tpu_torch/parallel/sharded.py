@@ -20,6 +20,14 @@ the step on its own shard in place of ``shard_map``:
   only; its collectives take CUDA tensors too), and each rank takes its
   neighbours'; the recording's ends replicate their own column.  FISTA
   takes the maximum of the ranks' Lipschitz bounds, plus ``4 gamma``.
+
+Each function runs a rank's local work between two collectives as steps
+of the step runner that ``models.graphs.mesh_steps(use_kernels)`` gives,
+as on one device: with the kernels it replays each step as a captured
+CUDA graph, the collectives running eagerly between the replays; without
+them, or inside ``models.graphs.disabled()``, :data:`EAGER` runs the
+steps eagerly.  The two routes share one layout, so the captured one is
+held to this plain one bit for bit.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch.distributed as dist
 
 from dnmf_tpu_torch.config import ModelConfig
 from dnmf_tpu_torch.models import dnmf as model_lib
+from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.ops import mu as mu_ops
 from dnmf_tpu_torch.parallel.mesh import (PIXEL_AXIS, TIME_AXIS, all_gather,
                                           all_reduce, axis_index, axis_size,
@@ -38,6 +47,45 @@ from dnmf_tpu_torch.parallel.mesh import (PIXEL_AXIS, TIME_AXIS, all_gather,
 
 # State fields split by frames: along dim 0, and C [K, T] along dim 1.
 _FRAME_FIELDS = ("beta", "mu", "nu")
+
+
+class EagerSteps:
+    """The plain step runner of the sharded functions: ``steps(name,
+    statics, step, args, video=None)`` is ``step(*args)``;
+    ``steps.loop(name, statics, step, args, writes, iters, between)``
+    runs ``between(buffers)``, then ``step(*buffers)``, ``iters`` times,
+    where ``buffers`` are ``args`` with copies at the positions
+    ``writes`` (those that ``step`` and ``between`` write: the carry and
+    the halo), and returns those copies; ``steps.blocks(name, statics)``
+    is the streamed loops' block runner,
+    :func:`~dnmf_tpu_torch.models.dnmf.eager_blocks`.  ``name`` and
+    ``statics`` (what the step closes over) key the captured runner's
+    entries; here they go unused."""
+
+    def __call__(self, name, statics, step, args, video=None) -> tuple:
+        return tuple(step(*args))
+
+    def loop(self, name, statics, step, args, writes, iters,
+             between) -> tuple:
+        bufs = [a.clone() if i in writes else a for i, a in enumerate(args)]
+        for _ in range(iters):
+            between(bufs)
+            step(*bufs)
+        return tuple(bufs[i] for i in writes)
+
+    def blocks(self, name, statics):
+        return model_lib.eager_blocks
+
+
+EAGER = EagerSteps()
+
+
+def _leaves(state: model_lib.DNMFState) -> tuple:
+    return tuple(getattr(state, name) for name in model_lib.STATE_FIELDS)
+
+
+def _from_leaves(leaves) -> model_lib.DNMFState:
+    return model_lib.DNMFState(*leaves)
 
 
 def _check_frames(t: int, mesh) -> None:
@@ -113,16 +161,34 @@ def sharded_motion_epoch(state: model_lib.DNMFState, video: torch.Tensor,
     shard (``state`` from :func:`shard_state`, ``video`` from
     :func:`shard_video`): per-frame gradients, on a pixel axis averaged
     over it, then the rank's Adam step.  The metrics are the recording's
-    means, on every rank."""
-    grads, mses, regs = model_lib.frame_grads_local(
-        state, video, model, gamma, frame_block, use_kernels,
-        p_offset=_p_offset(mesh, video))
-    grads, mses, regs = pixel_mean(mesh, grads, mses, regs)
-    state = optimizer.step(state, grads)
-    t_global = mses.shape[0] * axis_size(mesh, TIME_AXIS)
-    tot = all_reduce(torch.stack([mses.sum(), regs.sum()]), mesh,
-                     TIME_AXIS) / t_global
-    return state, {"recon_mse": tot[0], "reg": tot[1]}
+    means, on every rank.  Steps: on a time-only mesh one (gradients,
+    Adam and the two local sums), on a pixel axis two (gradients; Adam
+    and the sums) with the axis's mean between them; the sums' reduction
+    over the time axis follows."""
+    steps = graphs.mesh_steps(use_kernels)
+    p_offset = _p_offset(mesh, video)
+    grads_key = (model, gamma, frame_block, use_kernels, p_offset)
+
+    def grads(*leaves):
+        return model_lib.frame_grads_local(
+            _from_leaves(leaves), video, model, gamma, frame_block,
+            use_kernels, p_offset=p_offset)
+
+    def update(*args):  # the state's leaves, grads, mses, regs
+        st = optimizer.step(_from_leaves(args[:7]), args[7])
+        return _leaves(st) + (torch.stack([args[8].sum(), args[9].sum()]),)
+
+    if axis_size(mesh, PIXEL_AXIS) == 1:
+        out = steps("sharded_motion_epoch", grads_key + (optimizer,),
+                    lambda *leaves: update(*leaves, *grads(*leaves)),
+                    _leaves(state), video)
+    else:
+        g = pixel_mean(mesh, *steps("sharded_frame_grads", grads_key, grads,
+                                    _leaves(state), video))
+        out = steps("sharded_adam", (optimizer,), update, _leaves(state) + g)
+    t_global = video.shape[0] * axis_size(mesh, TIME_AXIS)
+    tot = all_reduce(out[7], mesh, TIME_AXIS) / t_global
+    return _from_leaves(out[:7]), {"recon_mse": tot[0], "reg": tot[1]}
 
 
 def _no_analytic_on_pixels(mesh, gram_mode: str) -> None:
@@ -141,11 +207,21 @@ def sharded_compute_grams(state: model_lib.DNMFState, video: torch.Tensor,
     """This rank's frames' Grams ``(G [T_loc, K, K], c1 [T_loc, K])``; on a
     pixel axis the shards' partial sums over their voxels are added over
     it.  ``gram_mode="analytic"`` (time meshes only) evaluates the closed
-    forms of the rank's frames and runs the c1 pass on them."""
+    forms of the rank's frames and runs the c1 pass on them.  One step
+    (the rank's voxel range in its key), then the sum over the pixel
+    axis."""
     _no_analytic_on_pixels(mesh, gram_mode)
-    g, c1 = model_lib.grams_local(
-        state, video, model, frame_block, use_kernels, gram_mode,
-        gram_window, p_offset=_p_offset(mesh, video))
+    p_offset = _p_offset(mesh, video)
+
+    def step(*leaves):
+        return model_lib.grams_local(
+            _from_leaves(leaves), video, model, frame_block, use_kernels,
+            gram_mode, gram_window, p_offset=p_offset)
+
+    g, c1 = graphs.mesh_steps(use_kernels)(
+        "compute_grams", (model, frame_block, use_kernels,
+                        gram_mode, gram_window, p_offset),
+        step, _leaves(state), video)
     return pixel_sum(mesh, g, c1)
 
 
@@ -167,33 +243,72 @@ def edge_halo(c_loc: torch.Tensor, mesh):
 
 def sharded_footprint_update(state: model_lib.DNMFState, grams: torch.Tensor,
                              c1: torch.Tensor, mesh, iters: int,
-                             gamma: float = 0.0, solver: str = "mu"
+                             gamma: float = 0.0, solver: str = "mu",
+                             use_kernels: bool = False
                              ) -> model_lib.DNMFState:
     """``iters`` trace updates of this rank's frames with the +-1-frame
     halo (:func:`edge_halo`) where ``gamma`` smooths: the multiplicative
     rule (``"mu"``) or FISTA (``"fista"``), whose step takes the maximum
-    over the time axis of the ranks' Lipschitz bounds plus ``4 gamma``."""
+    over the time axis of the ranks' Lipschitz bounds plus ``4 gamma``.
+
+    Steps: without smoothing, the ``iters`` updates in one (FISTA's
+    bound reduced before it, an input); with it, one iteration a step
+    (MU: the traces; FISTA: the iterate, the extrapolated point and the
+    momentum scalar, carried in the step's buffers), run ``iters`` times
+    with the halo's exchange before each.  ``use_kernels`` is the route
+    of the steps around it, as ``models.graphs.footprint_update``'s: the
+    update runs no kernel."""
     if solver not in ("mu", "fista"):
         raise ValueError(f"unknown trace solver: {solver!r}")
-    g = gamma if gamma else None
-
-    def halo(c_loc):
-        return edge_halo(c_loc, mesh)
-
+    steps = graphs.mesh_steps(use_kernels)
+    c = state.c
+    lip = None
     if solver == "fista":
         lip = all_reduce(mu_ops.gram_lipschitz(grams), mesh, TIME_AXIS,
                          op=dist.ReduceOp.MAX)
         if gamma:
             lip = lip + 4.0 * gamma
-        c = mu_ops.nnls_temporal(state.c, grams, c1, iters=iters, gamma=g,
-                                 lipschitz=lip,
-                                 halo_fn=halo if gamma else None)
+    if not gamma:
+        if solver == "mu":
+            (c,) = steps("sharded_mu", (iters,), lambda c, g, c1: (
+                mu_ops.run_mu_temporal(c, g, c1, iters),), (c, grams, c1))
+        else:
+            (c,) = steps("sharded_fista", (iters,), lambda c, g, c1, lip: (
+                mu_ops.nnls_temporal(c, g, c1, iters, lipschitz=lip),),
+                (c, grams, c1, lip))
         return state.replace(c=c)
-    c = state.c
-    for _ in range(iters):
-        c = mu_ops.mu_temporal_step(c, grams, c1, gamma=g,
-                                    halo=halo(c) if gamma else None)
-    return state.replace(c=c)
+
+    def exchange(at):
+        """Fill the halo buffers (the last two) from buffer ``at``."""
+        def between(bufs):
+            for buf, col in zip(bufs[-2:], edge_halo(bufs[at], mesh)):
+                buf.copy_(col)
+        return between
+
+    edges = (c[:, 0], c[:, -1])  # placeholders: each iteration fills them
+    if solver == "mu":
+        def mu_step(c, g, c1, left, right):
+            c.copy_(mu_ops.mu_temporal_step(c, g, c1, gamma=gamma,
+                                            halo=(left, right)))
+            return ()
+
+        bufs = steps.loop("sharded_mu_halo", (gamma,), mu_step,
+                          (c, grams, c1) + edges, (0, 3, 4), iters,
+                          exchange(0))
+        return state.replace(c=bufs[0])
+
+    def fista_step(c_prev, y_c, tk, g, c1, inv_l, left, right):
+        new = mu_ops.fista_step(c_prev, y_c, tk, g, c1, inv_l, gamma,
+                                (left, right))
+        for buf, value in zip((c_prev, y_c, tk), new):
+            buf.copy_(value)
+        return ()
+
+    tk = torch.ones((), dtype=c.dtype, device=c.device)
+    bufs = steps.loop("sharded_fista_halo", (gamma,), fista_step,
+                      (c, c, tk, grams, c1, 1.0 / lip) + edges,
+                      (0, 1, 2, 6, 7), iters, exchange(1))
+    return state.replace(c=bufs[0])
 
 
 def sharded_refined_rounds(state: model_lib.DNMFState, video: torch.Tensor,
@@ -206,16 +321,16 @@ def sharded_refined_rounds(state: model_lib.DNMFState, video: torch.Tensor,
     """Per-frame position refinement and tracked-Gram trace updates on
     this rank's frames (time meshes only).  Each frame's position problem
     and tracked Gram are its own and these trace updates do not smooth,
-    so :func:`dnmf_tpu_torch.models.refine.refined_rounds` runs as it is
-    on each rank, with no communication.  ``pos_t``: the rank's ``[T_loc,
-    K, 3]`` (None: the anchors).  Returns ``(state, pos_t [T_loc, K, 3],
-    {"recon_mse": [T_loc]})``."""
-    from dnmf_tpu_torch.models import refine as refine_lib
-
+    so :func:`dnmf_tpu_torch.models.graphs.refined_rounds` (with the
+    kernels its three captured programs, else
+    :func:`dnmf_tpu_torch.models.refine.refined_rounds`) runs as it is on
+    each rank, with no communication.  ``pos_t``: the rank's ``[T_loc, K, 3]`` (None: the
+    anchors).  Returns ``(state, pos_t [T_loc, K, 3], {"recon_mse":
+    [T_loc]})``."""
     if axis_size(mesh, PIXEL_AXIS) > 1:
         raise ValueError("sharded_refined_rounds requires a time-only mesh "
                          "(pixel axis must have size 1)")
-    return refine_lib.refined_rounds(
+    return graphs.refined_rounds(
         state, video, model, rounds=rounds, epochs=epochs, mu_iters=mu_iters,
         learning_rate=learning_rate, prior=prior, frame_block=frame_block,
         pos_t=pos_t, use_kernels=use_kernels, gram_mode=gram_mode,

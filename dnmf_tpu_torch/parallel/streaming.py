@@ -10,10 +10,16 @@ reads only its own run of voxels.  Per-rank gradient and Gram
 buffers collect the blocks, and one Adam step follows the pass: the math
 of the device-resident sharded epoch.
 
-These run on a mesh, op by op (the sharded steps are not captured).
-Without a mesh the engine runs a streamed source's steps through
-``models.graphs.motion_epoch_streaming`` and ``compute_grams_streaming``
-instead, each block step one captured graph on the card.
+Each block's local work (the gradients, or the Grams, of the rank's
+frames and voxels) is one step of the block runner of
+``models.graphs.mesh_steps(use_kernels)``: with the kernels one captured
+graph replayed per block, as ``models.graphs.motion_epoch_streaming``
+does on one device, else (or inside ``models.graphs.disabled()``) the
+plain :func:`~dnmf_tpu_torch.models.dnmf.eager_blocks`.  The sum or mean
+over a pixel axis and the copy of the block's valid frames into the
+rank's buffers run eagerly after each block, on the replay's outputs in
+place (they hold until the next block's replay); the Adam step after the
+pass runs eagerly too, once per epoch, as on one device.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from dnmf_tpu_torch.config import ModelConfig
 from dnmf_tpu_torch.models import dnmf as model_lib
+from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.parallel.mesh import (PIXEL_AXIS, TIME_AXIS, all_reduce,
                                           axis_size, video_sharding)
 from dnmf_tpu_torch.parallel.sharded import (_no_analytic_on_pixels,
@@ -59,16 +66,24 @@ def _shard_geometry(state, source, mesh,
     return n, shard_len, block, npix
 
 
-def _rank_blocks(source, mesh, shard_len: int, block: int):
-    """This rank's blocks from ``source.blocks``: ``(frames [block, P_loc]
-    on the source's device, offset in the rank's frames, valid frames)``,
+class _RankSource:
+    """This rank's blocks of ``source`` as a source of their own (what a
+    block runner reads): ``blocks()`` yields ``(frames [block, P_loc] on
+    the source's device, offset in the rank's frames, valid frames)``,
     the last block zero-padded."""
-    sh = video_sharding(mesh)
-    first = sh.time_index * shard_len
-    for frames, start, valid in source.blocks(
-            first, first + shard_len, sh.voxels(source.num_voxels)):
-        # ``block`` <= the source's block holds every valid frame.
-        yield frames[:block], start - first, valid
+
+    def __init__(self, source, mesh, shard_len: int, block: int):
+        self.source, self.mesh = source, mesh
+        self.shard_len, self.block = shard_len, block
+
+    def blocks(self):
+        sh = video_sharding(self.mesh)
+        first = sh.time_index * self.shard_len
+        for frames, start, valid in self.source.blocks(
+                first, first + self.shard_len,
+                sh.voxels(self.source.num_voxels)):
+            # ``block`` <= the source's block holds every valid frame.
+            yield frames[:self.block], start - first, valid
 
 
 def sharded_motion_epoch_streaming(state: model_lib.DNMFState, source,
@@ -82,13 +97,27 @@ def sharded_motion_epoch_streaming(state: model_lib.DNMFState, source,
     recording's means, as floats, on every rank."""
     n, shard_len, block, _ = _shard_geometry(state, source, mesh, model)
     p_offset = video_sharding(mesh).p_offset(source.num_voxels)
+
+    def step(pos, sigma, beta, c, frames):
+        return model_lib.frame_grads_local(
+            model_lib.DNMFState(beta, c, pos, sigma, None, None, None),
+            frames, model, gamma, block, use_kernels, p_offset=p_offset)
+
+    def per_block(off):
+        st = model_lib.block_state(state, off, block)
+        return st.beta, st.c
+
+    run_blocks = graphs.mesh_steps(use_kernels).blocks(
+        "sharded_motion_epoch_streaming",
+        (model, gamma, block, use_kernels, p_offset))
     grads = torch.zeros_like(state.beta)
     sums = torch.zeros(2, dtype=torch.float32, device=state.beta.device)
-    for frames, off, valid in _rank_blocks(source, mesh, shard_len, block):
-        st = model_lib.block_state(state, off, block)
-        g, mses, regs = model_lib.frame_grads_local(
-            st, frames, model, gamma, block, use_kernels, p_offset=p_offset)
-        g, mses, regs = pixel_mean(mesh, g, mses, regs)
+    for off, out in run_blocks(step, _RankSource(source, mesh, shard_len,
+                                                 block),
+                               (state.pos, state.sigma), per_block,
+                               with_valid=False):
+        valid = min(block, shard_len - off)
+        g, mses, regs = pixel_mean(mesh, *out)
         grads[off:off + valid] = g[:valid]
         sums = sums + torch.stack([mses[:valid].sum(), regs[:valid].sum()])
     state = optimizer.step(state, grads)
@@ -114,11 +143,23 @@ def sharded_compute_grams_streaming(state: model_lib.DNMFState, source,
     kw = dict(dtype=torch.float32, device=state.beta.device)
     grams = torch.zeros((shard_len, k, k), **kw)
     c1s = torch.zeros((shard_len, k), **kw)
-    for frames, off, valid in _rank_blocks(source, mesh, shard_len, block):
-        g, c1 = model_lib.grams_local(
-            model_lib.block_state(state, off, block), frames, model, block,
-            use_kernels, gram_mode, gram_window, p_offset=p_offset)
-        g, c1 = pixel_sum(mesh, g, c1)
+
+    def step(pos, sigma, beta, frames):
+        return model_lib.grams_local(
+            model_lib.DNMFState(beta, None, pos, sigma, None, None, None),
+            frames, model, block, use_kernels, gram_mode, gram_window,
+            p_offset=p_offset)
+
+    run_blocks = graphs.mesh_steps(use_kernels).blocks(
+        "sharded_compute_grams_streaming",
+        (model, block, use_kernels, gram_mode, gram_window, p_offset))
+    for off, out in run_blocks(
+            step, _RankSource(source, mesh, shard_len, block),
+            (state.pos, state.sigma),
+            lambda off: (model_lib.block_state(state, off, block).beta,),
+            with_valid=False):
+        valid = min(block, shard_len - off)
+        g, c1 = pixel_sum(mesh, *out)
         grams[off:off + valid] = g[:valid]
         c1s[off:off + valid] = c1[:valid]
     return grams, c1s

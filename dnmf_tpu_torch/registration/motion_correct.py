@@ -843,18 +843,6 @@ def _iteration_chunks(chunks, cfg: RegistrationConfig, is_last: bool,
     return [chunks[i] for i in sorted(set(sel.tolist()))]
 
 
-def eager_block(correct, template, cfg: RegistrationConfig, add_to_movie,
-                device):
-    """A block function of :func:`_stream_chunk` that runs ``correct``
-    (:func:`rigid_block` or :func:`pwrigid_block`) and :func:`block_sums`
-    eagerly on the frames moved to ``device`` (the mesh path's ranks)."""
-    def block(frames, collect):
-        corrected, shifts = correct(frames.to(device), template, cfg,
-                                    add_to_movie)
-        return (corrected, shifts) + block_sums(corrected)
-    return block
-
-
 def _stream_chunk(video, idx, cfg: RegistrationConfig, block,
                   collect: bool):
     """Register one chunk in frame blocks.

@@ -2167,3 +2167,172 @@ def test_streamed_source_reuses_its_blocks_across_passes(dev):
         one_pass()
     assert src._side is side
     assert torch.cuda.memory_reserved() == reserved
+
+
+# A mesh's steps between its collectives (graphs.mesh_steps for the
+# sharded epoch, Grams, trace updates and streamed blocks; the entries of
+# one device for refinement, the width fit, the recordings round and
+# registration's blocks) on a one-rank gloo group whose rank keeps its
+# tensors on the card: captured equal to eager bit for bit, the replays'
+# launches (held to each graph's kernel nodes at its capture) equal to the
+# eager run's, every entry in the one pool.
+MESH_STEPS = ["motion", "grams_exact", "grams_analytic", "mu", "fista",
+              "mu_halo", "fista_halo", "refine", "sigma", "batched",
+              "stream_motion", "stream_grams", "reg_rigid", "reg_pwrigid"]
+MESH_KERNELS = {  # the kernels that each mesh step's eager run launches
+    "motion": {"motion_block"}, "grams_exact": {"gram_block"},
+    "grams_analytic": {"c1_block"}, "mu": set(), "fista": set(),
+    "mu_halo": set(), "fista_halo": set(),
+    "refine": {"refine_block", "gram_block_tracked"},
+    "sigma": {"refine_block"}, "batched": {"motion_block", "gram_block"},
+    "stream_motion": {"motion_block"}, "stream_grams": {"gram_block"},
+    "reg_rigid": set(),
+    "reg_pwrigid": {"phase_corr_block", "fused_separable_warp"}}
+
+
+@pytest.fixture(scope="module")
+def one_rank_group(tmp_path_factory):
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    path = tmp_path_factory.mktemp("pg")
+    dist.init_process_group("gloo", init_method=f"file://{path}/pg",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_call(dev, step):
+    """One call of the mesh step ``step`` on a one-rank time mesh with the
+    kernels, as the engine makes it (``graphs.disabled()`` runs it
+    eagerly)."""
+    from dnmf_tpu_torch import parallel
+    from dnmf_tpu_torch.engine import trainer as ttr
+    from dnmf_tpu_torch.models import dnmf as tM
+
+    mesh = parallel.make_mesh(num_time=1)
+    model, state, video = _graph_inputs(dev)
+    adam = tM.Adam(1e-3)
+
+    if step == "motion":
+        return lambda: parallel.sharded_motion_epoch(
+            state, video, model, adam, 0.5, mesh, GRAPH_FB, True)
+    if step.startswith("grams"):
+        return lambda: parallel.sharded_compute_grams(
+            state, video, model, mesh, GRAPH_FB, True, step.split("_")[1])
+    if step.split("_")[0] in ("mu", "fista"):
+        g, c1 = tM.grams_local(state, video, model, GRAPH_FB, True, "exact")
+        gamma = 0.05 if step.endswith("halo") else 0.0
+        return lambda: parallel.sharded_footprint_update(
+            state, g, c1, mesh, 20, gamma, step.split("_")[0], True)
+    if step == "refine":
+        return lambda: parallel.sharded_refined_rounds(
+            state, video, model, mesh, rounds=2, epochs=3, mu_iters=10,
+            frame_block=GRAPH_FB, use_kernels=True)
+    if step == "sigma":
+        opt = tcfg.OptimizerConfig(learning_rate=1e-3, sigma_steps=3,
+                                   sigma_frames=6, seed=0)
+        rt = tcfg.RuntimeConfig(frame_block=GRAPH_FB, mesh_time=1,
+                                use_kernels=True)
+
+        def sigma():
+            eng = ttr.DeformableNMF(model, opt, rt, positions=state.pos,
+                                    device=dev)
+            eng.update_sigma(video)
+            return eng.state.sigma
+        return sigma
+    if step == "batched":
+        states = parallel.stack_states([state, state.replace(
+            c=state.c.flip(1))])
+        videos = torch.stack([video, video.flip(0)])
+        return lambda: parallel.batched_round(
+            states, videos, model, adam, 0.5, 5, frame_block=GRAPH_FB,
+            use_kernels=True, mesh=mesh)
+    if step.startswith("stream"):
+        src = StreamingVideo(video.cpu().numpy(), block=STREAM_BLOCK,
+                             device=dev)
+        if step == "stream_motion":
+            return lambda: parallel.sharded_motion_epoch_streaming(
+                state, src, model, adam, 0.5, mesh, True)
+        return lambda: parallel.sharded_compute_grams_streaming(
+            state, src, model, mesh, True)
+    rng = np.random.default_rng(0)
+    shape = (48, 40, 6)
+    shifts = [(0.0, 0.0, 0.0), (1.3, -0.6, 0.4), (-1.8, 1.2, -0.3)] * 2
+    frames = _shifted_video(rng, shape, shifts) + 2.0
+    template = frames.mean(0) * 1.01
+    if step == "reg_rigid":
+        cfg = RegistrationConfig(max_shifts=(3, 3, 1), frame_block=4)
+        fn = parallel.sharded_register_rigid
+    else:
+        cfg = RegistrationConfig(**REG_PW, pw_rigid=True, frame_block=4,
+                                 remap_mode="fused")
+        fn = parallel.sharded_register_pwrigid
+    return lambda: fn(frames, cfg, mesh, template=template, device=dev)
+
+
+def _mesh_flat(out):
+    """A mesh step's outputs as tensors (host arrays and floats too)."""
+    if isinstance(out, np.ndarray):
+        return [torch.from_numpy(np.ascontiguousarray(out))]
+    if isinstance(out, float):
+        return [torch.tensor(out)]
+    if isinstance(out, (tuple, list)):
+        return [t for part in out for t in _mesh_flat(part)]
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _mesh_flat(v)]
+    return _flat(out)
+
+
+@pytest.mark.parametrize("step", MESH_STEPS)
+def test_captured_mesh_step_equals_eager(one_rank_group, graph_cache, dev,
+                                         step):
+    run = _mesh_call(dev, step)
+    with graph_cache.disabled():
+        ref = _mesh_flat(run())
+    assert graph_cache.entries() == []
+    for _ in range(2):  # the capturing call, then replays only
+        got = _mesh_flat(run())
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            assert torch.equal(_bits(a), _bits(b))
+    assert graph_cache.entries()
+    assert all(e.graph is not None and e.replays >= 2
+               for e in graph_cache.entries())
+
+
+@pytest.mark.parametrize("step", MESH_STEPS)
+def test_mesh_replay_launches_equal_eager(one_rank_group, graph_cache, dev,
+                                          step):
+    run = _mesh_call(dev, step)
+    fused.reset_launch_counts()
+    with graph_cache.disabled():
+        run()
+    eager = {k: n for k, n in fused.launch_counts().items() if n}
+    run()  # warm-ups and captures
+    fused.reset_launch_counts()
+    run()  # replays only
+    assert {k: n for k, n in fused.launch_counts().items() if n} == eager
+    assert set(eager) == MESH_KERNELS[step]
+
+
+def test_mesh_entries_share_the_pool(one_rank_group, graph_cache, dev):
+    """The mesh's entries of several steps, captured one after another,
+    hold one pool; replayed again in another order each equals its eager
+    run."""
+    names = ("motion", "fista_halo", "refine", "stream_grams",
+             "reg_pwrigid")
+    runs = {name: _mesh_call(dev, name) for name in names}
+    with graph_cache.disabled():
+        ref = {name: _mesh_flat(run()) for name, run in runs.items()}
+    for run in runs.values():
+        run()
+    pools = {tuple(e.graph.pool()) for e in graph_cache.entries()}
+    assert len(graph_cache.entries()) >= len(names) and len(pools) == 1
+    for name in reversed(names):
+        got = _mesh_flat(runs[name]())
+        assert all(torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(got, ref[name]))

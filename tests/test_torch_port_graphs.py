@@ -2,10 +2,12 @@
 CPU, where its entries keep the step functions and call them eagerly on
 their static buffers.
 
-* A ``TorchDispatchMode`` probe over the round's steps, through the
-  kernel wrappers' CPU route: no tensor made from host data
-  (``aten.lift_fresh``: a copy from pageable host memory, which a CUDA
-  graph cannot hold) and no host read (``aten._local_scalar_dense``).
+* A ``TorchDispatchMode`` probe (``tests/torch_host_probe.py``) over the
+  round's steps, through the kernel wrappers' CPU route: no tensor made
+  from host data (``aten.lift_fresh``: a copy from pageable host memory,
+  which a CUDA graph cannot hold), no host read
+  (``aten._local_scalar_dense``) and no collective (``c10d.*``; a mesh's
+  steps, ``tests/test_torch_port_graphs_mesh.py``).
 * The cache's key and static-buffer protocol against the plain step
   functions, bit for bit.
 * ``fused_rounds`` through that protocol against the JAX package's
@@ -15,13 +17,12 @@ their static buffers.
 """
 
 import contextlib
-import traceback
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch_host_probe import HostProbe as _HostProbe
 
 from dnmf_tpu import config as jcfg
 from dnmf_tpu.models import dnmf as jM
@@ -31,7 +32,6 @@ from dnmf_tpu_torch.models import graphs
 
 SIZE = (16, 12, 4)
 K, T, FB = 6, 7, 3  # the last frame block is short
-HOST_OPS = ("aten.lift_fresh", "aten._local_scalar_dense")
 
 
 @pytest.fixture(autouse=True)
@@ -76,24 +76,6 @@ def _inputs(rng, scaling="normalized", t=T):
 def _same(a: tM.DNMFState, b: tM.DNMFState) -> bool:
     return all(torch.equal(getattr(a, f), getattr(b, f))
                for f in tM.STATE_FIELDS)
-
-
-class _HostProbe(TorchDispatchMode):
-    """Logs the ops of :data:`HOST_OPS` with the port's line that ran
-    them."""
-
-    def __init__(self):
-        super().__init__()
-        self.hits = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func)
-        if name.startswith(HOST_OPS):
-            where = [f"{f.filename.split('dnmf_tpu_torch/')[-1]}:{f.lineno}"
-                     for f in traceback.extract_stack()
-                     if "dnmf_tpu_torch/" in f.filename]
-            self.hits.append((name, where[-1] if where else "?"))
-        return func(*args, **(kwargs or {}))
 
 
 def _step(name, state, video, model):

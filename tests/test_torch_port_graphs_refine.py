@@ -11,8 +11,8 @@ buffers.
   programs' steps: no tensor made from host data, no host read.
 * One entry per program for every round of ``refined_rounds``; the
   trainer's ``refine`` and ``fit(fit_sigma=True)`` through the cache,
-  ``graphs.disabled()`` and a mesh around it; returned tensors that
-  share no storage with the cache.
+  ``graphs.disabled()`` around it, and on a one-rank mesh; returned
+  tensors that share no storage with the cache.
 * Through the cache against the JAX package's plain XLA path, at the
   tolerances of ``tests/test_torch_port_refine.py`` (positions 1e-4 px;
   C and recon_mse 1e-4 of the reference's max; sigma 3e-4, its mse
@@ -242,23 +242,42 @@ def test_trainer_keeps_a_run_under_max_entries(rng):
 
 def test_mesh_runs_eagerly(tmp_path, rng):
     """On a mesh (here a one-rank ``gloo`` group) the width fit, refine and
-    the recordings round run eagerly: no entry."""
+    the recordings round go through the entries of one device, and the
+    sharded epoch, Grams and trace update through the mesh's: bit for bit
+    the ``graphs.disabled()`` run, which makes none."""
     import torch.distributed as dist
 
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
+    runs = []
     try:
-        eng, video = _engine(rng, runtime=dict(mesh_time=1))
-        eng.fit(video)
-        eng.refine(video, rounds=2, epochs=2, mu_iters=5)
-        inp = B._inputs(6, aniso=False)
-        tP.batched_round(B._port_states(inp), B._t(inp["videos"]),
-                         B._model(6, False, tcfg.ModelConfig), tM.Adam(1e-3),
-                         0.1, 3, frame_block=FB, use_kernels=True,
-                         mesh=tP.make_mesh(num_time=1))
-        assert graphs.entries() == []
+        for cached in (True, False):
+            graphs.clear()
+            eng, video = _engine(np.random.default_rng(5),
+                                 runtime=dict(mesh_time=1))
+            inp = B._inputs(6, aniso=False)
+            with contextlib.nullcontext() if cached else graphs.disabled():
+                eng.fit(video)
+                res = eng.refine(video, rounds=2, epochs=2, mu_iters=5)
+                rec = tP.batched_round(
+                    B._port_states(inp), B._t(inp["videos"]),
+                    B._model(6, False, tcfg.ModelConfig), tM.Adam(1e-3), 0.1,
+                    3, frame_block=FB, use_kernels=True,
+                    mesh=tP.make_mesh(num_time=1))
+            runs.append((res, eng.pos_t, rec, {
+                e.name: e.replays for e in graphs.entries()}))
     finally:
         dist.destroy_process_group()
+    (got, pos_t, rec, entries), (ref, pos_e, rec_e, none) = runs
+    assert none == {}
+    # fit: 3 rounds (the first annealed) of 2 epochs, the widths fitted in
+    # rounds 2 and 3; refine: 2 rounds through one entry per program.
+    assert entries["sharded_motion_epoch"] == 6
+    assert entries["sigma_fit"] == 2 and entries["batched_round"] == 1
+    assert all(entries[name] == 2 for name in PROGRAMS)
+    assert _same(got.state, ref.state) and torch.equal(pos_t, pos_e)
+    assert _same(rec, rec_e)
+    assert _strip(got.metrics) == _strip(ref.metrics)
 
 
 def test_returned_tensors_share_no_storage_with_the_cache(rng):

@@ -8,7 +8,7 @@ and calls it eagerly on its static buffers.
 * The cache's route against the step called directly, bit for bit: one
   entry per block shape (the tail block its own) replayed across
   template iterations, ``graphs.disabled()`` eager, and a one-rank mesh's
-  registration eager.
+  registration through the same entries.
 * ``MotionCorrect`` and ``summary_images`` through the cache against the
   JAX package at the tolerances of ``test_torch_port_registration.py``
   (shifts 1e-4 px, images 1e-4 of the reference's max magnitude) and
@@ -238,6 +238,12 @@ def test_tile_and_correct_is_a_block_of_one(rng):
 
 
 def test_one_rank_mesh_registration_stays_eager(rng, tmp_path):
+    """On a one-rank ``gloo`` mesh the sharded registration's frame blocks
+    go through the registration entries (T=4 in blocks of 3: a 3-frame
+    and a 1-frame entry per pass), bit for bit the ``graphs.disabled()``
+    run, which makes none, and the single-process passes."""
+    import contextlib
+
     import torch.distributed as dist
 
     from dnmf_tpu_torch.parallel import (make_mesh, sharded_register_pwrigid,
@@ -248,22 +254,34 @@ def test_one_rank_mesh_registration_stays_eager(rng, tmp_path):
                                   remap_mode="separable")
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
+    runs = []
     try:
         mesh = make_mesh(num_time=1)
-        rig = sharded_register_rigid(video, cfg, mesh, template=tmpl,
-                                     device="cpu")
-        pw = sharded_register_pwrigid(video, cfg, mesh, template=tmpl,
-                                      device="cpu")
+        for cached in (True, False):
+            graphs.clear()
+            with contextlib.nullcontext() if cached else graphs.disabled():
+                rig = sharded_register_rigid(video, cfg, mesh, template=tmpl,
+                                             device="cpu")
+                pw = sharded_register_pwrigid(video, cfg, mesh,
+                                              template=tmpl, device="cpu")
+            runs.append((rig, pw, sorted(
+                (e.name, e.inputs[0].shape[0]) for e in graphs.entries())))
     finally:
         dist.destroy_process_group()
-    assert graphs.entries() == []
+    (rig, pw, entries), (rig_e, pw_e, none) = runs
+    assert none == []
+    assert entries == [("pwrigid_block", 1), ("pwrigid_block", 3),
+                       ("rigid_block", 1), ("rigid_block", 3)]
+    for got, ref in ((rig, rig_e), (pw, pw_e)):
+        assert same_bits(got[0], ref[0])
+        assert np.array_equal(got[1], ref[1])
+        assert np.array_equal(got[2], ref[2])
     # The single-process passes (through the cache) give the same bits.
     template = torch.from_numpy(tmpl)
     for run, fn in ((rig, tmc._batch_rigid), (pw, tmc._batch_pwrigid)):
         single = fn(video, cfg, "cpu", template)
         assert same_bits(run[0], single[0])
         assert np.array_equal(run[1], single[-1])
-    assert graphs.entries() != []
 
 
 def _assert_motion(got, ref, pw_rigid):

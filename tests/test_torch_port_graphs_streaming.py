@@ -14,8 +14,8 @@ function and calls it eagerly on its static buffers.
 * The host probe of ``tests/test_torch_port_graphs.py`` over every
   replayed block step: no tensor made from host data, no host read.
 * ``DeformableNMF.fit`` and ``.refine`` on a streamed source go through
-  the entries on one device (in parity mode too), and stay eager on a
-  one-rank ``gloo`` mesh.
+  the entries on one device (in parity mode too), and ``fit`` through the
+  mesh's streamed entries on a one-rank ``gloo`` mesh.
 """
 
 import contextlib
@@ -371,14 +371,27 @@ def test_trainer_streamed_steps_go_through_the_cache(rng, motion_mode):
 
 def test_streamed_fit_on_a_mesh_stays_eager(tmp_path, rng):
     """On a one-rank ``gloo`` mesh a streamed ``fit`` runs the sharded
-    streamed steps, eagerly: no entry."""
+    streamed steps through the mesh's entries (one per step, replayed
+    once per block), bit for bit the ``graphs.disabled()`` run, which
+    makes none."""
     import torch.distributed as dist
 
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             world_size=1, rank=0)
+    runs = []
     try:
-        eng, src = _engine(rng, mesh_time=1)
-        eng.fit(src)
-        assert graphs.entries() == []
+        for cached in (True, False):
+            graphs.clear()
+            eng, src = _engine(np.random.default_rng(3), mesh_time=1)
+            with contextlib.nullcontext() if cached else graphs.disabled():
+                res = eng.fit(src)
+            runs.append((res, {e.name: e.replays for e in graphs.entries()}))
     finally:
         dist.destroy_process_group()
+    (got, entries), (ref, none) = runs
+    assert none == {}
+    # 2 rounds x 2 epochs and 2 Gram passes per block; 2 trace updates.
+    assert entries == {"sharded_motion_epoch_streaming": 4 * BLOCKS,
+                       "sharded_compute_grams_streaming": 2 * BLOCKS,
+                       "sharded_mu": 2}
+    assert _same(got.state, ref.state)

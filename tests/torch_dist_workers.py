@@ -8,7 +8,10 @@ not share a port) that runs the port's sharded functions, case by case,
 in one start-up.  Rank 0's results (whole arrays, gathered over the mesh)
 come back as NumPy.  A case that raises on every rank comes back as
 ``{"error": traceback}``; a rank that dies, or a run past its time limit,
-fails the spawn.
+fails the spawn.  The ``captured_*`` cases of
+``tests/test_torch_port_graphs_mesh.py`` run their call through the graph
+cache and inside ``graphs.disabled()`` on every rank
+(:func:`_captured_and_eager`).
 """
 
 from __future__ import annotations
@@ -326,3 +329,208 @@ def pod_check(inp):
     from dnmf_tpu_torch.tools import pod_check as pc
 
     return {"failed": pc.run_all(device="cpu", verbose=False)}
+
+
+# ------------------------------------------- the captured mesh steps
+def _same(a, b) -> bool:
+    """Bit-for-bit equality of nested results (dicts, sequences, tensors,
+    arrays, numbers)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return np.array_equal(_np(a), _np(b))
+
+
+def _captured_and_eager(run) -> dict:
+    """``run()`` through the graph cache, every replay under the host
+    probe (``tests/torch_host_probe.py``), then again inside
+    ``graphs.disabled()``.  Returns the captured result and, from every
+    rank: whether the two runs are equal bit for bit, the entries made
+    (``(name, replays)``) and the probe's hits."""
+    from torch_host_probe import probed_replays
+
+    from dnmf_tpu_torch.models import graphs
+
+    graphs.clear()
+    with probed_replays() as hits:
+        got = run()
+    entries = sorted((e.name, e.replays) for e in graphs.entries())
+    graphs.clear()
+    with graphs.disabled():
+        ref = run()
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, (_same(got, ref), entries, hits))
+    return {"got": got, "equal": [r[0] for r in ranks],
+            "entries": [r[1] for r in ranks],
+            "hits": [h for r in ranks for h in r[2]]}
+
+
+def captured_steps(inp):
+    """The sharded epoch, Grams and trace updates with the kernels (the
+    step runner ``graphs.mesh_steps(True)``), captured and eager."""
+    mesh, model = _mesh(inp), _model(inp)
+    state = parallel.shard_state(tM.state_from_numpy(inp["state"]), mesh)
+    video = parallel.shard_video(torch.as_tensor(inp["video"]), mesh)
+    f = mesh_lib.video_sharding(mesh).frames(inp["grams"].shape[0])
+    grams = torch.as_tensor(inp["grams"])[f].contiguous()
+    c1 = torch.as_tensor(inp["c1"])[f].contiguous()
+
+    def run():
+        st, m = parallel.sharded_motion_epoch(
+            state, video, model, tM.Adam(inp["lr"]), inp["gamma"], mesh,
+            frame_block=inp["frame_block"], use_kernels=True)
+        out = _whole_state(st, mesh)
+        out.update({k: float(v) for k, v in m.items()})
+        g, c = parallel.sharded_compute_grams(
+            state, video, model, mesh, frame_block=inp["frame_block"],
+            use_kernels=True, gram_mode=inp["gram_mode"])
+        out["grams"] = _np(parallel.gather_time(g, mesh))
+        out["c1"] = _np(parallel.gather_time(c, mesh))
+        for label, (iters, gamma, solver) in inp["runs"].items():
+            st = parallel.sharded_footprint_update(
+                state, grams, c1, mesh, iters=iters, gamma=gamma,
+                solver=solver, use_kernels=True)
+            out[label] = _np(parallel.gather_time(st.c, mesh, dim=1))
+        return out
+
+    return _captured_and_eager(run)
+
+
+def _source(inp):
+    """The streamed source of a case: a ``StreamingVideo`` of the array,
+    or a ``RawFileVideo`` of it that rank 0 writes."""
+    from dnmf_tpu_torch.data.streaming import RawFileVideo
+
+    video = inp["video"]
+    if not inp.get("raw"):
+        return StreamingVideo(video, block=inp["block"], device="cpu")
+    if dist.get_rank() == 0:
+        video.tofile(inp["raw"])
+    dist.barrier()
+    return RawFileVideo(inp["raw"], video.shape, block=inp["block"],
+                        device="cpu")
+
+
+def captured_stream(inp):
+    """The sharded streamed epoch and Grams, then the halo'd trace update,
+    with the kernels, captured and eager."""
+    mesh, model = _mesh(inp), _model(inp)
+    state = parallel.shard_state(tM.state_from_numpy(inp["state"]), mesh)
+    src = _source(inp)
+
+    def run():
+        st, m = parallel.sharded_motion_epoch_streaming(
+            state, src, model, tM.Adam(inp["lr"]), inp["gamma"], mesh,
+            use_kernels=True)
+        out = _whole_state(st, mesh)
+        out["recon_mse"] = m["recon_mse"]
+        g, c1 = parallel.sharded_compute_grams_streaming(
+            st, src, model, mesh, use_kernels=True)
+        out["grams"] = _np(parallel.gather_time(g, mesh))
+        out["c1"] = _np(parallel.gather_time(c1, mesh))
+        st = parallel.sharded_footprint_update(
+            st, g, c1, mesh, iters=inp["mu_iters"], gamma=inp["mu_gamma"],
+            use_kernels=True)
+        out["c_final"] = _np(parallel.gather_time(st.c, mesh, dim=1))
+        return out
+
+    return _captured_and_eager(run)
+
+
+def captured_engine(inp):
+    """A ``DeformableNMF`` on a mesh with the kernels (their plain versions
+    on the CPU) through ``inp["calls"]``, captured and eager: the whole
+    state and ``pos_t`` after each call, and the metrics without their
+    seconds."""
+    model = _model(inp)
+
+    def run():
+        eng = ttr.DeformableNMF(
+            model, tcfg.OptimizerConfig(**inp["opt"]),
+            tcfg.RuntimeConfig(use_kernels=True, **inp["runtime"]),
+            device="cpu")
+        eng.state = parallel.shard_state(
+            tM.state_from_numpy(inp["state"]), eng._mesh)
+        eng._base_sigma = eng.state.sigma
+        video = _source(inp) if inp.get("block") else inp["video"]
+        after = []
+        for method, kw in inp["calls"]:
+            getattr(eng, method)(video, **kw)
+            snap = _whole_state(eng.state, eng._mesh)
+            if eng.pos_t is not None:
+                snap["pos_t"] = _np(parallel.gather_time(eng.pos_t,
+                                                         eng._mesh))
+            after.append(snap)
+        metrics = [{k: v for k, v in m.items() if k != "seconds"}
+                   for m in eng.metrics]
+        return {"after": after, "metrics": metrics}
+
+    return _captured_and_eager(run)
+
+
+def captured_register(inp):
+    """``sharded_register_rigid`` / ``_pwrigid``, each rank's frame blocks
+    through the registration entries, captured and eager."""
+    mesh = _mesh(inp)
+    cfg = tcfg.RegistrationConfig(**inp["cfg"])
+    fn = getattr(parallel, inp["fn"])
+
+    def run():
+        templ, corrected, shifts = fn(inp["video"], cfg, mesh,
+                                      template=inp["template"], device="cpu")
+        return {"template": _np(templ),
+                "corrected": _np(parallel.gather_time(
+                    torch.from_numpy(corrected), mesh)),
+                "shifts": _np(parallel.gather_time(torch.from_numpy(
+                    np.ascontiguousarray(shifts)), mesh))}
+
+    return _captured_and_eager(run)
+
+
+def captured_batched(inp):
+    """``batched_round`` over a batch axis with the kernels, each rank's
+    recordings one replay, captured and eager."""
+    mesh, model = _mesh(inp), _model(inp)
+    states = parallel.stack_states([tM.state_from_numpy(s)
+                                    for s in inp["states"]])
+
+    def run():
+        new, m = parallel.batched_round(
+            states, torch.as_tensor(inp["videos"]), model,
+            tM.Adam(inp["lr"]), inp["gamma"], inp["mu_iters"],
+            frame_block=inp["frame_block"], use_kernels=True, mesh=mesh)
+        return {"beta": _np(new.beta), "c": _np(new.c),
+                "recon_mse": _np(m["recon_mse"])}
+
+    return _captured_and_eager(run)
+
+
+def captured_refine(inp):
+    """``sharded_refined_rounds`` with the kernels (through
+    ``graphs.refined_rounds``), captured and eager."""
+    mesh, model = _mesh(inp), _model(inp)
+    state = parallel.shard_state(tM.state_from_numpy(inp["state"]), mesh)
+    video = parallel.shard_video(torch.as_tensor(inp["video"]), mesh)
+
+    def run():
+        st, pos_t, m = parallel.sharded_refined_rounds(
+            state, video, model, mesh, use_kernels=True, **inp["kw"])
+        return {"pos_t": _np(parallel.gather_time(pos_t, mesh)),
+                "c": _np(parallel.gather_time(st.c, mesh, dim=1)),
+                "recon_mse": _np(parallel.gather_time(m["recon_mse"],
+                                                      mesh))}
+
+    return _captured_and_eager(run)
+
+
+def probe_collectives(inp):
+    """The host probe around the mesh's collectives: the ops it logs."""
+    from torch_host_probe import HostProbe
+
+    mesh = _mesh(inp)
+    x = torch.arange(4.0)
+    with HostProbe() as probe:
+        mesh_lib.all_reduce(x, mesh, mesh_lib.TIME_AXIS)
+        mesh_lib.all_gather(x, mesh, mesh_lib.TIME_AXIS)
+    return {"ops": sorted({op for op, _ in probe.hits})}
