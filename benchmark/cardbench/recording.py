@@ -1,0 +1,113 @@
+"""The benchmark's recordings, made on the device from ``--seed``.
+
+The simulator's recipe (anchors uniform inside a margin, exponential
+calcium traces of sparse unit spikes, Gaussian cells of squared width
+``2 shape_std`` and peak 1, background noise, scaled to a peak of 1),
+with the motion written in the model's own terms: frame ``t`` shows the
+template through a smooth quadratic warp ``beta_t``, so a voxel ``x`` holds
+``sum_k c_kt g(psi_t(x) - p_k)``.  Each cell is drawn only on its box of
+voxels (:mod:`references.deformable_nmf`), so a whole-brain recording takes
+seconds.  ``beta0`` is the fit's starting warps: ``beta_t`` plus a
+seeded error, as registration would seed them.
+
+Every size and draw is fixed by the configuration's ``size``,
+``num_neurons``, ``num_frames``, ``shape_std`` and ``assumed`` and by the
+seed; the seed changes values only, never the amount of work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from references import deformable_nmf as ref
+
+
+@dataclasses.dataclass
+class Recording:
+    video: torch.Tensor  # [T, M, N, Z] float32, non-negative
+    pos: torch.Tensor  # [K, 3] anchors
+    beta0: torch.Tensor  # [T, 10, 3] the fit's starting warps
+
+    def frames_flat(self) -> torch.Tensor:
+        """``[T, P]``: how the datasets hand a recording to ``fit``."""
+        return self.video.reshape(self.video.shape[0], -1)
+
+
+# Basis rows by the order of their terms: translation, linear, quadratic.
+_GROUPS = ((0,), (1, 2, 3), (4, 5, 6, 7, 8, 9))
+
+
+def _warps(gen, t: int, size, amp_px, harmonics: int, device):
+    """``I + delta_t`` ``[T, 10, 3]``: each coefficient a mean of
+    ``harmonics`` sines of random frequency (0.5 to 6 cycles per
+    recording) and phase, scaled so that its term moves a voxel by at most
+    ``amp_px[group][axis]`` pixels."""
+    half = torch.tensor([max(float(s) - 1.0, 1.0) / 2.0 for s in size],
+                        device=device)
+    scale = torch.zeros((10, 3), device=device)
+    for group, rows in enumerate(_GROUPS):
+        for j in rows:
+            scale[j] = torch.tensor(amp_px[group], device=device) / half
+    freq = 0.5 + 5.5 * torch.rand((harmonics, 10, 3), generator=gen,
+                                  device=device)
+    phase = 2 * math.pi * torch.rand((harmonics, 10, 3), generator=gen,
+                                     device=device)
+    time = torch.arange(t, dtype=torch.float32, device=device) / t
+    wave = torch.sin(2 * math.pi * freq[None] * time[:, None, None, None]
+                     + phase[None]).mean(dim=1)
+    return ref.identity(t, device) + wave * scale
+
+
+def _traces(gen, k: int, t: int, density: float, device):
+    """Unit spikes at ``round(density (T + 9))`` distinct times per neuron,
+    convolved with 10 taps ``exp(-0.3 j)``, plus a baseline of 1."""
+    n = t + 9
+    nnz = int(round(density * n))
+    keys = torch.rand((k, n), generator=gen, device=device)
+    idx = torch.argsort(keys, dim=1)[:, :nnz]
+    spikes = torch.zeros((k, n), device=device).scatter_(1, idx, 1.0)
+    taps = torch.exp(-0.3 * torch.arange(10, dtype=torch.float32,
+                                         device=device))
+    out = torch.zeros((k, t), device=device)
+    for j in range(10):
+        out += spikes[:, j:j + t] * taps[9 - j]
+    return 1.0 + out
+
+
+def make(config: dict, seed: int, device) -> Recording:
+    size = tuple(int(s) for s in config["size"])
+    k, t = int(config["num_neurons"]), int(config["num_frames"])
+    a = config["assumed"]
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    extent = torch.tensor(size, dtype=torch.float32, device=device)
+    margin = torch.minimum(
+        torch.tensor(a["anchor_margin_px"], dtype=torch.float32,
+                     device=device), (extent - 1.0) / 2.0)
+    pos = margin + torch.rand((k, 3), generator=gen, device=device) * (
+        extent - 1.0 - 2.0 * margin)
+    beta = _warps(gen, t, size, a["warp_px"], a["warp_harmonics"], device)
+    traces = _traces(gen, k, t, a["spike_density"], device)
+    err = (torch.randn((t, 10, 3), generator=gen, device=device)
+           * (beta - ref.identity(1, device)).abs().amax(dim=0)
+           * a["start_error"])
+    beta0 = beta + err
+    render = ref.Model(size, pos, math.sqrt(2.0 * float(config["shape_std"])))
+    video = torch.empty((t,) + size, dtype=torch.float32, device=device)
+    flat = video.view(t, -1)
+    box, batches = ref.passes(render, beta)
+    with torch.no_grad():
+        for s, e in batches:
+            frames = render.recon(render.footprints(beta[s:e], box),
+                                  traces[:, s:e], box)
+            flat[s:e] = frames
+        peak = float(flat.max())
+        noise = float(a["noise_of_peak"]) * peak
+        for s, e in batches:
+            flat[s:e] += noise * torch.randn(flat[s:e].shape, generator=gen,
+                                             device=device)
+        flat.clamp_(min=0.0)
+        flat.mul_(1.0 / float(flat.max()))
+    return Recording(video=video, pos=pos, beta0=beta0)
