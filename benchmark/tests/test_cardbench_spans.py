@@ -1,0 +1,89 @@
+"""The readers of the program's spans and graph counters on a made-up
+profiled job and made-up entries: what each reads, and nothing where the
+program has no such labels or counters (a program without spans)."""
+
+import types
+
+import pytest
+
+from cardbench import harness, spec, trace
+
+SPAN_READERS = ("read_wait_ms_per_round", "host_reads_per_round",
+                "audit_ms_per_job", "replay_host_ms_per_round")
+COUNTER_READERS = ("warmup_s", "instantiate_s")
+
+
+def _profile(labels):
+    prof = trace.Profile.__new__(trace.Profile)
+    prof.wall_s, prof.device, prof.labels = 1.0, [], list(labels)
+    return prof
+
+
+def _job(rounds=2, epochs=3):
+    """A job's labels in microseconds: ``engine.fit`` around an audit of
+    2 ms and ``rounds`` rounds, each with ``epochs`` reads of 0.5 ms, one
+    mean-trace read of 1 ms and ``epochs + 2`` replays of 0.25 ms."""
+    labels, t = [("job", 0.0, 1e9)], 10.0
+    labels.append(("span.engine.audit", t, t + 2000.0))
+    t += 3000.0
+    for _ in range(rounds):
+        start = t
+        for _ in range(epochs):
+            labels.append(("span.graphs.replay", t, t + 250.0))
+            labels.append(("span.engine.read", t + 300.0, t + 800.0))
+            t += 1000.0
+        for _ in range(2):
+            labels.append(("span.graphs.replay", t, t + 250.0))
+            t += 300.0
+        labels.append(("span.engine.read", t, t + 1000.0))
+        t += 1100.0
+        labels.append(("span.engine.round", start, t))
+    labels.append(("span.engine.fit", 5.0, t + 5.0))
+    return labels
+
+
+def _run(labels=None, entries=()):
+    run = harness.Run()
+    run.profile = None if labels is None else _profile(labels)
+    run.entries = list(entries)
+    return run
+
+
+def test_span_readers_read_the_profiled_job():
+    run = _run(_job(rounds=2, epochs=3))
+    got = {name: spec.reader(name)(run) for name in SPAN_READERS}
+    assert got == pytest.approx({
+        "read_wait_ms_per_round": 3 * 0.5 + 1.0,
+        "host_reads_per_round": 4.0,
+        "audit_ms_per_job": 2.0,
+        "replay_host_ms_per_round": 5 * 0.25})
+
+
+@pytest.mark.parametrize("name", SPAN_READERS)
+def test_span_readers_read_nothing_without_the_programs_labels(name):
+    # the benchmark's own labels alone, as a program without spans leaves
+    theirs = [("job", 0.0, 1e6), ("span.motion", 10.0, 500.0),
+              ("span.grams", 600.0, 900.0)]
+    assert spec.reader(name)(_run(theirs)) is None
+    assert spec.reader(name)(_run(None)) is None
+    no_rounds = [lab for lab in _job() if lab[0] not in (
+        "span.engine.round", "span.engine.fit")]
+    assert spec.reader(name)(_run(no_rounds)) is None
+
+
+def _entry(**counters):
+    return types.SimpleNamespace(capture_seconds=1.0, **counters)
+
+
+def test_counter_readers_sum_the_entries():
+    run = _run(entries=[_entry(warmup_seconds=0.25, instantiate_seconds=0.5),
+                        _entry(warmup_seconds=0.125,
+                               instantiate_seconds=0.0625)])
+    assert spec.reader("warmup_s")(run) == 0.375
+    assert spec.reader("instantiate_s")(run) == 0.5625
+
+
+@pytest.mark.parametrize("name", COUNTER_READERS)
+def test_counter_readers_read_nothing_without_the_counters(name):
+    assert spec.reader(name)(_run(entries=[_entry(), _entry()])) is None
+    assert spec.reader(name)(_run(entries=[])) is None

@@ -125,7 +125,8 @@ class RuntimeConfig:
     gram_trust_tol: Optional[float] = 0.02
     # Raise on non-finite factors after each update phase.
     check_finite: bool = False
-    # torch.profiler trace of the last fit() round into this directory.
+    # torch.profiler trace of the last fit() round into this directory,
+    # its steps named by the spans of utils/trace.py.
     profile_dir: Optional[str] = None
     # Checkpoint after every fit() round into this directory.
     checkpoint_dir: Optional[str] = None

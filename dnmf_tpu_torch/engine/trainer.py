@@ -24,7 +24,13 @@ of ``fit_fused`` and ``refine``'s (the positions, the tracked Grams, the
 trace update) go through :mod:`dnmf_tpu_torch.models.graphs` (the JAX
 package's ``jit``): with the kernels on the card each is a captured CUDA
 graph; the Gram audit, the finiteness checks and the metric reads run
-eagerly between them.  Models that the kernels do not compute
+eagerly between them.  While a ``torch.profiler`` records, each of these
+carries a span (:mod:`dnmf_tpu_torch.utils.trace`): ``engine.fit``,
+``engine.init``, ``engine.round``, ``engine.prepare``, ``engine.motion``,
+``engine.sigma``, ``engine.grams``, ``engine.traces``, ``engine.audit``
+and ``engine.read`` (one per read of device values:
+an epoch's metrics, the mean trace, a finiteness check's leaf, the width
+fit's and ``refine``'s metrics).  Models that the kernels do not compute
 (``reference_demo_model(parity=True)``'s resampled footprints) run every
 step eagerly.  A streamed source goes through it too: its motion epoch
 and Grams replay one captured block step per frame block, its refinement
@@ -52,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -71,6 +78,19 @@ from dnmf_tpu_torch.ops import gram_analytic as ga
 from dnmf_tpu_torch.ops import mu as mu_ops
 from dnmf_tpu_torch.parallel import mesh as mesh_lib
 from dnmf_tpu_torch.utils import checkpoint
+from dnmf_tpu_torch.utils.trace import span
+
+
+def _job(method):
+    """``method`` (a whole job: ``fit``, ``fit_fused``, ``refine``) under
+    the span ``engine.fit``."""
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        with span("engine.fit"):
+            return method(self, *args, **kwargs)
+
+    return call
 
 
 @dataclasses.dataclass
@@ -180,50 +200,52 @@ class DeformableNMF:
     def __init__(self, model: ModelConfig, optimizer: OptimizerConfig,
                  runtime: Optional[RuntimeConfig] = None, positions=None,
                  device="cuda", beta0=None):
-        self.model = model
-        self.opt_config = optimizer
-        self.runtime = runtime or RuntimeConfig()
-        self.device = torch.device(device)
-        self._check_options()
-        self.optimizer = model_lib.make_motion_optimizer(optimizer)
-        self.state = model_lib.init_state(
-            model, positions=positions,
-            generator=torch.Generator().manual_seed(optimizer.seed),
-            device=self.device, beta0=beta0)
-        self._mesh = None
-        rt = self.runtime
-        if rt.mesh_time or rt.mesh_pixel:
-            self._mesh = parallel.make_mesh(num_time=rt.mesh_time or 1,
-                                   num_batch=rt.mesh_batch or 1,
-                                   num_pixel=rt.mesh_pixel or 1)
-            if model.num_frames % (rt.mesh_time or 1):
-                raise ValueError(
-                    "num_frames must divide evenly over mesh_time")
-            self.state = parallel.shard_state(self.state, self._mesh)
-        self._batch_gen = torch.Generator().manual_seed(optimizer.seed)
-        self.metrics: List[dict] = []
-        self._base_sigma = self.state.sigma
-        # Per-frame positions [T, K, 3] from refine(), None before it.
-        self.pos_t: Optional[torch.Tensor] = None
-        self._positions_cache = None  # positions_all's (beta, pos, iters, out)
-        if self.runtime.use_kernels is None:
-            self._use_kernels = (self.device.type == "cuda"
-                                 and model_lib.kernels_apply(model))
-        else:
-            self._use_kernels = bool(self.runtime.use_kernels)
-            model_lib.check_kernels(model, self._use_kernels)
-        mode = self.runtime.gram_mode
-        if mode == "auto":
-            # The closed form wherever valid: analytic footprints, no
-            # pixel axis.
-            analytic = (model.deformation.footprint_mode == "analytic"
-                        and (rt.mesh_pixel or 1) <= 1)
-            mode = "analytic" if analytic else "exact"
-        elif mode not in ("exact", "analytic"):
-            raise ValueError(f"unknown gram_mode: {mode!r} "
-                             "(expected 'auto', 'exact', or 'analytic')")
-        self._gram_mode = mode
-        self._gram_audited = False
+        with span("engine.init"):
+            self.model = model
+            self.opt_config = optimizer
+            self.runtime = runtime or RuntimeConfig()
+            self.device = torch.device(device)
+            self._check_options()
+            self.optimizer = model_lib.make_motion_optimizer(optimizer)
+            self.state = model_lib.init_state(
+                model, positions=positions,
+                generator=torch.Generator().manual_seed(optimizer.seed),
+                device=self.device, beta0=beta0)
+            self._mesh = None
+            rt = self.runtime
+            if rt.mesh_time or rt.mesh_pixel:
+                self._mesh = parallel.make_mesh(
+                    num_time=rt.mesh_time or 1, num_batch=rt.mesh_batch or 1,
+                    num_pixel=rt.mesh_pixel or 1)
+                if model.num_frames % (rt.mesh_time or 1):
+                    raise ValueError(
+                        "num_frames must divide evenly over mesh_time")
+                self.state = parallel.shard_state(self.state, self._mesh)
+            self._batch_gen = torch.Generator().manual_seed(optimizer.seed)
+            self.metrics: List[dict] = []
+            self._base_sigma = self.state.sigma
+            # Per-frame positions [T, K, 3] from refine(), None before it.
+            self.pos_t: Optional[torch.Tensor] = None
+            # positions_all's (beta, pos, iters, out)
+            self._positions_cache = None
+            if self.runtime.use_kernels is None:
+                self._use_kernels = (self.device.type == "cuda"
+                                     and model_lib.kernels_apply(model))
+            else:
+                self._use_kernels = bool(self.runtime.use_kernels)
+                model_lib.check_kernels(model, self._use_kernels)
+            mode = self.runtime.gram_mode
+            if mode == "auto":
+                # The closed form wherever valid: analytic footprints, no
+                # pixel axis.
+                analytic = (model.deformation.footprint_mode == "analytic"
+                            and (rt.mesh_pixel or 1) <= 1)
+                mode = "analytic" if analytic else "exact"
+            elif mode not in ("exact", "analytic"):
+                raise ValueError(f"unknown gram_mode: {mode!r} "
+                                 "(expected 'auto', 'exact', or 'analytic')")
+            self._gram_mode = mode
+            self._gram_audited = False
 
     def _check_options(self) -> None:
         rt, opt, model = self.runtime, self.opt_config, self.model
@@ -275,8 +297,9 @@ class DeformableNMF:
     def _prepare(self, video):
         """A streamed source as it is (on the engine's device), anything
         else as the flat tensor on the device (:meth:`_video_flat`)."""
-        if not self._is_streaming(video):
-            return self._video_flat(video)
+        with span("engine.prepare"):
+            if not self._is_streaming(video):
+                return self._video_flat(video)
         dev = torch.device(video.device)
         if dev.type != self.device.type or (
                 (dev.index or 0) != (self.device.index or 0)):
@@ -336,10 +359,11 @@ class DeformableNMF:
         tol = self.runtime.gram_trust_tol
         if tol is None:
             return
-        audit = audit_analytic_gram(self.state, self.model,
-                                    window=self._gram_window(),
-                                    use_kernels=self._use_kernels,
-                                    mesh=self._mesh)
+        with span("engine.audit"):
+            audit = audit_analytic_gram(self.state, self.model,
+                                        window=self._gram_window(),
+                                        use_kernels=self._use_kernels,
+                                        mesh=self._mesh)
         self.metrics.append({"phase": "gram_audit", "tol": tol, **audit})
         if audit["rel_err"] > tol:
             warnings.warn(
@@ -363,30 +387,32 @@ class DeformableNMF:
         last = {}
         mesh = self._mesh
         for _ in range(epochs):
-            if self._is_streaming(video) and mesh is None:
-                # one device: the captured block step
-                self.state, m = graphs.motion_epoch_streaming(
-                    self.state, video, self.model, self.optimizer, gamma,
-                    self._use_kernels)
-            elif self._is_streaming(video):
-                self.state, m = parallel.sharded_motion_epoch_streaming(
-                    self.state, video, self.model, self.optimizer, gamma,
-                    mesh, use_kernels=self._use_kernels)
-            elif self.opt_config.motion_mode == "parity":
-                times, weights = self._epoch_batches()
-                self.state, m = graphs.motion_epoch_parity(
-                    self.state, video, times, weights, self.model,
-                    self.optimizer, gamma, self._use_kernels)
-            elif mesh is None:  # one device: the captured step
-                self.state, m = graphs.motion_epoch(
-                    self.state, video, self.model, self.optimizer, gamma,
-                    self.runtime.frame_block, self._use_kernels)
-            else:
-                self.state, m = parallel.sharded_motion_epoch(
-                    self.state, video, self.model, self.optimizer, gamma,
-                    mesh, frame_block=self.runtime.frame_block,
-                    use_kernels=self._use_kernels)
-            last = {k: float(v) for k, v in m.items()}
+            with span("engine.motion"):
+                if self._is_streaming(video) and mesh is None:
+                    # one device: the captured block step
+                    self.state, m = graphs.motion_epoch_streaming(
+                        self.state, video, self.model, self.optimizer, gamma,
+                        self._use_kernels)
+                elif self._is_streaming(video):
+                    self.state, m = parallel.sharded_motion_epoch_streaming(
+                        self.state, video, self.model, self.optimizer, gamma,
+                        mesh, use_kernels=self._use_kernels)
+                elif self.opt_config.motion_mode == "parity":
+                    times, weights = self._epoch_batches()
+                    self.state, m = graphs.motion_epoch_parity(
+                        self.state, video, times, weights, self.model,
+                        self.optimizer, gamma, self._use_kernels)
+                elif mesh is None:  # one device: the captured step
+                    self.state, m = graphs.motion_epoch(
+                        self.state, video, self.model, self.optimizer, gamma,
+                        self.runtime.frame_block, self._use_kernels)
+                else:
+                    self.state, m = parallel.sharded_motion_epoch(
+                        self.state, video, self.model, self.optimizer, gamma,
+                        mesh, frame_block=self.runtime.frame_block,
+                        use_kernels=self._use_kernels)
+            with span("engine.read"):
+                last = {k: float(v) for k, v in m.items()}
             self.metrics.append({"phase": "motion", **last})
         return last
 
@@ -400,43 +426,46 @@ class DeformableNMF:
         kw = dict(use_kernels=self._use_kernels, gram_mode=self._gram_mode,
                   gram_window=self._gram_window())
         mesh = self._mesh  # None: the steps on one device
-        if self._is_streaming(video) and mesh is None:
-            # one device: the captured block step
-            grams, c1 = graphs.compute_grams_streaming(
-                self.state, video, self.model, **kw)
-        elif self._is_streaming(video):
-            grams, c1 = parallel.sharded_compute_grams_streaming(
-                self.state, video, self.model, mesh, **kw)
-        elif mesh is None:  # one device: the captured step
-            grams, c1 = graphs.compute_grams(
-                self.state, video, self.model, self.runtime.frame_block,
-                **kw)
-        else:
-            grams, c1 = parallel.sharded_compute_grams(
-                self.state, video, self.model, mesh,
-                frame_block=self.runtime.frame_block, **kw)
+        with span("engine.grams"):
+            if self._is_streaming(video) and mesh is None:
+                # one device: the captured block step
+                grams, c1 = graphs.compute_grams_streaming(
+                    self.state, video, self.model, **kw)
+            elif self._is_streaming(video):
+                grams, c1 = parallel.sharded_compute_grams_streaming(
+                    self.state, video, self.model, mesh, **kw)
+            elif mesh is None:  # one device: the captured step
+                grams, c1 = graphs.compute_grams(
+                    self.state, video, self.model, self.runtime.frame_block,
+                    **kw)
+            else:
+                grams, c1 = parallel.sharded_compute_grams(
+                    self.state, video, self.model, mesh,
+                    frame_block=self.runtime.frame_block, **kw)
         update = dict(iters=iters, gamma=self.opt_config.gamma_traces,
                       solver=self.opt_config.trace_solver)
-        if mesh is None:
-            self.state = graphs.footprint_update(
-                self.state, grams, c1, use_kernels=self._use_kernels,
-                **update)
-        else:
-            self.state = parallel.sharded_footprint_update(
-                self.state, grams, c1, mesh, use_kernels=self._use_kernels,
-                **update)
+        with span("engine.traces"):
+            if mesh is None:
+                self.state = graphs.footprint_update(
+                    self.state, grams, c1, use_kernels=self._use_kernels,
+                    **update)
+            else:
+                self.state = parallel.sharded_footprint_update(
+                    self.state, grams, c1, mesh,
+                    use_kernels=self._use_kernels, **update)
         m = {"phase": "traces", "c_mean": self._c_mean()}
         self.metrics.append(m)
         return m
 
     def _c_mean(self) -> float:
         """The mean trace value over the recording."""
-        if self._mesh is None:
-            return float(torch.mean(self.state.c))
-        total = mesh_lib.all_reduce(torch.sum(self.state.c).double(),
-                                    self._mesh, mesh_lib.TIME_AXIS)
-        return float(total) / (self.state.c.shape[0]
-                               * self.model.num_frames)
+        with span("engine.read"):
+            if self._mesh is None:
+                return float(torch.mean(self.state.c))
+            total = mesh_lib.all_reduce(torch.sum(self.state.c).double(),
+                                        self._mesh, mesh_lib.TIME_AXIS)
+            return float(total) / (self.state.c.shape[0]
+                                   * self.model.num_frames)
 
     def update_sigma(self, video, steps: Optional[int] = None) -> dict:
         """Fit per-neuron footprint widths on ``sigma_frames`` frames spread
@@ -451,31 +480,34 @@ class DeformableNMF:
         t = self.model.num_frames
         s = min(cfg.sigma_frames, t)
         idx_np = np.linspace(0, t - 1, s).round().astype(int)
-        idx = torch.as_tensor(idx_np, device=self.device)
-        if self._is_streaming(video):
-            video_sub = torch.from_numpy(np.concatenate(
-                [video.read(int(i), int(i) + 1) for i in idx_np])).to(
-                self.device)
-        elif self._mesh is not None:
-            video_sub = self._gather_frames(video, idx_np)
-        else:
-            video_sub = video[idx]
-        # On a mesh every rank fits the widths on the same whole frames:
-        # no collective inside, so the same captured fit.
-        beta, c = self._whole(self.state.beta), self._whole(self.state.c, 1)
-        sigma, mses = graphs.sigma_fit(
-            self.state, video_sub, beta[idx], c[:, idx].T, self.model,
-            steps=steps or cfg.sigma_steps, lr=cfg.sigma_lr,
-            lo=cfg.sigma_bounds[0] * self.model.shape_std,
-            hi=cfg.sigma_bounds[1] * self.model.shape_std,
-            frame_block=min(self.runtime.frame_block, s),
-            use_kernels=self._use_kernels)
-        self.state = self.state.replace(sigma=sigma)
-        self._base_sigma = sigma
-        m = {"phase": "sigma", "mse": float(mses[-1]),
-             "sigma_mean": float(torch.mean(sigma)),
-             "sigma_min": float(torch.min(sigma)),
-             "sigma_max": float(torch.max(sigma))}
+        with span("engine.sigma"):
+            idx = torch.as_tensor(idx_np, device=self.device)
+            if self._is_streaming(video):
+                video_sub = torch.from_numpy(np.concatenate(
+                    [video.read(int(i), int(i) + 1) for i in idx_np])).to(
+                    self.device)
+            elif self._mesh is not None:
+                video_sub = self._gather_frames(video, idx_np)
+            else:
+                video_sub = video[idx]
+            # On a mesh every rank fits the widths on the same whole
+            # frames: no collective inside, so the same captured fit.
+            beta = self._whole(self.state.beta)
+            c = self._whole(self.state.c, 1)
+            sigma, mses = graphs.sigma_fit(
+                self.state, video_sub, beta[idx], c[:, idx].T, self.model,
+                steps=steps or cfg.sigma_steps, lr=cfg.sigma_lr,
+                lo=cfg.sigma_bounds[0] * self.model.shape_std,
+                hi=cfg.sigma_bounds[1] * self.model.shape_std,
+                frame_block=min(self.runtime.frame_block, s),
+                use_kernels=self._use_kernels)
+            self.state = self.state.replace(sigma=sigma)
+            self._base_sigma = sigma
+        with span("engine.read"):
+            m = {"phase": "sigma", "mse": float(mses[-1]),
+                 "sigma_mean": float(torch.mean(sigma)),
+                 "sigma_min": float(torch.min(sigma)),
+                 "sigma_max": float(torch.max(sigma))}
         self.metrics.append(m)
         return m
 
@@ -504,7 +536,9 @@ class DeformableNMF:
                 bad = mesh_lib.all_reduce(
                     bad.to(torch.float32).reshape(1), self._mesh,
                     mesh_lib.TIME_AXIS, op=torch.distributed.ReduceOp.MAX)
-            if bool(bad.any()):
+            with span("engine.read"):
+                bad = bool(bad.any())
+            if bad:
                 raise FloatingPointError(
                     f"non-finite {name} after {phase} — check learning "
                     "rate / regularizer weights")
@@ -521,13 +555,17 @@ class DeformableNMF:
             activities.append(ProfilerActivity.CUDA)
         return profile(activities=activities)
 
+    @_job
     def fit(self, video, rounds: Optional[int] = None) -> FitResult:
         """Full alternation schedule; returns final state + metric log.
 
         With ``runtime.profile_dir`` the last round runs under
         ``torch.profiler`` and its trace is written to
-        ``{profile_dir}/round_{r}.trace.json`` (Chrome trace format); with
-        ``runtime.checkpoint_dir`` every round is saved to
+        ``{profile_dir}/round_{r}.trace.json`` (Chrome trace format), the
+        round's steps, reads and graph replays named in it by their spans
+        (``span.engine.round``, ``span.engine.motion``,
+        ``span.graphs.replay``, ...: :mod:`dnmf_tpu_torch.utils.trace`);
+        with ``runtime.checkpoint_dir`` every round is saved to
         ``{checkpoint_dir}/round_{r}.pt`` (:meth:`save`).
         """
         video = self._prepare(video)
@@ -537,11 +575,12 @@ class DeformableNMF:
         plain_rounds = 0  # rounds at the base widths (sigma_every cadence)
         for r in range(rounds):
             factor = anneal[r] if r < len(anneal) else 1.0
-            self.state = self.state.replace(sigma=self._base_sigma * factor)
             t0 = time.perf_counter()
             prof = (self._profiler()
                     if self.runtime.profile_dir and r == rounds - 1 else None)
-            with prof or contextlib.nullcontext():
+            with prof or contextlib.nullcontext(), span("engine.round"):
+                self.state = self.state.replace(
+                    sigma=self._base_sigma * factor)
                 motion_m = self._motion(video)
                 self._check_finite("motion")
                 if self.opt_config.fit_sigma and factor == 1.0:
@@ -575,6 +614,7 @@ class DeformableNMF:
         self.state = self.state.replace(sigma=self._base_sigma)
         return FitResult(state=self.full_state(), metrics=self.metrics)
 
+    @_job
     def fit_fused(self, video, rounds: Optional[int] = None) -> FitResult:
         """The alternation as one call of
         :func:`~dnmf_tpu_torch.models.graphs.fused_rounds` per run of equal
@@ -595,7 +635,7 @@ class DeformableNMF:
                 "fit_fused runs the whole schedule in one call and cannot "
                 "interleave the sigma-fitting cadence; use fit() with "
                 "fit_sigma=True")
-        video = self._video_flat(video)
+        video = self._prepare(video)
         rounds = rounds or self.opt_config.outer_rounds
         self._gram_audited = False
         self._maybe_audit_analytic()
@@ -620,8 +660,9 @@ class DeformableNMF:
                 use_kernels=self._use_kernels, gram_mode=self._gram_mode,
                 gram_window=self._gram_window(),
                 trace_solver=cfg.trace_solver)
-            recon.extend(float(v) for v in m["recon_mse"])
-            reg.extend(float(v) for v in m["reg"])
+            with span("engine.read"):
+                recon.extend(float(v) for v in m["recon_mse"])
+                reg.extend(float(v) for v in m["reg"])
         self.state = self.state.replace(sigma=self._base_sigma)
         for r in range(rounds):
             self.metrics.append({"phase": "round", "round": r,
@@ -632,6 +673,7 @@ class DeformableNMF:
         self._check_finite("fused fit")
         return FitResult(state=self.state, metrics=self.metrics)
 
+    @_job
     def refine(self, video, rounds: int = 3, epochs: int = 40,
                mu_iters: int = 40, learning_rate: float = 0.08,
                prior: float = 3e-4) -> FitResult:
@@ -682,9 +724,10 @@ class DeformableNMF:
         recon = torch.atleast_1d(m["recon_mse"])
         if self._mesh is not None:
             recon = self._whole(recon)
+        with span("engine.read"):
+            recon = float(torch.mean(recon))
         self._log({"phase": "refine", "rounds": rounds, "epochs": epochs,
-                   "seconds": time.perf_counter() - t0,
-                   "recon_mse": float(torch.mean(recon))})
+                   "seconds": time.perf_counter() - t0, "recon_mse": recon})
         return FitResult(state=self.full_state(), metrics=self.metrics)
 
     def _log(self, entry: dict) -> None:

@@ -117,6 +117,14 @@ launches its last kernel, :data:`LAST_KERNEL`, once per call, and
 wrappers that share a kernel are summed: :func:`replay_launches`); the
 capture raises where they differ, and every replay adds the wrappers'
 counts to their counters.
+
+Spans (:mod:`dnmf_tpu_torch.utils.trace`, labels while a profiler
+records): ``graphs.call`` around a call of a step through the cache (its
+key, lookup and the entry's work), ``graphs.load``, ``graphs.replay``
+(the launch, host side) and ``graphs.outputs`` (the clones,
+:func:`fused_rounds`' history copies); on a miss ``graphs.entry.<name>``
+around the entry's making, with ``graphs.warmup``, ``graphs.capture`` and
+``graphs.instantiate`` inside it on the card.  None is inside a step.
 """
 
 from __future__ import annotations
@@ -135,6 +143,7 @@ from dnmf_tpu_torch.models import dnmf as model_lib
 from dnmf_tpu_torch.models import refine as refine_lib
 from dnmf_tpu_torch.ops import fused
 from dnmf_tpu_torch.ops import mu as mu_ops
+from dnmf_tpu_torch.utils import trace
 
 # Entries kept.  One ``register_and_demix`` run holds at most fifteen:
 # registration four (the rigid and the piecewise-rigid block, each also
@@ -308,8 +317,10 @@ class Entry:
     the step function (on the CPU) and its outputs.
 
     ``replays`` counts the calls, ``capture_seconds`` is the warm-up and
-    the capture, ``buffer_bytes`` its own static buffers' (not a shared
-    one's: :func:`shared_bytes`); on the card
+    the capture, of which ``warmup_seconds`` the warm-up (to its end on
+    the card) and ``instantiate_seconds`` the graph's ``instantiate()``
+    and the read of its nodes, ``buffer_bytes`` its own static buffers'
+    (not a shared one's: :func:`shared_bytes`); on the card
     ``nodes`` are the graph's kernel nodes by kernel name,
     ``launches`` each wrapper's launches in one replay (held to them)
     and ``warmup_launches`` the wrappers' launches in the warm-up.
@@ -319,32 +330,38 @@ class Entry:
     def __init__(self, name: str, step, args, warmup=None, device=None,
                  shared=()):
         self.name = name
-        # ``device``: the buffers' (default the first input's), where an
-        # input arrives from elsewhere (host frames).  ``shared``: the
-        # places of inputs that are buffers already, which other entries
-        # hold too (the streamed frame buffer): kept, not copied.
-        self.inputs = tuple(
-            a if i in shared else a.clone() if device is None
-            else a.to(device, copy=True) for i, a in enumerate(args))
-        self.replays = 0
-        self.buffer_bytes = _nbytes(
-            [a for i, a in enumerate(self.inputs) if i not in shared])
-        self.nodes, self.launches, self.warmup_launches = {}, {}, {}
-        self.device = device = self.inputs[0].device
-        t0 = time.perf_counter()
-        if device.type == "cuda":
-            self.graph = self._capture(step, warmup or step, device)
-            self.step = None
-        else:
-            self.graph, self.step, self.outputs = None, step, ()
-        self.capture_seconds = time.perf_counter() - t0
+        with trace.span("graphs.entry." + name):
+            # ``device``: the buffers' (default the first input's), where
+            # an input arrives from elsewhere (host frames).  ``shared``:
+            # the places of inputs that are buffers already, which other
+            # entries hold too (the streamed frame buffer): kept, not
+            # copied.
+            self.inputs = tuple(
+                a if i in shared else a.clone() if device is None
+                else a.to(device, copy=True) for i, a in enumerate(args))
+            self.replays = 0
+            self.buffer_bytes = _nbytes(
+                [a for i, a in enumerate(self.inputs) if i not in shared])
+            self.nodes, self.launches, self.warmup_launches = {}, {}, {}
+            self.warmup_seconds = self.instantiate_seconds = 0.0
+            self.device = device = self.inputs[0].device
+            t0 = time.perf_counter()
+            if device.type == "cuda":
+                self.graph = self._capture(step, warmup or step, device)
+                self.step = None
+            else:
+                self.graph, self.step, self.outputs = None, step, ()
+            self.capture_seconds = time.perf_counter() - t0
 
     def _capture(self, step, warmup, device):
         stream = _side_stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         before = fused.launch_counts()
-        with torch.cuda.stream(stream):
+        t0 = time.perf_counter()
+        with trace.span("graphs.warmup"), torch.cuda.stream(stream):
             warmup(*self.inputs)
+            stream.synchronize()  # as the capture would, at its start
+        self.warmup_seconds = time.perf_counter() - t0
         self.warmup_launches = {k: n - before[k] for k, n in
                                 fused.launch_counts().items()
                                 if n != before[k]}
@@ -353,14 +370,18 @@ class Entry:
         # read (:func:`kernel_nodes`).
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
-            with torch.cuda.graph(graph, pool=_pool(device), stream=stream):
+            with trace.span("graphs.capture"), torch.cuda.graph(
+                    graph, pool=_pool(device), stream=stream):
                 self.outputs = tuple(step(*self.inputs))
         finally:  # a capture launches nothing, even one that raised
             counted = {k: n - before[k]
                        for k, n in fused.launch_counts().items()}
             fused.add_launch_counts({k: -n for k, n in counted.items()})
-        graph.instantiate()
-        self.nodes = kernel_nodes(graph)
+        t0 = time.perf_counter()
+        with trace.span("graphs.instantiate"):
+            graph.instantiate()
+            self.nodes = kernel_nodes(graph)
+        self.instantiate_seconds = time.perf_counter() - t0
         try:
             self.launches = replay_launches(self.nodes, counted)
         except RuntimeError as e:
@@ -375,25 +396,28 @@ class Entry:
         return self.outputs_for(args)
 
     def load(self, args) -> None:
-        for buf, a in zip(self.inputs, args):
-            if a is not buf:  # a carry that the step keeps in its buffers
-                buf.copy_(a)
+        with trace.span("graphs.load"):
+            for buf, a in zip(self.inputs, args):
+                if a is not buf:  # a carry that the step keeps in its buffers
+                    buf.copy_(a)
 
     def replay(self) -> None:
         self.replays += 1
-        if self.graph is None:
-            self.outputs = tuple(self.step(*self.inputs))
-            return
-        self.graph.replay()
+        with trace.span("graphs.replay"):
+            if self.graph is None:
+                self.outputs = tuple(self.step(*self.inputs))
+                return
+            self.graph.replay()
         fused.add_launch_counts(self.launches)
 
     def outputs_for(self, args) -> tuple:
         """Each output as the caller's own input where the step passed that
         input through, else a clone."""
         out = []
-        for o in self.outputs:
-            same = [a for buf, a in zip(self.inputs, args) if o is buf]
-            out.append(same[0] if same else o.clone())
+        with trace.span("graphs.outputs"):
+            for o in self.outputs:
+                same = [a for buf, a in zip(self.inputs, args) if o is buf]
+                out.append(same[0] if same else o.clone())
         return tuple(out)
 
 
@@ -431,9 +455,10 @@ def _state(leaves) -> model_lib.DNMFState:
 
 def _run(name: str, statics: tuple, step, args, video=None,
          warmup=None) -> tuple:
-    key = (name,) + statics + _signature(*args) + (
-        () if video is None else _video_key(video))
-    return _entry(key, lambda: Entry(name, step, args, warmup))(args)
+    with trace.span("graphs.call"):
+        key = (name,) + statics + _signature(*args) + (
+            () if video is None else _video_key(video))
+        return _entry(key, lambda: Entry(name, step, args, warmup))(args)
 
 
 # ----------------------------------------------------------------------
@@ -533,11 +558,13 @@ def fused_rounds(state, video, model, optimizer, rounds: int, epochs: int,
     history = []
     for r in range(rounds):
         entry.replay()
-        if not history:
-            history = [torch.empty((rounds,) + o.shape, dtype=o.dtype,
-                                   device=o.device) for o in entry.outputs]
-        for column, metric in zip(history, entry.outputs):
-            column[r].copy_(metric)
+        with trace.span("graphs.outputs"):
+            if not history:
+                history = [torch.empty((rounds,) + o.shape, dtype=o.dtype,
+                                       device=o.device)
+                           for o in entry.outputs]
+            for column, metric in zip(history, entry.outputs):
+                column[r].copy_(metric)
     return (_state(tuple(buf.clone() for buf in entry.inputs)),
             {"recon_mse": history[0], "reg": history[1]})
 

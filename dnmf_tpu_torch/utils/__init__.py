@@ -1,4 +1,5 @@
-"""Host-side utilities: volume/patch helpers and accuracy metrics."""
+"""Host-side utilities: volume/patch helpers, accuracy metrics and the
+profiler spans (:mod:`~dnmf_tpu_torch.utils.trace`)."""
 
 from dnmf_tpu_torch.utils.metrics import r_squared, trace_correlations
 from dnmf_tpu_torch.utils.volume import (

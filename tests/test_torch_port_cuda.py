@@ -14,8 +14,10 @@ them.  The compiled-program layer (``models/graphs.py``): each captured
 step equal to its eager run bit for bit, one graph launch per step and
 no kernel launch from the host in a replay, the launch counters kept by
 the replays, a step that breaks capture raising, no synchronizing call
-in a replayed round, and autograd's backward inside a capture; the
-same for the programs of refinement (``refine_positions``,
+in a replayed round, autograd's backward inside a capture, and a
+captured ``fit`` under the profiler with its spans on the device's
+timeline, bit-equal to the eager one; the same for the programs of
+refinement (``refine_positions``,
 ``tracked_grams``, ``refined_rounds``), the width fit and the
 recordings round, whose replays count the tracked kernels' launches as
 their own, and for the streamed block steps (one entry per step serving
@@ -1408,6 +1410,68 @@ def test_captured_regularizer_backward(dev):
         ref = jacobian.corner_regularizer_and_grad(beta * scale, GRAPH_SIZE,
                                                    False, "normalized")
         assert torch.equal(reg, ref[0]) and torch.equal(grad, ref[1])
+
+
+def test_profiled_captured_fit_puts_its_spans_on_the_device_timeline(
+        graph_cache, dev):
+    """A captured fit under ``torch.profiler``: every ``motion_finish``
+    kernel starts after a ``span.graphs.replay`` (or, in the capturing
+    round, ``span.graphs.warmup``) label and ends before a later
+    ``span.engine.read`` does, on the profiler's one clock; each entry's
+    warm-up and instantiation lie within its capture seconds, inside its
+    ``span.graphs.entry.*``; and the fit equals the eager one bit for
+    bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dnmf_tpu_torch.engine.trainer import DeformableNMF
+    from dnmf_tpu_torch.models import dnmf as tM
+
+    model, state, video = _graph_inputs(dev)
+    opt = tcfg.OptimizerConfig(learning_rate=1e-3, outer_rounds=2,
+                               motion_epochs=2, mu_iters=10)
+    rt = tcfg.RuntimeConfig(frame_block=GRAPH_FB, use_kernels=True)
+
+    def fit():
+        return DeformableNMF(model, opt, rt, positions=state.pos,
+                             device=dev, beta0=state.beta).fit(video)
+
+    with graph_cache.disabled():
+        ref = fit()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        got = fit()
+        torch.cuda.synchronize()
+    labels, kernels = [], []
+    for e in prof.profiler.kineto_results.events():
+        span = (e.start_ns(), e.start_ns() + e.duration_ns())
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if "motion_finish" in e.name():
+                kernels.append(span)
+        elif e.name().startswith("span."):
+            labels.append((e.name(),) + span)
+    launches = [s for n, s, _ in labels
+                if n in ("span.graphs.replay", "span.graphs.warmup")]
+    reads = [e for n, _, e in labels if n == "span.engine.read"]
+    assert kernels and sum(n == "span.graphs.replay"
+                           for n, _, _ in labels) == 2 * (2 + 2)
+    for start, end in kernels:
+        assert any(s <= start for s in launches), (start, launches[:3])
+        assert any(e >= end for e in reads), (end, reads[-3:])
+    made = [lab for lab in labels if lab[0].startswith("span.graphs.entry.")]
+    assert len(made) == len(graph_cache.entries()) == 3
+    for part in ("warmup", "capture", "instantiate"):
+        inner = [lab for lab in labels if lab[0] == "span.graphs." + part]
+        assert len(inner) == 3 and all(
+            any(m[1] <= s and e <= m[2] for m in made) for _, s, e in inner)
+    for entry in graph_cache.entries():
+        assert 0 < entry.warmup_seconds and 0 < entry.instantiate_seconds
+        assert (entry.warmup_seconds + entry.instantiate_seconds
+                <= entry.capture_seconds)
+    for f in tM.STATE_FIELDS:
+        assert torch.equal(getattr(got.state, f), getattr(ref.state, f)), f
+    strip = [[{k: v for k, v in m.items() if k != "seconds"}
+              for m in r.metrics] for r in (got, ref)]
+    assert strip[0] == strip[1]
 
 
 # Refinement, the width fit and the recordings round as captured programs

@@ -180,14 +180,22 @@ def test_restore_lands_on_the_requested_device(rng, tmp_path):
 
 
 # ------------------------------------------------------------- profiling
-def test_profile_dir_writes_a_trace_of_the_last_round(rng, tmp_path):
+@pytest.mark.parametrize("use_kernels", [None, True])
+def test_profile_dir_writes_a_trace_of_the_last_round(rng, tmp_path,
+                                                      use_kernels):
+    """The last round's trace, its steps named by the port's spans: the
+    round on either route, each graph replay on the cache's
+    (``use_kernels``; the default on the CPU runs the plain steps)."""
     prof = tmp_path / "prof"
-    tt, video = _port_engine(rng, profile_dir=str(prof))
+    tt, video = _port_engine(rng, profile_dir=str(prof),
+                             use_kernels=use_kernels)
     tt.fit(video, rounds=2)
     assert os.listdir(prof) == ["round_1.trace.json"]
     trace = json.loads((prof / "round_1.trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("mm" in n or "bmm" in n for n in names), sorted(names)[:20]
+    assert "span.engine.round" in names
+    assert ("span.graphs.replay" in names) == bool(use_kernels)
 
 
 # ------------------------------------------------------------- fit_fused
