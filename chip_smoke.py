@@ -340,10 +340,11 @@ from dnmf_tpu_torch.registration import motion_correct as mc_lib
 from dnmf_tpu_torch.tools import wb_recovery
 from dnmf_tpu_torch.tools.kernel_check import (
     BENCH_PW, KERNEL_TOL, PIPE_REG, REG_BLOCK, REG_NOISE, REG_SHAPES, SEED,
-    SHAPES, KernelCheckError, active_pairs, bound, footprint_flops,
-    host_seconds, kernel_inputs, kernel_phase, nbytes, registration_inputs,
-    registration_kernel_phase, rel_err, rows_kernel_phase, say, textured,
-    time_ms, tracked_kernel_phase, warp_shifts)
+    SHAPES, KernelCheckError, active_pairs, bound, closed_gram_phase,
+    footprint_flops, host_seconds, kernel_inputs, kernel_phase, nbytes,
+    registration_inputs, registration_kernel_phase, rel_err,
+    rows_kernel_phase, say, textured, time_ms, tracked_kernel_phase,
+    warp_shifts)
 
 FIT_MSE_TOL = 1e-3  # kernel vs plain fit, relative, per phase metric
 FIT_CORR_MIN = 0.999  # kernel vs plain fit, per-neuron trace correlation
@@ -366,6 +367,9 @@ SOURCES = {
                            "dnmf_tpu/ops/pallas_culled.py:944"),
     "gram_block_rows": ("dnmf_tpu_torch/csrc/gram.cu",
                         "dnmf_tpu/ops/pallas_culled.py:508"),
+    # No Pallas kernel: the JAX package's closed form is XLA code.
+    "analytic_grams": ("dnmf_tpu_torch/csrc/gram_closed.cu",
+                       "none (dnmf_tpu/ops/gram_analytic.py, XLA)"),
     "phase_corr_block": ("dnmf_tpu_torch/csrc/phasecorr.cu",
                          "dnmf_tpu/ops/pallas_phasecorr.py:176"),
     "fused_separable_warp": ("dnmf_tpu_torch/csrc/warp.cu",
@@ -3958,7 +3962,21 @@ def main() -> int:
             dev, name, *REG_SHAPES[name]))
     results["pipeline"] = registration_kernel_phase(
         dev, "pipeline", *REG_SHAPES["pipeline"], with_warp=False)
-    roi, _ = tcfg.baseline_workload("roi")
+    # The closed-form Grams launch once per Grams call: over the main
+    # path's frames (the kernels line) and over each configuration's
+    # recording (a Grams pass of a round), beside the plain chain per
+    # frame block.
+    roi, roi_rt = tcfg.baseline_workload("roi")
+    size, k, _, margin = SHAPES["roi"]
+    results["roi"].update(closed_gram_phase(
+        dev, "roi main path", size, k, MAIN_FRAMES, margin,
+        roi_rt.frame_block))
+    passes = {}
+    for name, (size, k, _, margin) in SHAPES.items():
+        cfg, rt = tcfg.baseline_workload(name)
+        passes[f"analytic_grams[{name} pass]"] = closed_gram_phase(
+            dev, f"{name} pass", size, k, cfg.num_frames, margin,
+            rt.frame_block)["analytic_grams"]
     model = tcfg.ModelConfig(size=roi.size, num_neurons=roi.num_neurons,
                              num_frames=MAIN_FRAMES, shape_std=roi.shape_std)
     launches = main_path(dev, model)
@@ -3991,6 +4009,7 @@ def main() -> int:
     say(f"engine paths (a)-(f): {time.perf_counter() - t0:.3f} s ({card})")
     t0 = time.perf_counter()
     ranged = parallel_paths(dev, card)
+    ranged.update(passes)
     say(f"parallel paths (a)-(e): {time.perf_counter() - t0:.3f} s ({card})")
     t0 = time.perf_counter()
     bench_phase()

@@ -74,6 +74,7 @@ from dnmf_tpu_torch.models import dnmf as model_lib
 from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import footprints as fp_ops
+from dnmf_tpu_torch.ops import fused
 from dnmf_tpu_torch.ops import gram_analytic as ga
 from dnmf_tpu_torch.ops import mu as mu_ops
 from dnmf_tpu_torch.parallel import mesh as mesh_lib
@@ -163,9 +164,9 @@ def _audit_frame(state: model_lib.DNMFState, model: ModelConfig, t_idx: int,
                                          gram_mode="exact")
     if window is None:
         window = ga.default_window(model.shape_std)
-    g_an = ga.analytic_grams(beta1, state.pos, state.sigma, model.size,
-                             scaling=model.deformation.basis_scaling,
-                             window=window)
+    closed = fused.analytic_grams if use_kernels else ga.analytic_grams
+    g_an = closed(beta1, state.pos, state.sigma, model.size,
+                  scaling=model.deformation.basis_scaling, window=window)
     return float(torch.max(torch.abs(g_an - g_exact))
                  / torch.clamp_min(torch.max(torch.abs(g_exact)), 1e-30))
 

@@ -508,7 +508,9 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
 
     ``gram_mode="exact"`` runs the Gram pass; ``"analytic"`` evaluates
     ``G`` in closed form (:mod:`dnmf_tpu_torch.ops.gram_analytic`;
-    analytic footprints only) and runs only the c1 pass.  ``gram_window``
+    analytic footprints only; with ``use_kernels`` on CUDA tensors one
+    :func:`~dnmf_tpu_torch.ops.fused.analytic_grams` over all the call's
+    frames, else per frame block) and runs only the c1 pass.  ``gram_window``
     bounds the closed form's lattice window (default: sized for
     ``model.shape_std``).  With per-frame positions ``pos_t [T, K, 3]``
     the footprints sit at each frame's own positions instead of the
@@ -550,6 +552,10 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
     scaling = model.deformation.basis_scaling
     window = gram_window or ga.default_window(model.shape_std)
     fast = kernels_apply(model)
+    exact = gram_mode == "exact"
+    # With the kernels on the card the closed form takes the call's frames
+    # at once; elsewhere frame_block bounds its [B, K, K, 2w+1] terms.
+    closed_once = use_kernels and not exact and video.is_cuda
     if fast:
         c1_fn = fused.c1_block if use_kernels else fused.c1_block_plain
         gram_fn = fused.gram_block if use_kernels else fused.gram_block_plain
@@ -557,12 +563,12 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
         vb = _local_basis(model, video, p_offset)
         stored_a = _maybe_stored_a(state, model)
     kw = {} if p_offset is None else {"p_offset": p_offset}
+    t = video.shape[-2]
     grams, c1s = [], []
-    for s, e in _blocks(video.shape[-2], frame_block):
+    for s, e in _blocks(t, frame_block):
         betas = state.beta[..., s:e, :, :]
         pos = state.pos if pos_t is None else pos_t[s:e]
         frames = video[..., s:e, :]
-        exact = gram_mode == "exact"
         if fast and exact:
             g, c1 = gram_fn(betas, pos, state.sigma, frames, model.size,
                             scaling, **kw)
@@ -571,12 +577,19 @@ def grams_local(state: DNMFState, video: torch.Tensor, model: ModelConfig,
         else:
             g, c1 = _footprint_grams(betas, pos, state.sigma, video[s:e],
                                      model, vb, stored_a, exact)
-        if not exact:
-            g = ga.analytic_grams(betas, pos, state.sigma, model.size,
-                                  scaling=scaling, window=window)
-        grams.append(g)
+        if not closed_once:
+            if not exact:
+                g = ga.analytic_grams(betas, pos, state.sigma, model.size,
+                                      scaling=scaling, window=window)
+            grams.append(g)
         c1s.append(c1)
-    return torch.cat(grams, dim=-3), torch.cat(c1s, dim=-2)
+    c1 = torch.cat(c1s, dim=-2)
+    if closed_once:
+        return fused.analytic_grams(
+            state.beta[..., :t, :, :], state.pos if pos_t is None
+            else pos_t[:t], state.sigma, model.size, scaling=scaling,
+            window=window), c1
+    return torch.cat(grams, dim=-3), c1
 
 
 compute_grams = grams_local

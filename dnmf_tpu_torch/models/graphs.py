@@ -169,15 +169,16 @@ from dnmf_tpu_torch.utils import trace
 MAX_ENTRIES = 18
 
 # The kernel that each wrapper of the captured steps launches last, once
-# per call (csrc/motion.cu, csrc/c1.cu, csrc/gram.cu, csrc/refine.cu,
-# csrc/phasecorr.cu, csrc/warp.cu).  The tracked and rows wrappers launch
-# their untracked twin's kernels.  cuFFT's kernels in the registration
-# graphs are no wrapper's.
+# per call (csrc/motion.cu, csrc/c1.cu, csrc/gram.cu, csrc/gram_closed.cu,
+# csrc/refine.cu, csrc/phasecorr.cu, csrc/warp.cu).  The tracked and rows
+# wrappers launch their untracked twin's kernels.  cuFFT's kernels in the
+# registration graphs are no wrapper's.
 LAST_KERNEL = {"motion_block": "motion_finish", "c1_block": "c1_finish",
                "c1_block_tracked": "c1_finish",
                "gram_block": "gram_assemble",
                "gram_block_tracked": "gram_assemble",
                "gram_block_rows": "gram_assemble",
+               "analytic_grams": "gram_closed",
                "refine_block": "refine_finish",
                "phase_corr_block": "window_argmax",
                "fused_separable_warp": "warp_tile"}

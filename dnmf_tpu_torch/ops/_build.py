@@ -43,6 +43,7 @@ SIGNATURES = {
     "dnmf_phasecorr": [_P] * 13 + [_I] * 11 + [_P],
     "dnmf_warp": [_P] * 7 + [_I] * 14 + [ctypes.c_float, _P],
     "dnmf_table": [_P] * 5 + [_I] * 4 + [_P],
+    "dnmf_gram_closed": [_P] * 5 + [_I] * 12 + [_P],
 }
 
 _lib = None

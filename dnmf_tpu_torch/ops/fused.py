@@ -12,7 +12,10 @@ and a ``*_plain`` PyTorch version beside it:
   :func:`psi_rows` (or the caller) and go to :func:`gram_block_rows`;
 * ``refine_block -> (mse [B], dpos [B, K, 3][, dsigma])``: the data term
   with per-frame positions and its gradient with respect to them (and,
-  with ``want_dsigma``, to the widths).
+  with ``want_dsigma``, to the widths);
+* ``analytic_grams -> G [B, K, K]``: the closed-form Grams of
+  :mod:`~dnmf_tpu_torch.ops.gram_analytic` (no video pass), every frame
+  of a call in one launch.
 
 ``c1_block`` and ``gram_block`` take shared anchors ``pos [K, 3]`` or
 per-frame positions ``pos [B, K, 3]``; the latter go to
@@ -63,6 +66,7 @@ import torch
 
 from dnmf_tpu_torch.ops import basis as basis_ops
 from dnmf_tpu_torch.ops import footprints as fp_ops
+from dnmf_tpu_torch.ops import gram_analytic as ga
 from dnmf_tpu_torch.ops import phasecorr, warp
 
 KB = 32  # neurons per block of sorted_params' tables
@@ -84,6 +88,7 @@ GRAM_PART_FLOATS = 1 << 22
 GRAM_ROWS = 64
 GRAM_SPLITS = 64
 GRAM_SPLIT_BLOCKS = 132
+CLOSED_TILE = 16  # closed-form Grams: tile edge (csrc/gram_closed.cu GT)
 _CHUNK_ELEMS = 1 << 25  # plain versions: elements of the [B, chunk, K, 3] diff
 
 
@@ -832,6 +837,81 @@ def gram_block_tracked(betas, pos_t, sigma, y, size,
                         scaling, brick_counts)
 
 
+def analytic_grams(betas, pos, sigma, size, scaling: str = "normalized",
+                   window: int = 16, iters: int = 3, plane_axis_max: int = 4,
+                   pair_counts: bool = False):
+    """The closed-form Grams of
+    :func:`dnmf_tpu_torch.ops.gram_analytic.analytic_grams` (its
+    signature: ``betas [B, 10, 3]`` with ``pos [K, 3]`` or ``[B, K, 3]``,
+    or a recordings axis ``betas [R, B, 10, 3]`` with ``pos [R, K, 3]``;
+    ``sigma`` isotropic or ``[..., K, 3]``), every frame in one launch of
+    csrc/gram_closed.cu: ``G [B, K, K]`` or ``[R, B, K, K]``.
+
+    ``pair_counts`` also returns, per frame, the entries of ``G`` whose
+    lattice sums were evaluated: those whose float32 pair factor is
+    non-zero (the others are exactly 0), int32 ``[B]`` or ``[R, B]``: the
+    kernel's own count, so CPU tensors, which take the plain version,
+    refuse it."""
+    batched = betas.ndim == 4
+    lead, k = tuple(betas.shape[:-2]), pos.shape[-2]
+    if batched:
+        r = lead[0]
+        ok = (tuple(pos.shape) == (r, k, 3)
+              and tuple(sigma.shape) in ((r, k), (r, k, 3)))
+    else:
+        ok = (betas.ndim == 3 and tuple(pos.shape) in ((k, 3), lead + (k, 3))
+              and tuple(sigma.shape) in ((k,), (k, 3)))
+    if not ok or tuple(betas.shape[-2:]) != (10, 3):
+        raise ValueError(
+            f"analytic_grams: betas {tuple(betas.shape)}, pos "
+            f"{tuple(pos.shape)} and sigma {tuple(sigma.shape)} (want betas "
+            "[B, 10, 3] with pos [K, 3] or [B, K, 3] and sigma [K] or [K, 3], "
+            "or betas [R, B, 10, 3], pos [R, K, 3], sigma [R, K] or "
+            "[R, K, 3])")
+    if betas.device.type == "cpu":
+        if pair_counts:
+            raise ValueError("analytic_grams: pair_counts counts the "
+                             "kernel's evaluated pairs; CPU tensors take "
+                             "the plain form")
+        return ga.analytic_grams(betas, pos, sigma, size, scaling=scaling,
+                                 window=window, iters=iters,
+                                 plane_axis_max=plane_axis_max)
+    for t in (betas, pos, sigma):
+        if t.device != betas.device:
+            raise ValueError(f"analytic_grams: all inputs must be on "
+                             f"{betas.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"analytic_grams: the kernel takes float32, got "
+                            f"{t.dtype}")
+    if scaling not in ("normalized", "pixel"):
+        raise ValueError(f"analytic_grams: unknown scaling {scaling!r}")
+    from dnmf_tpu_torch.ops import _build
+
+    size = tuple(int(s) for s in size)
+    bsz = math.prod(lead)
+    # Frames per positions table: the call's frames (shared anchors), 1
+    # (per-frame positions) or a recording's frames (a recordings axis).
+    fpt = lead[-1] if batched else (1 if pos.ndim == 3 else bsz)
+    thin = min(range(3), key=lambda d: size[d])
+    plane = thin if size[thin] <= plane_axis_max else -1
+    g = torch.empty(lead + (k, k), dtype=torch.float32, device=betas.device)
+    nt = -(-k // CLOSED_TILE)
+    counts, counts_ptr = _counts_out(bsz, nt * (nt + 1) // 2, betas.device,
+                                     pair_counts)
+    beta_rows = betas.reshape(-1, 30).contiguous()
+    pos, sigma = pos.contiguous(), sigma.contiguous()
+    err = _build.load().dnmf_gram_closed(
+        beta_rows.data_ptr(), pos.data_ptr(), sigma.data_ptr(), g.data_ptr(),
+        counts_ptr, bsz, *size, int(scaling == "normalized"), k, fpt,
+        int(batched), int(sigma.ndim == 2 + int(batched)), int(window),
+        int(iters), plane, _stream())
+    _build.check(err, "dnmf_gram_closed")
+    analytic_grams.launches += 1
+    if pair_counts:
+        return g, counts.sum(-1, dtype=torch.int32).view(lead)
+    return g
+
+
 def refine_bricks(size):
     """``(bm, bn, bz)``: the brick of the motion, c1 and refine kernels
     for a volume ``size = (M, N, Z)`` (csrc/cull.cuh): 8 x 8 voxels in
@@ -1031,7 +1111,8 @@ def refine_block(betas, pos_t, sigma, c_block, y, size,
 
 KERNELS = (motion_block, c1_block, gram_block, refine_block,
            c1_block_tracked, gram_block_tracked, gram_block_rows,
-           phasecorr.phase_corr_block, warp.fused_separable_warp)
+           analytic_grams, phasecorr.phase_corr_block,
+           warp.fused_separable_warp)
 for _fn in KERNELS:
     _fn.launches = 0
 

@@ -101,6 +101,20 @@ def analytic_grams(betas: torch.Tensor, pos: torch.Tensor,
                   **kwargs)
 
 
+def pair_terms(pos_t, sig):
+    """Per axis ``c = c_k + c_l``, the weights ``c_k / c`` and ``c_l / c``
+    (``[F, K, K, 3]``), and the pair factor ``exp(-sum_d gamma_d delta_d^2)``
+    (``[F, K, K]``) of positions ``pos_t [F, K, 3]`` and per-axis widths
+    ``sig [F, K, 3]`` (either ``F`` may be 1)."""
+    ck = 1.0 / (sig * sig)                               # [F, K, 3]
+    c = ck[:, :, None, :] + ck[:, None, :, :]            # [F, K, K, 3]
+    gamma = ck[:, :, None, :] * ck[:, None, :, :] / c
+    wk = ck[:, :, None, :] / c
+    wl = ck[:, None, :, :] / c
+    delta2 = (pos_t[:, :, None, :] - pos_t[:, None, :, :]) ** 2
+    return c, wk, wl, torch.exp(-torch.sum(gamma * delta2, dim=-1))
+
+
 def _grams(betas, pos_t, sig, size, scaling, window, iters, plane_axis_max):
     """:func:`analytic_grams` for ``betas [B, 10, 3]``, ``pos_t [B or 1,
     K, 3]`` and per-axis widths ``sig [B or 1, K, 3]``."""
@@ -109,13 +123,7 @@ def _grams(betas, pos_t, sig, size, scaling, window, iters, plane_axis_max):
     hi = basis_ops.device_vector([float(s - 1) for s in size_t], **kw)
     bsz = betas.shape[0]
 
-    ck = 1.0 / (sig * sig)                               # [B or 1, K, 3]
-    c = ck[:, :, None, :] + ck[:, None, :, :]            # [B or 1, K, K, 3]
-    gamma = ck[:, :, None, :] * ck[:, None, :, :] / c
-    wk = ck[:, :, None, :] / c
-    wl = ck[:, None, :, :] / c
-    delta2 = (pos_t[:, :, None, :] - pos_t[:, None, :, :]) ** 2
-    pairfac = torch.exp(-torch.sum(gamma * delta2, dim=-1))  # [B|1, K, K]
+    c, wk, wl, pairfac = pair_terms(pos_t, sig)
 
     m = wk * pos_t[:, :, None, :] + wl * pos_t[:, None, :, :]  # [B|1, K, K, 3]
     xk = _invert_positions(pos_t, betas, size_t, scaling, iters)  # [B, K, 3]

@@ -66,7 +66,8 @@ import traceback
 import numpy as np
 import torch
 
-from dnmf_tpu_torch.config import ModelConfig, OptimizerConfig
+from dnmf_tpu_torch.config import (ModelConfig, OptimizerConfig,
+                                   baseline_workload)
 from dnmf_tpu_torch.models import dnmf as model_lib
 from dnmf_tpu_torch.models import graphs
 from dnmf_tpu_torch.models import refine as refine_lib
@@ -96,8 +97,10 @@ PIPE_TOL = 1e-4  # streamed vs resident pipeline: beta, traces (relative)
 PIPE_CORR_MEAN = 0.9  # pipeline recovery: trace corr mean vs the truth
 # What each section's path should launch (the wrappers' names).
 EXPECTED = {
-    "roi_round": ("motion_block", "c1_block", "gram_block"),
-    "wb_passes": ("motion_block", "c1_block", "gram_block", "refine_block"),
+    "roi_round": ("motion_block", "c1_block", "gram_block",
+                  "analytic_grams"),
+    "wb_passes": ("motion_block", "c1_block", "gram_block", "refine_block",
+                  "analytic_grams"),
     "correctness": tuple(fn.__name__ for fn in fused.KERNELS),
     "registration": ("phase_corr_block", "fused_separable_warp"),
     "pipeline_recovery": ("motion_block", "c1_block"),
@@ -315,6 +318,9 @@ def run_correctness(fx, reps=1) -> dict:
         with contextlib.redirect_stdout(sys.stderr):
             results.update(kc.kernel_phase(dev, "roi", size, k, frames, margin,
                                            seed))
+            results.update(kc.closed_gram_phase(
+                dev, "roi", size, k, frames, margin,
+                baseline_workload("roi")[1].frame_block, seed))
             results.update(kc.tracked_kernel_phase(dev, "roi", size, k, frames,
                                                    margin, seed))
             results.update(kc.rows_kernel_phase(

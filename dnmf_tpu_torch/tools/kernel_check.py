@@ -10,7 +10,9 @@ the float32 rate, counted from this run's data: :func:`active_pairs`,
 :class:`KernelCheckError`.  On CPU tensors the wrappers run their plain
 versions, so the checks run there too (the host clock stands in for CUDA
 events).  The timers (:func:`host_seconds`, :func:`event_seconds`,
-:func:`time_ms`) are the measuring tools' too.
+:func:`time_ms`) are the measuring tools' too.  The closed-form Grams
+(:func:`closed_gram_phase`) are held to the plain closed form, their own
+oracle, rather than to the exact Gram they approximate.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from dnmf_tpu_torch.ops import fused, phasecorr, warp
+from dnmf_tpu_torch.ops import gram_analytic as ga
 from dnmf_tpu_torch.registration import motion_correct as mc_lib
 
 SEED = 0
@@ -79,6 +82,16 @@ EARLIER_MS = {("refine_block", "roi"): 1.3885,
 
 
 WARMUP = 1  # untimed calls before each timed series
+ORACLE_FRAMES = 8  # closed-form Grams: frames held to the float64 oracle
+SHAPE_STD = 3.0  # px: the footprint width of the checks' neurons
+# Closed-form Grams (csrc/gram_closed.cu), float32 operations: per
+# unordered pair the pair factor (3 axes of c, gamma, delta^2, an FMA;
+# the exponential); per pair whose factor is non-zero the midpoint, clamp,
+# warp (basis and 30 FMAs) and Jacobian diagonal, then per lattice term
+# the warp along the axis, the fade, the Gaussian and the sum.
+CLOSED_PAIR_OPS = 22.0
+CLOSED_SETUP_OPS = 90.0
+CLOSED_TERM_OPS = 18.0
 
 
 class KernelCheckError(Exception):
@@ -230,6 +243,96 @@ def footprint_flops(kname, bsz, p, n1, n2):
     }[kname]
 
 
+def lattice_terms(pos, size, window):
+    """Mean lattice terms per pair of the closed form over its three axes
+    (the voxels within ``window`` of each neuron's own position that lie
+    in the volume, ``pos [..., K, 3]``), from this run's data."""
+    hi = torch.tensor([float(s - 1) for s in size], device=pos.device)
+    x0 = torch.clamp(torch.round(pos), min=0.0).minimum(hi)
+    n = (torch.minimum(hi, x0 + window) - torch.clamp(x0 - window, min=0.0)
+         + 1.0)
+    return float(n.sum(-1).mean())
+
+
+def closed_gram_flops(evaluated, frames, k, pos, size, window):
+    """Float32 operations of the closed-form Grams on this data: every
+    unordered pair's factor, and the lattice sums of the evaluated ones
+    (``evaluated``: ordered entries per frame, the diagonal once)."""
+    return frames * (k * (k + 1) / 2.0 * CLOSED_PAIR_OPS + (evaluated + k)
+                     / 2.0 * (CLOSED_SETUP_OPS + CLOSED_TERM_OPS
+                              * lattice_terms(pos, size, window)))
+
+
+def closed_gram_phase(dev, name, size, k, frames, margin, frame_block,
+                      seed=SEED):
+    """The closed-form Grams' kernel (``fused.analytic_grams``) as a Grams
+    call launches it, once over ``frames`` frames at shared anchors,
+    against the plain closed form in float32 (every frame) and in float64
+    (the first :data:`ORACLE_FRAMES` frames, one at a time); G exactly
+    symmetric.  On the card its evaluated entries (``pair_counts``) lie
+    between the plain float32 pair factors at or above float32's smallest
+    normal and those that are non-zero (subnormal factors may round either
+    way); on CPU tensors, which take the plain form, the non-zero plain
+    factors stand in for them.  ``plain_ms`` is the plain chain as the
+    route without the kernels runs it: one call per ``frame_block``
+    frames."""
+    betas, pos, sigma, _, _ = kernel_inputs(dev, size, k, frames, margin,
+                                            seed)
+    window = ga.default_window(SHAPE_STD)
+    kw = dict(size=size, window=window)
+
+    def plain(dtype=torch.float32, lo=0, hi=frames):
+        return torch.cat([ga.analytic_grams(
+            betas[s:min(s + frame_block, hi)].to(dtype), pos.to(dtype),
+            sigma.to(dtype), **kw) for s in range(lo, hi, frame_block)])
+
+    on_card = betas.device.type == "cuda"
+    if on_card:
+        got, counts = fused.analytic_grams(betas, pos, sigma,
+                                           pair_counts=True, **kw)
+    else:
+        got, counts = fused.analytic_grams(betas, pos, sigma, **kw), None
+    p32 = plain()
+    n_or = min(frames, ORACLE_FRAMES)
+    oracle = torch.cat([plain(torch.float64, b, b + 1) for b in range(n_or)])
+    e_k, e_p = rel_err(got[:n_or], oracle), rel_err(p32[:n_or], oracle)
+    e_kp = rel_err(got, p32)
+    pf = ga.pair_terms(pos[None], sigma[None, :, None].expand(1, k, 3))[-1][0]
+    lo_n = int((pf >= torch.finfo(torch.float32).tiny).sum())
+    hi_n = int((pf != 0).sum())
+    sym = bool(torch.equal(got, got.transpose(1, 2)))
+    evaluated = float(counts.double().mean()) if on_card else float(hi_n)
+    share = evaluated / (k * k)
+    say(f"kernel analytic_grams {name}: kernel-vs-float64 {e_k:.3e}, "
+        f"plain32-vs-float64 {e_p:.3e}, kernel-vs-plain32 {e_kp:.3e} "
+        f"({frames} frames, window {window}); symmetric {sym}; evaluated "
+        f"entries per frame {evaluated:.1f} of {k * k} ({100.0 * share:.3f}"
+        f"%{'' if on_card else ', the plain count'}), plain factors "
+        f"{lo_n}-{hi_n}")
+    gate(e_k <= KERNEL_TOL and e_kp <= KERNEL_TOL,
+         f"analytic_grams {name}: {e_k:.3e} / {e_kp:.3e} > {KERNEL_TOL}")
+    gate(sym, f"analytic_grams {name}: G is not exactly symmetric")
+    if on_card:
+        gate(bool(((counts >= lo_n) & (counts <= hi_n)).all()),
+             f"analytic_grams {name}: evaluated entries {counts.tolist()} "
+             f"outside the plain count {lo_n}-{hi_n}")
+    ms = time_ms(lambda: fused.analytic_grams(betas, pos, sigma, **kw),
+                 device=dev)
+    plain_ms = time_ms(plain, device=dev)
+    bound_ms, bound_by = bound(
+        nbytes(betas, pos, sigma, got),
+        closed_gram_flops(evaluated, frames, k, pos, size, window))
+    say(f"time analytic_grams {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+        f" ms ({-(-frames // frame_block)} calls of {frame_block} frames), "
+        f"bound {bound_ms:.4f} ms ({bound_by}) ({frames} frames)")
+    return {"analytic_grams": {
+        "max_abs_err": float((got[:n_or].double() - oracle).abs().max()),
+        "max_rel_err": e_k, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "evaluated_share": share, "frames": frames,
+        "frame_block": frame_block}}
+
+
 def kernel_inputs(dev, size, k, frames, margin, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -238,7 +341,7 @@ def kernel_inputs(dev, size, k, frames, margin, seed):
 
     extent = torch.tensor(size, dtype=torch.float32, device=dev)
     pos = margin + rand(k, 3) * (extent - 2.0 * margin)
-    sigma = torch.full((k,), 3.0, device=dev)
+    sigma = torch.full((k,), SHAPE_STD, device=dev)
     betas = torch.zeros((frames, 10, 3), device=dev)
     betas[:, 1, 0] = betas[:, 2, 1] = betas[:, 3, 2] = 1.0
     betas += 0.005 * torch.randn((frames, 10, 3), generator=gen, device=dev)

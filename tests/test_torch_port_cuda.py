@@ -8,24 +8,27 @@ kernels (motion, c1, Gram, refine) also at odd shapes, at K = 6000 and
 alone or inside a 16-frame call, and with their candidate counts held to
 the plain rule; G also at odd sizes and the largest shifts its halo
 takes.  The motion, c1 and Gram kernels over a recordings axis (one
-launch for every recording's frame block, bit-equal per recording to
-the kernel launched on that recording) and ``batched_round`` with
-them.  The compiled-program layer (``models/graphs.py``): each captured
-step equal to its eager run bit for bit, one graph launch per step and
-no kernel launch from the host in a replay, the launch counters kept by
-the replays, a step that breaks capture raising, no synchronizing call
-in a replayed round, autograd's backward inside a capture, and a
-captured ``fit`` under the profiler with its spans on the device's
-timeline, bit-equal to the eager one; the same for the programs of
-refinement (``refine_positions``,
-``tracked_grams``, ``refined_rounds``), the width fit and the
-recordings round, whose replays count the tracked kernels' launches as
-their own, and for the streamed block steps (one entry per step serving
-every block of a ``StreamingVideo`` or ``RawFileVideo``, the padded tail
-included).  The data layer on the card: the simulator against its CPU run on
-one CPU generator's draws, a ``SimulatedVideoDataset`` on the card
-feeding ``fit``, and the recovery harness with and without the kernels.
-Marked ``cuda``; every test skips where no CUDA device exists.
+launch for every recording's frame block, bit-equal per recording to the
+kernel launched on that recording) and ``batched_round`` with them.  The
+closed-form Grams' kernel against the plain closed form (its layouts,
+widths, scalings and the plane form), exactly symmetric, its evaluated
+pairs against the plain pair factors, through the trust audit, and as
+one kernel node per captured Grams call.  The compiled-program layer
+(``models/graphs.py``): each captured step equal to its eager run bit
+for bit, one graph launch per step and no kernel launch from the host in
+a replay, the launch counters kept by the replays, a step that breaks
+capture raising, no synchronizing call in a replayed round, autograd's
+backward inside a capture, and a captured ``fit`` under the profiler
+with its spans on the device's timeline, bit-equal to the eager one; the
+same for the programs of refinement (``refine_positions``,
+``tracked_grams``, ``refined_rounds``), the width fit and the recordings
+round, whose replays count the tracked kernels' launches as their own,
+and for the streamed block steps (one entry per step serving every block
+of a ``StreamingVideo`` or ``RawFileVideo``, the padded tail included).
+The data layer on the card: the simulator against its CPU run on one CPU
+generator's draws, a ``SimulatedVideoDataset`` on the card feeding
+``fit``, and the recovery harness with and without the kernels.  Marked
+``cuda``; every test skips where no CUDA device exists.
 
 Run on a machine with an H100:
 ``python -m pytest tests/test_torch_port_cuda.py -q -m cuda``.
@@ -105,7 +108,7 @@ def test_kernels_match_float64(dev, shape, scaling):
     assert fused.launch_counts() == {
         "motion_block": 1, "c1_block": 1, "gram_block": 1,
         "refine_block": 0, "c1_block_tracked": 0, "gram_block_tracked": 0,
-        "gram_block_rows": 0,
+        "gram_block_rows": 0, "analytic_grams": 0,
         "phase_corr_block": 0, "fused_separable_warp": 0}
 
 
@@ -590,6 +593,128 @@ def test_batched_round_launches_each_pass_once_per_block(dev):
                                        atol=1e-7)
             torch.testing.assert_close(got.c[r], ref.c, rtol=1e-4, atol=1e-6)
     graphs.clear()
+
+
+# --------------------------------- closed-form Grams: csrc/gram_closed.cu
+# name: (size, K, frames, layout, per-axis widths, scaling, position
+# margin); the benchmark's whole-brain and ROI shapes, then the other
+# layouts, widths and scalings, and thin volumes (the plane form).
+CLOSED_CASES = {
+    "whole_brain": ((512, 512, 20), 200, 16, "shared", False, "normalized",
+                    (20.0, 20.0, 2.0)),
+    "roi": ((256, 256, 10), 50, 8, "shared", False, "normalized",
+            (10.0, 10.0, 1.0)),
+    "wb_tracked_aniso": ((512, 512, 20), 200, 4, "tracked", True,
+                         "normalized", (20.0, 20.0, 2.0)),
+    "roi_recordings_pixel": ((256, 256, 10), 50, 8, "recordings", True,
+                             "pixel", (10.0, 10.0, 1.0)),
+    "roi_pixel": ((256, 256, 10), 50, 8, "shared", False, "pixel",
+                  (10.0, 10.0, 1.0)),
+    "odd_k_recordings": ((96, 64, 6), 37, 5, "recordings", False,
+                         "normalized", (1.0, 1.0, 0.0)),
+    "thin": ((40, 24, 2), 45, 5, "shared", False, "normalized",
+             (1.0, 1.0, 0.0)),
+    "thin_tracked_aniso_pixel": ((64, 3, 48), 60, 5, "tracked", True,
+                                 "pixel", (1.0, 0.0, 1.0)),
+}
+CLOSED_TOL = 1e-5  # max|kernel - plain float32| / max|plain float32|
+
+
+def _closed_inputs(dev, name, seed=7):
+    size, k, t, layout, aniso, _, margin = CLOSED_CASES[name]
+    rng = np.random.default_rng(seed)
+    hi = np.asarray(size, np.float64) - 1 - np.asarray(margin)
+    lead = (RECORDINGS, t) if layout == "recordings" else (t,)
+    tables = {"shared": (), "tracked": (t,),
+              "recordings": (RECORDINGS,)}[layout]
+    pos = rng.uniform(margin, hi, tables + (k, 3))
+    sigma = 3.0 * rng.uniform(0.8, 1.2, tables[:int(layout == "recordings")]
+                              + ((k, 3) if aniso else (k,)))
+    betas = np.zeros(lead + (10, 3))
+    betas[..., 1, 0] = betas[..., 2, 1] = betas[..., 3, 2] = 1.0
+    betas += 0.005 * rng.normal(size=betas.shape)
+    return [torch.tensor(x, dtype=torch.float32, device=dev)
+            for x in (betas, pos, sigma)]
+
+
+@pytest.mark.parametrize("name", list(CLOSED_CASES))
+def test_closed_form_kernel_matches_plain(dev, name):
+    """The kernel against the plain closed form on the card within
+    CLOSED_TOL, G exactly symmetric, one launch, the same bits on a second
+    call, and the evaluated entries per frame equal to the plain pair
+    factors that are non-zero in float32 (those that are subnormal may
+    round either way)."""
+    from dnmf_tpu_torch.ops import gram_analytic as ga
+
+    size, k, t, layout, aniso, scaling, _ = CLOSED_CASES[name]
+    betas, pos, sigma = _closed_inputs(dev, name)
+    kw = dict(scaling=scaling, window=ga.default_window(3.0))
+    fused.reset_launch_counts()
+    g, counts = fused.analytic_grams(betas, pos, sigma, size,
+                                     pair_counts=True, **kw)
+    assert fused.launch_counts()["analytic_grams"] == 1
+    ref = ga.analytic_grams(betas, pos, sigma, size, **kw)
+    torch.cuda.synchronize()
+    assert g.shape == ref.shape and counts.shape == betas.shape[:-2]
+    err = float((g - ref).abs().max() / ref.abs().max())
+    assert err <= CLOSED_TOL, err
+    assert torch.equal(g, g.transpose(-1, -2))
+    assert torch.equal(fused.analytic_grams(betas, pos, sigma, size, **kw), g)
+    sig = sigma if aniso else sigma[..., None].expand(sigma.shape + (3,))
+    pos_t = pos if pos.ndim == 3 else pos[None]
+    pf = ga.pair_terms(pos_t, sig if sig.ndim == 3 else sig[None])[-1]
+    nonzero = torch.count_nonzero(pf, dim=(-2, -1))
+    normal = torch.count_nonzero(pf >= torch.finfo(torch.float32).tiny,
+                                 dim=(-2, -1))
+    if layout == "recordings":
+        nonzero, normal = nonzero[:, None], normal[:, None]
+    assert bool(((counts >= normal) & (counts <= nonzero)).all())
+    assert bool((counts >= k).all())
+
+
+def test_closed_form_audit_through_the_kernel(dev):
+    """The trust audit with the kernels evaluates the closed form through
+    the kernel; its rel_err within 1e-6 of the plain closed form's against
+    the same exact Gram."""
+    from dnmf_tpu_torch.engine import trainer as ttr
+    from dnmf_tpu_torch.models import dnmf as tM
+    from dnmf_tpu_torch.ops import gram_analytic as ga
+
+    model, state, _ = _graph_inputs(dev)
+    window = ga.default_window(model.shape_std)
+    fused.reset_launch_counts()
+    audit = ttr.audit_analytic_gram(state, model, window=window,
+                                    use_kernels=True)
+    assert fused.launch_counts()["analytic_grams"] == 1
+    t = audit["frame"]
+    beta1 = state.beta[t:t + 1]
+    g_exact, _ = tM.compute_grams(
+        state.replace(beta=beta1, c=state.c[:, :1]),
+        torch.zeros((1, model.num_voxels), device=dev), model, 1, True,
+        "exact")
+    g_plain = ga.analytic_grams(beta1, state.pos, state.sigma, model.size,
+                                window=window)
+    rel_plain = float(torch.max(torch.abs(g_plain - g_exact))
+                      / torch.max(torch.abs(g_exact)))
+    assert abs(audit["rel_err"] - rel_plain) <= 1e-6, (audit, rel_plain)
+
+
+def test_captured_closed_form_grams_are_one_kernel_per_call(graph_cache,
+                                                           dev):
+    """A captured ``compute_grams`` (closed form) holds one
+    ``gram_closed`` node and the c1 passes' nodes (a table, the brick walk
+    and the finish per frame block): no elementwise chain."""
+    model, state, video = _graph_inputs(dev)
+    _graph_steps(model, state, video)["grams_analytic"]()
+    (entry,) = graph_cache.entries()
+    blocks = -(-GRAPH_T // GRAPH_FB)
+    assert entry.launches == {"c1_block": blocks, "analytic_grams": 1}
+    closed = sum(n for name, n in entry.nodes.items() if "gram_closed" in name)
+    c1 = sum(n for name, n in entry.nodes.items()
+             if any(s in name for s in ("build_table", "c1_bricks",
+                                        "c1_finish")))
+    assert closed == 1 and c1 == 3 * blocks
+    assert sum(entry.nodes.values()) - closed - c1 <= 2, entry.nodes
 
 
 # ------------------------------------------------ registration: F and G
@@ -1572,13 +1697,18 @@ def test_program_replay_launches_equal_eager(graph_cache, dev, program):
     run()  # replays only
     assert fused.launch_counts() == eager
     wanted = {"refine_positions": ["refine_block"],
-              "refined_rounds": ["refine_block", "c1_block_tracked"],
+              "refined_rounds": ["refine_block", "c1_block_tracked",
+                                 "analytic_grams"],
               "sigma": ["refine_block"], "sigma_aniso": ["refine_block"],
               "tracked_exact": ["gram_block_tracked"],
-              "tracked_analytic": ["c1_block_tracked"],
+              "tracked_analytic": ["c1_block_tracked", "analytic_grams"],
               "batched_exact": ["motion_block", "gram_block"],
-              "batched_analytic": ["motion_block", "c1_block"]}[program]
+              "batched_analytic": ["motion_block", "c1_block",
+                                   "analytic_grams"]}[program]
     assert all(eager[name] > 0 for name in wanted), eager
+    # The closed form: one launch per Grams call, every frame at once.
+    if program in ("tracked_analytic", "batched_analytic"):
+        assert eager["analytic_grams"] == 1, eager
     # The tracked passes count as themselves, not as their twins.
     if program.startswith(("tracked", "refined")):
         assert eager["c1_block"] == eager["gram_block"] == 0, eager
@@ -2142,10 +2272,11 @@ def test_streamed_replay_launches_equal_eager(graph_cache, dev, tmp_path,
     assert fused.launch_counts() == eager
     # Per block: one pass; refinement 2 rounds x (3 epochs + a c1 pass).
     wanted = {"motion": {"motion_block": 3}, "grams_exact": {"gram_block": 3},
-              "grams_analytic": {"c1_block": 3},
-              "refine_mu": {"refine_block": 18, "c1_block_tracked": 6},
-              "refine_fista": {"refine_block": 18,
-                               "c1_block_tracked": 6}}[step]
+              "grams_analytic": {"c1_block": 3, "analytic_grams": 3},
+              "refine_mu": {"refine_block": 18, "c1_block_tracked": 6,
+                            "analytic_grams": 6},
+              "refine_fista": {"refine_block": 18, "c1_block_tracked": 6,
+                               "analytic_grams": 6}}[step]
     assert {k: eager[k] for k in wanted} == wanted, eager
 
 
@@ -2245,7 +2376,8 @@ MESH_STEPS = ["motion", "grams_exact", "grams_analytic", "mu", "fista",
               "stream_motion", "stream_grams", "reg_rigid", "reg_pwrigid"]
 MESH_KERNELS = {  # the kernels that each mesh step's eager run launches
     "motion": {"motion_block"}, "grams_exact": {"gram_block"},
-    "grams_analytic": {"c1_block"}, "mu": set(), "fista": set(),
+    "grams_analytic": {"c1_block", "analytic_grams"}, "mu": set(),
+    "fista": set(),
     "mu_halo": set(), "fista_halo": set(),
     "refine": {"refine_block", "gram_block_tracked"},
     "sigma": {"refine_block"}, "batched": {"motion_block", "gram_block"},

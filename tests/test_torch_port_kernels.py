@@ -173,7 +173,7 @@ def test_wrappers_take_plain_path_on_cpu(rng):
     assert fused.launch_counts() == {
         "motion_block": 0, "c1_block": 0, "gram_block": 0,
         "refine_block": 0, "c1_block_tracked": 0, "gram_block_tracked": 0,
-        "gram_block_rows": 0,
+        "gram_block_rows": 0, "analytic_grams": 0,
         "phase_corr_block": 0, "fused_separable_warp": 0}
 
 
