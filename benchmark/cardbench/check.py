@@ -8,7 +8,10 @@ warps and the traces that the fit's seed gives.  Frames are independent
 in the fit, so each job's final warps and traces of those frames are
 compared with the reference's one by one, and the losses the job logged
 with the reference's losses: every epoch's where all frames are followed,
-else the first epoch's, computed over all frames.
+else the first epoch's, computed over all frames.  Where the traffic has
+``refine``, the reference then follows the refinement on the same frames
+(``follow_refine``), from its own fit's warps and traces, and the job's
+positions and final traces are compared with its.
 
 The numbers, each with its limit (``limits/<workload>.json``):
 
@@ -19,12 +22,18 @@ The numbers, each with its limit (``limits/<workload>.json``):
   changes (final minus start) over the norm of the reference's change,
   the largest over frames;
 * ``c_err``: per frame, the norm of the traces' difference over the norm
-  of the reference's traces, the largest over frames;
+  of the reference's traces, the largest over frames (the job's final
+  traces: after the refinement, where there is one);
 * ``audit_gap``: the gap between the audit's logged ``rel_err`` (closed-form
   against exact Gram at the frame of the strongest warp) and the
-  reference's at the same frame.
+  reference's at the same frame;
+* ``pos_err`` (refinement only): per frame, the norm of the difference of
+  the positions' moves off the anchors over the norm of the reference's
+  move, the largest over frames.
 
-A missing or non-finite reading counts as infinitely far off.
+``beta_err`` is read after the fit: the refinement keeps the warps.  A
+cell is held to the numbers its limits file lists; a missing or
+non-finite reading counts as infinitely far off.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import torch
 
 from cardbench import spec
 
-NUMBERS = ("loss_err", "beta_err", "c_err", "audit_gap")
+NUMBERS = ("loss_err", "beta_err", "c_err", "audit_gap", "pos_err")
 
 
 def schedule(traffic: dict) -> dict:
@@ -77,6 +86,7 @@ class Reference:
         dev = rec.video.device
         self.frames = check_frames(cell["limits"], t, seed, audit_at)
         self.audit = audit_at[0] if audit_at else None
+        self.refine = traffic.get("refine")
         idx = torch.tensor(self.frames, device=dev)
         model = self.ref.Model(cfg["size"], rec.pos, cfg["shape_std"],
                                precision)
@@ -90,6 +100,14 @@ class Reference:
                           if self.audit is not None else None),
                 gram_trust_tol=cell["traffic_spec"]["runtime"].get(
                     "gram_trust_tol", 0.02))
+            self.pos = None
+            if self.refine is not None:
+                polished = self.ref.follow_refine(
+                    model, rec.frames_flat()[idx], self.out["beta"],
+                    self.out["c"], self.refine, self.out["gram_mode"])
+                self.out["c"] = polished["c"]
+                self.pos = polished["pos"]
+            self.anchors = rec.pos
             if len(self.frames) == t:
                 self.loss = (self.out["mse"].mean(1)
                              + self.gamma * self.out["reg"].mean(1)).tolist()
@@ -103,7 +121,8 @@ class Reference:
     def view(self) -> dict:
         """The reference's own outputs as :func:`numbers` reads a job's."""
         return {"beta": self.out["beta"], "c": self.out["c"],
-                "loss": self.loss, "rel_err": self.out["rel_err"]}
+                "loss": self.loss, "rel_err": self.out["rel_err"],
+                "pos": self.pos}
 
 
 def traffic_seed(seed: int) -> int:
@@ -118,7 +137,8 @@ def job_view(job, frames: List[int], gamma: float) -> dict:
     audit = [m for m in job.metrics if m.get("phase") == "gram_audit"]
     return {"beta": job.beta[idx], "c": job.c[:, idx],
             "loss": [m["recon_mse"] + gamma * m["reg"] for m in motion],
-            "rel_err": audit[0]["rel_err"] if audit else None}
+            "rel_err": audit[0]["rel_err"] if audit else None,
+            "pos": None if job.pos_t is None else job.pos_t[idx]}
 
 
 def _finite(x: float) -> float:
@@ -147,19 +167,37 @@ def numbers(view: dict, reference: Reference) -> dict:
         audit_gap = math.inf
     else:
         audit_gap = abs(float(view["rel_err"]) - float(out["rel_err"]))
-    return {"loss_err": _finite(float(loss_err)),
-            "beta_err": _finite(float(beta_err)),
-            "c_err": _finite(float(c_err)),
-            "audit_gap": _finite(float(audit_gap))}
+    readings = {"loss_err": _finite(float(loss_err)),
+                "beta_err": _finite(float(beta_err)),
+                "c_err": _finite(float(c_err)),
+                "audit_gap": _finite(float(audit_gap))}
+    if reference.pos is not None:
+        readings["pos_err"] = (math.inf if view["pos"] is None else _finite(
+            float(pos_err(view["pos"], reference.pos, reference.anchors))))
+    return readings
+
+
+def pos_err(pos: torch.Tensor, pos_ref: torch.Tensor,
+            anchors: torch.Tensor) -> torch.Tensor:
+    """Per frame ``||(pos - anchors) - (pos_ref - anchors)|| / ||pos_ref -
+    anchors||`` of positions ``[F, K, 3]``, the largest over frames."""
+    d_ref = (pos_ref - anchors).flatten(1)
+    d_prog = (pos - anchors).flatten(1)
+    return torch.max(torch.linalg.vector_norm(d_prog - d_ref, dim=1)
+                     / torch.linalg.vector_norm(d_ref, dim=1))
 
 
 def worst(readings: List[dict]) -> dict:
-    return {n: max(r[n] for r in readings) for n in NUMBERS}
+    return {n: max(r[n] for r in readings) for n in NUMBERS
+            if n in readings[0]}
 
 
 def verdict(readings: dict, limits: dict) -> dict:
-    """Each number beside its limit, and whether all are within."""
+    """Each number that the limits list beside its limit, and whether all
+    are within."""
     lim = limits["limits"]
-    checks = {n: {"value": readings[n], "limit": lim[n]} for n in NUMBERS}
-    ok = all(readings[n] <= lim[n] for n in NUMBERS)
+    names = [n for n in NUMBERS if n in lim]
+    checks = {n: {"value": readings.get(n, math.inf), "limit": lim[n]}
+              for n in names}
+    ok = all(c["value"] <= c["limit"] for c in checks.values())
     return {"correct": ok, "checks": checks}

@@ -3,9 +3,12 @@
 Set-up makes the recording on the card from the seed, builds the engine's
 configuration from the cell's files and runs one warm-up round: the
 kernel library's build or load, every captured graph of the job, the
-audit's eager Gram.  The window then runs whole jobs, each a new
-``DeformableNMF`` and one ``fit`` over the same resident recording, until
-``--seconds`` have passed; the last job ends past that.  ``--trace 1``
+audit's eager Gram; where the traffic has ``refine``, one round of the
+refinement after it, which captures the refinement's graphs.  The window
+then runs whole jobs, each a new ``DeformableNMF`` and one ``fit`` over
+the same resident recording (then ``refine`` with the traffic's
+``refine`` arguments, where it has them), until ``--seconds`` have
+passed; the last job ends past that.  ``--trace 1``
 adds the spans of :mod:`cardbench.trace` to the window and profiles one
 more whole job after it, the spans still in place to name its idle
 gaps.  Then the program's state is freed and every job is checked
@@ -34,10 +37,16 @@ class Job:
     beta: torch.Tensor
     c: torch.Tensor
     metrics: list
+    pos_t: Optional[torch.Tensor] = None  # [T, K, 3] after a refinement
 
     @property
     def rounds(self) -> List[dict]:
         return [m for m in self.metrics if m.get("phase") == "round"]
+
+    @property
+    def refine_rounds(self) -> int:
+        return sum(int(m["rounds"]) for m in self.metrics
+                   if m.get("phase") == "refine")
 
 
 class Run:
@@ -56,22 +65,34 @@ class Run:
         self.launches = {}  # wrapper -> launches in the profiled job
         self.graph_launches = {}  # wrapper -> of them, by graph replays
         self.kernel_counts = {}  # wrapper -> what the count check read
-        self.work = None  # (size, K, T, frame_block, pos, sigma, beta)
+        # (size, K, T, frame_block, pos, sigma, beta, pos_t): the profiled
+        # job's work; pos_t None where it has no refinement
+        self.work = None
 
     @property
     def round_seconds(self) -> List[float]:
         return [r["seconds"] for j in self.jobs for r in j.rounds]
 
     @property
-    def rounds_done(self) -> int:
-        return len(self.round_seconds)
+    def refine_rounds(self) -> int:
+        return sum(j.refine_rounds for j in self.jobs)
 
-    def kernel_roofline(self, wrapper: str, kernels) -> Optional[float]:
+    @property
+    def rounds_done(self) -> int:
+        """The fit's rounds and the refinement's (``refine`` logs one
+        entry with its ``rounds``)."""
+        return len(self.round_seconds) + self.refine_rounds
+
+    def kernel_roofline(self, wrapper: str, kernels,
+                        tracked: bool = False) -> Optional[float]:
         """100 x the least time of the wrapper's passes in the profiled job
         over the device time of its kernels (``kernels``: substrings of the
-        profiler's names).  None where it launched nothing, or where the
-        profile's count of any of those kernels differs from its launches
-        (recorded in :attr:`kernel_counts`, never divided by)."""
+        profiler's names).  A pass is one launch per ``frame_block`` over
+        the anchors, or, ``tracked``, one launch over all the frames at
+        the job's per-frame positions (the refinement's).  None where it
+        launched nothing, or where the profile's count of any of those
+        kernels differs from its launches (recorded in
+        :attr:`kernel_counts`, never divided by)."""
         n = self.launches.get(wrapper, 0)
         if self.profile is None or not n:
             return None
@@ -81,14 +102,18 @@ class Run:
                 wrapper, 0), "profiled": counted}
         if any(c != n for c in counted.values()):
             return None
-        size, k, t, fb, pos, sigma, beta = self.work
-        blocks = [min(s + fb, t) - s for s in range(0, t, fb)]
+        size, k, t, fb, pos, sigma, beta, pos_t = self.work
+        if tracked and pos_t is None:
+            return None
+        blocks = ([t] if tracked
+                  else [min(s + fb, t) - s for s in range(0, t, fb)])
         if n % len(blocks):
             return None
         passes = n // len(blocks)
         p = size[0] * size[1] * size[2]
-        sample = beta[torch.linspace(0, t - 1, 4).round().long()]
-        n1, n2 = roofline.active_pairs(sample, pos, sigma, size)
+        idx = torch.linspace(0, t - 1, 4).round().long()
+        n1, n2 = roofline.active_pairs(
+            beta[idx], pos_t[idx] if tracked else pos, sigma, size)
         n1, n2 = n1 / 4.0, n2 / 4.0  # per frame
         seconds = passes * sum(
             roofline.bound(roofline.kernel_bytes(wrapper, b, p, k),
@@ -155,6 +180,16 @@ def engine_configs(cell: dict, seed: int):
     return model, opt, runtime
 
 
+def run_job(eng, rec, refine: Optional[dict], device) -> Job:
+    """One whole job on a new engine: ``fit``, then ``refine`` with the
+    traffic's ``refine`` arguments where it has them."""
+    res = eng.fit(rec)
+    if refine is not None:
+        res = eng.refine(rec, **refine)
+    _sync(device)
+    return Job(res.state.beta, res.state.c, res.metrics, eng.pos_t)
+
+
 def run_cell(cell: dict, args, t_process: float, device) -> int:
     from dnmf_tpu_torch.engine.trainer import DeformableNMF
     from dnmf_tpu_torch.models import graphs
@@ -167,19 +202,22 @@ def run_cell(cell: dict, args, t_process: float, device) -> int:
     model, opt, runtime = engine_configs(cell, args.seed)
     rec = recording.make(cfg, args.seed, device)
     run.frames = int(cfg["num_frames"])
+    refine = cell["traffic_spec"].get("refine")
+
+    def engine():
+        return DeformableNMF(model, opt, runtime, positions=rec.pos,
+                             device=device, beta0=rec.beta0)
 
     def job() -> Job:
-        eng = DeformableNMF(model, opt, runtime, positions=rec.pos,
-                            device=device, beta0=rec.beta0)
-        res = eng.fit(rec)
-        _sync(device)
-        return Job(res.state.beta, res.state.c, res.metrics)
+        return run_job(engine(), rec, refine, device)
 
     # Warm-up: one round builds or loads the kernels and captures every
-    # graph of the job; set-up ends with it.
-    warm = DeformableNMF(model, opt, runtime, positions=rec.pos,
-                         device=device, beta0=rec.beta0)
+    # graph of the job (one round of the refinement captures its three);
+    # set-up ends with it.
+    warm = engine()
     warm.fit(rec, rounds=1)
+    if refine is not None:
+        warm.refine(rec, **{**refine, "rounds": 1})
     del warm
     _sync(device)
     gc.collect()
@@ -223,7 +261,7 @@ def run_cell(cell: dict, args, t_process: float, device) -> int:
         run.work = (tuple(int(s) for s in cfg["size"]),
                     int(cfg["num_neurons"]), run.frames,
                     int(runtime.frame_block), rec.pos,
-                    float(cfg["shape_std"]), extra.beta)
+                    float(cfg["shape_std"]), extra.beta, extra.pos_t)
         breakdown = {"device_ops": run.profile.top_ops(),
                      "idle_gaps": run.profile.idle_gaps()}
     memory_peak = max(setup_peak, run.peak_reserved_bytes)

@@ -10,6 +10,15 @@ voxels (:mod:`references.deformable_nmf`), so a whole-brain recording takes
 seconds.  ``beta0`` is the fit's starting warps: ``beta_t`` plus a
 seeded error, as registration would seed them.
 
+Where the configuration's ``assumed`` has ``neuron_motion`` (``model``
+``"gp"``), the neurons also move on their own, as in a freely moving
+worm: frame ``t`` draws cell ``k`` at ``p_k + o_tk``, the offsets ``o_t
+[K, 3]`` a draw per frame and axis from ``N(0, a_d RBF(ls))`` over the
+anchors' coordinates along that axis (smooth across neurons, white in
+time: the reference demo's ``generate_gp_motion``), from a generator of
+their own, so every other draw is the one a configuration without it
+makes.
+
 Every size and draw is fixed by the configuration's ``size``,
 ``num_neurons``, ``num_frames``, ``shape_std`` and ``assumed`` and by the
 seed; the seed changes values only, never the amount of work.
@@ -38,6 +47,8 @@ class Recording:
 
 # Basis rows by the order of their terms: translation, linear, quadratic.
 _GROUPS = ((0,), (1, 2, 3), (4, 5, 6, 7, 8, 9))
+# The neuron offsets' generator's seed: the run's seed shifted past 32 bits.
+MOTION_SEED_SHIFT = 1 << 32
 
 
 def _warps(gen, t: int, size, amp_px, harmonics: int, device):
@@ -77,6 +88,27 @@ def _traces(gen, k: int, t: int, density: float, device):
     return 1.0 + out
 
 
+def _gp_offsets(gen, pos: torch.Tensor, t: int, motion: dict):
+    """``[T, K, 3]`` neuron offsets: per axis ``d`` the root of the RBF
+    covariance ``a_d exp(-(x_i - x_j)^2 / (2 ls^2))`` over the anchors'
+    ``d`` coordinates (float64 ``eigh``, negative eigenvalues clipped)
+    times a standard normal ``[K, T]``."""
+    if motion["model"] != "gp":
+        raise ValueError(f"unknown neuron motion {motion['model']!r}")
+    k, dev = pos.shape[0], pos.device
+    eps = torch.randn((3, k, t), generator=gen, device=dev)
+    ls = float(motion["length_scale_px"])
+    out = []
+    for d, amp in enumerate(motion["amplitude_px2"]):
+        x = pos[:, d].double()
+        cov = float(amp) * torch.exp(-0.5 * ((x[:, None] - x[None, :]) / ls)
+                                     ** 2)
+        evals, evecs = torch.linalg.eigh(cov)
+        root = (evecs * evals.clamp_min(0.0).sqrt()).float()
+        out.append(root @ eps[d])  # [K, T]
+    return torch.stack(out, dim=-1).permute(1, 0, 2).contiguous()
+
+
 def make(config: dict, seed: int, device) -> Recording:
     size = tuple(int(s) for s in config["size"])
     k, t = int(config["num_neurons"]), int(config["num_frames"])
@@ -94,14 +126,22 @@ def make(config: dict, seed: int, device) -> Recording:
            * (beta - ref.identity(1, device)).abs().amax(dim=0)
            * a["start_error"])
     beta0 = beta + err
+    pos_t, excursion = None, None
+    if "neuron_motion" in a:
+        motion_gen = torch.Generator(device=device).manual_seed(
+            int(seed) + MOTION_SEED_SHIFT)
+        offsets = _gp_offsets(motion_gen, pos, t, a["neuron_motion"])
+        pos_t = pos + offsets
+        excursion = offsets.abs().amax(dim=(0, 1))
     render = ref.Model(size, pos, math.sqrt(2.0 * float(config["shape_std"])))
     video = torch.empty((t,) + size, dtype=torch.float32, device=device)
     flat = video.view(t, -1)
-    box, batches = ref.passes(render, beta)
+    box, batches = ref.passes(render, beta, excursion)
     with torch.no_grad():
         for s, e in batches:
-            frames = render.recon(render.footprints(beta[s:e], box),
-                                  traces[:, s:e], box)
+            frames = render.recon(render.footprints(
+                beta[s:e], box, None if pos_t is None else pos_t[s:e]),
+                traces[:, s:e], box)
             flat[s:e] = frames
         peak = float(flat.max())
         noise = float(a["noise_of_peak"]) * peak

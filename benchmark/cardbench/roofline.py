@@ -5,10 +5,11 @@ the ``*_roofline`` metrics, frozen here from the port's kernel checks.
 float32 operations over the float32 rate, at an H100 SXM's published
 peaks (NVIDIA's data sheet, 700 W): 3.35 TB/s and 67 TFLOP/s outside the
 tensor cores, where the demixing kernels compute.  ``active_pairs``
-counts, from the run's own warps and anchors, the (frame, voxel, neuron)
-triples whose footprint clears float32 resolution (``|psi - p|^2 / s^2 <
-36``), with the warp of each voxel computed in plain PyTorch, so the
-count is the work the function needs whatever implements it.
+counts, from the run's own warps and anchors (or per-frame positions,
+for the refinement), the (frame, voxel, neuron) triples whose footprint
+clears float32 resolution (``|psi - p|^2 / s^2 < 36``), with the warp of
+each voxel computed in plain PyTorch, so the count is the work the
+function needs whatever implements it.
 ``footprint_flops`` is the operations a kernel of the family must do on
 that work.  Bytes count each input read once and each output written
 once.
@@ -53,15 +54,16 @@ def _warped(betas, size, start, stop):
 
 def active_pairs(betas, pos, sigma: float, size):
     """``(n1, n2)``: the (frame, voxel, neuron) triples of ``betas [B, 10,
-    3]`` and anchors ``pos [K, 3]`` whose footprint clears float32
-    resolution, and the sum over (frame, voxel) of their count squared."""
+    3]`` and anchors ``pos [K, 3]`` (or per-frame positions ``[B, K, 3]``)
+    whose footprint clears float32 resolution, and the sum over (frame,
+    voxel) of their count squared."""
     p = int(size[0]) * int(size[1]) * int(size[2])
-    k = pos.shape[0]
+    k = pos.shape[-2]
     step = max(1, _CHUNK_ELEMS // (betas.shape[0] * k * 3))
     n1 = n2 = 0.0
     for start in range(0, p, step):
         psi = _warped(betas, size, start, min(start + step, p))[:, :, None]
-        d = psi - pos
+        d = psi - (pos if pos.ndim == 2 else pos[:, None])
         act = ((d * d).sum(-1) / (sigma * sigma) < REACH).sum(-1).double()
         n1 += float(act.sum())
         n2 += float((act * act).sum())
@@ -73,18 +75,25 @@ def footprint_flops(kernel: str, frames: int, p: int, n1: float,
     """Float32 operations a kernel of the demixing family must do: per
     voxel and frame the warp (10 basis values, 30 FMAs, the fade: 70); per
     active (voxel, neuron) the Gaussian once (12) and its use; the Gram
-    one FMA per unordered active pair."""
+    one FMA per unordered active pair; the refinement the residual's FMA
+    and the 3 position moments per pair."""
     warp_ops, gauss = 70.0 * frames * p, 12.0 * n1
     return {
         "motion_block": warp_ops + gauss + 8.0 * n1 + 64.0 * frames * p,
         "c1_block": warp_ops + gauss + 2.0 * n1,
         "gram_block": warp_ops + gauss + 2.0 * n1 + n2 + n1,
+        "refine_block": warp_ops + gauss + 8.0 * n1,
     }[kernel]
 
 
 def kernel_bytes(kernel: str, frames: int, p: int, k: int) -> float:
     """Bytes of one pass of ``frames`` frames: the frames ``[B, P]``, the
-    warps, anchors, widths (and traces) read; the outputs written."""
+    warps, anchors, widths (and traces) read; the outputs written.  The
+    refinement reads per-frame positions ``[B, K, 3]``, the traces and
+    the widths, and writes ``mse [B]`` and ``dpos [B, K, 3]``."""
+    if kernel == "refine_block":
+        reads = frames * p + frames * 30 + frames * k * 4 + k
+        return 4.0 * (reads + frames * (1 + 3 * k))
     reads = frames * p + frames * 30 + k * 4
     writes = {"motion_block": frames * 31, "c1_block": frames * k,
               "gram_block": frames * (k * k + k)}[kernel]

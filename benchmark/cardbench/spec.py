@@ -8,7 +8,7 @@ found by name, so a cell or a metric is added by adding files:
   ``assumed``, ``reduced``, the engine's ``runtime`` settings and the name
   of its plain reference (``references/<reference>.py``);
 * ``traffic/<traffic>.json``: the job's schedule (``optimizer``,
-  ``runtime``);
+  ``runtime``, and ``refine`` where ``refine`` follows the fit);
 * ``limits/<workload>.json``: the correctness check's frames and limits;
 * ``metrics/<metric>.py``: a reader ``read(run) -> float or None``.
 """

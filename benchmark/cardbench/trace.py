@@ -16,7 +16,8 @@ import torch
 
 # graphs attribute -> the span's name
 STEPS = {"motion_epoch": "motion", "compute_grams": "grams",
-         "footprint_update": "traces"}
+         "footprint_update": "traces", "refine_positions": "refine",
+         "tracked_grams": "tracked_grams"}
 NAME_CHARS = 160  # of a device activity's name in the breakdown
 
 

@@ -3,12 +3,13 @@
     python3 benchmark/control.py --workload wb_demix --seeds 1 2 3 \
         --control-seeds 1 2 3 > readings.jsonl
 
-For each of ``--seeds``: the recording and one whole job of the program,
-as a run makes them, and the check's numbers for it (the lower readings:
-sound runs).  For each of ``--control-seeds``: the
-plain reference computed with TF32-rounded products in the program's
-place, against the float32 reference (the upper readings: the control,
-which has to come out not correct).  One JSON line per reading; the
+For each of ``--seeds``: the recording and one whole job of the program
+(``fit``, then ``refine`` where the traffic has it), as a run makes them,
+and the check's numbers for it (the lower readings: sound runs).  For
+each of ``--control-seeds``: the plain reference, its refinement
+included, computed with TF32-rounded products in the program's place,
+against the float32 reference (the upper readings: the control, which
+has to come out not correct).  One JSON line per reading; the
 benchmark's own runs never run this.
 """
 
@@ -54,10 +55,9 @@ def main():
         rec = recording.make(cell["config_spec"], seed, dev)
         eng = DeformableNMF(model, opt, runtime, positions=rec.pos,
                             device=dev, beta0=rec.beta0)
-        res = eng.fit(rec)
-        torch.cuda.synchronize()
-        job = harness.Job(res.state.beta, res.state.c, res.metrics)
-        del eng, res
+        job = harness.run_job(eng, rec, cell["traffic_spec"].get("refine"),
+                              dev)
+        del eng
         graphs.clear()
         torch.cuda.empty_cache()
         reference = check.Reference(cell, rec, seed,

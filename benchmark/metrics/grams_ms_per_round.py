@@ -1,6 +1,8 @@
-"""``grams_ms_per_round``: the Grams (``graphs.compute_grams`` -> ``models/dnmf.py``,
-``ops/gram_analytic.py``): CUDA events around
-each call (``cardbench.trace``), summed over the window, per round."""
+"""``grams_ms_per_round``: the Grams (``graphs.compute_grams`` ->
+``models/dnmf.py``, ``ops/gram_analytic.py``): CUDA events around each
+call (``cardbench.trace``), summed over the window, per round.  A round
+is one of ``Run.rounds_done``: in a cell that refines (``wb_refine``)
+the refinement's rounds count too."""
 
 
 def read(run):

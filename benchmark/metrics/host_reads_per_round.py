@@ -1,7 +1,9 @@
 """``host_reads_per_round`` (engine, ``engine/trainer.py``): the profiled
 job's ``span.engine.read`` labels (one per read site's call: an epoch's
-metrics, a round's mean trace) over its ``span.engine.round`` labels.
-Nothing where the program has no such labels."""
+metrics, a round's mean trace) over its ``span.engine.round``
+labels.  Nothing where the program has no such labels.  A round is a
+``span.engine.round`` label, which only the fit's rounds carry: in a
+cell that refines, the refinement's count without its rounds."""
 
 
 def read(run):

@@ -1,6 +1,8 @@
 """``motion_ms_per_round``: the motion epoch (``graphs.motion_epoch`` ->
-``models/dnmf.py``): CUDA events around
-each call (``cardbench.trace``), summed over the window, per round."""
+``models/dnmf.py``): CUDA events around each call (``cardbench.trace``),
+summed over the window, per round.  A round is one of
+``Run.rounds_done``: in a cell that refines (``wb_refine``) the
+refinement's rounds count too."""
 
 
 def read(run):

@@ -2,9 +2,12 @@
 the host milliseconds inside the program's ``span.graphs.replay`` labels
 (a captured step's graph launch, host side) over the profiled job's
 ``span.engine.round`` labels.  Under the profiler the launch carries
-CUPTI's cost per kernel node, so this reads the launch as profiled: on an
-H100 a whole-brain Grams launch reads ~338 ms profiled and ~3.5 ms
-without a profiler.  Nothing where the program has no such labels."""
+CUPTI's cost per kernel node, so this reads the launch as profiled: on
+an H100 a whole-brain Grams launch reads ~338 ms profiled and ~3.5 ms
+without a profiler.  Nothing where the program has no such labels.  A
+round is a ``span.engine.round`` label, which only the fit's rounds
+carry: in a cell that refines, the refinement's count without its
+rounds."""
 
 
 def read(run):

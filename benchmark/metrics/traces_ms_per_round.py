@@ -1,6 +1,8 @@
-"""``traces_ms_per_round``: the trace update (``graphs.footprint_update`` ->
-``ops/mu.py``): CUDA events around
-each call (``cardbench.trace``), summed over the window, per round."""
+"""``traces_ms_per_round``: the trace update (``graphs.footprint_update``
+-> ``ops/mu.py``): CUDA events around each call (``cardbench.trace``),
+summed over the window, per round.  A round is one of
+``Run.rounds_done``: in a cell that refines (``wb_refine``) the
+refinement's rounds count too."""
 
 
 def read(run):

@@ -24,13 +24,19 @@ it with the exact Gram at the strongest-warped frame, within the trust
 tolerance; past it the exact Gram.
 
 Frames are independent given the anchors (no temporal smoothing of the
-traces), so :func:`follow` runs the schedule on any subset of frames.  A
+traces), so :func:`follow` runs the schedule on any subset of frames, and
+:func:`follow_refine` the refinement after it: per-frame positions
+``pos_t [F, K, 3]`` in the model's frame take the anchors' place in the
+footprints, ``A_tk(x) = exp(-|psi_t(x) - pos_tk|^2 / s^2) * w(psi_t(x))``,
+fitted by Adam against the reconstruction with a tether to the anchors,
+and the Grams and ``c1`` are taken at them.  A
 footprint is evaluated only on the voxels of a box around its anchor that
 holds every voxel where ``|psi - p| < 5 s``: past it a footprint is under
 ``exp(-25) ~ 1.4e-11`` of its peak, three orders of magnitude below
 float32's resolution.  The warp moves a voxel by at most ``D_d = hi_d / 2
 * sum_j |beta_jd - I_jd|`` along axis ``d``, so the box's half-width is
-``5 s + D_d``.
+``5 s + D_d``, and, with per-frame positions, that plus the positions'
+largest distance from their anchors along the axis.
 
 ``precision="tf32"`` rounds the operands of every matrix product to
 TF32's 10 mantissa bits (the control of the benchmark's check); float32
@@ -107,11 +113,15 @@ def fade(psi: torch.Tensor, size) -> torch.Tensor:
     return w[..., 0] * w[..., 1] * w[..., 2]
 
 
-def reach(betas: torch.Tensor, size, sigma: float) -> tuple:
+def reach(betas: torch.Tensor, size, sigma: float,
+          excursion: Optional[torch.Tensor] = None) -> tuple:
     """Per-axis box half-widths that hold every voxel within ``5 sigma``
-    of an anchor after any of the warps ``betas [B, 10, 3]``."""
+    of an anchor after any of the warps ``betas [B, 10, 3]``; of a
+    position within ``excursion [3]`` (per axis) of its anchor, if given."""
     dev = (betas - identity(1, betas.device)).abs().sum(dim=1).amax(dim=0)
     shift = 0.5 * norm_hi(size, betas) * dev
+    if excursion is not None:
+        shift = shift + excursion
     return tuple(int(math.ceil(REACH_SIGMAS * sigma + float(d) + 0.5))
                  for d in shift)
 
@@ -154,8 +164,9 @@ class Model:
         self.plain = Plain(precision)
         self._boxes: Dict[tuple, Boxes] = {}
 
-    def boxes(self, betas: torch.Tensor) -> Boxes:
-        half = reach(betas, self.size, self.sigma)
+    def boxes(self, betas: torch.Tensor,
+              excursion: Optional[torch.Tensor] = None) -> Boxes:
+        half = reach(betas, self.size, self.sigma, excursion)
         if half not in self._boxes:
             self._boxes = {half: Boxes(self.pos, self.size, half)}
         return self._boxes[half]
@@ -180,15 +191,21 @@ class Model:
         g = self.plain.mm(box.phi.transpose(1, 2), du).sum(dim=0)
         return g.view(10, bsz, 3).permute(1, 0, 2)
 
-    def gaussians(self, psi: torch.Tensor) -> torch.Tensor:
-        """Faded footprints ``[B, K, nb]`` at ``psi [B, K, nb, 3]``."""
-        d2 = torch.sum((psi - self.pos[None, :, None, :]) ** 2, dim=-1)
+    def gaussians(self, psi: torch.Tensor,
+                  pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Faded footprints ``[B, K, nb]`` at ``psi [B, K, nb, 3]``, centred
+        on the anchors or on per-frame positions ``pos [B, K, 3]``."""
+        centre = (self.pos[None, :, None, :] if pos is None
+                  else pos[:, :, None, :])
+        d2 = torch.sum((psi - centre) ** 2, dim=-1)
         return torch.exp(-d2 / (self.sigma * self.sigma)) * fade(psi,
                                                                  self.size)
 
-    def footprints(self, betas: torch.Tensor, box: Boxes) -> torch.Tensor:
-        """``A [B, K, nb]`` on each neuron's box for ``betas [B, 10, 3]``."""
-        return self.gaussians(self.psi(betas, box))
+    def footprints(self, betas: torch.Tensor, box: Boxes,
+                   pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``A [B, K, nb]`` on each neuron's box for ``betas [B, 10, 3]``
+        (at per-frame positions ``pos [B, K, 3]``, if given)."""
+        return self.gaussians(self.psi(betas, box), pos)
 
     def recon(self, a: torch.Tensor, c: torch.Tensor,
               box: Boxes) -> torch.Tensor:
@@ -237,11 +254,24 @@ class Model:
                 g = self.beta_grad(dpsi, box) + gamma * dreg
         return mse.detach(), reg.detach(), g
 
-    def c1_and_exact(self, betas, y, exact: bool, box=None):
+    def position_losses(self, betas, pos, c, y, box):
+        """Per-frame ``(mse [B], d mse / d pos [B, K, 3])`` at per-frame
+        positions ``pos [B, K, 3]`` (``box`` must hold them), by
+        autograd."""
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            r = self.recon(self.footprints(betas, box, p), c, box) - y
+            mse = torch.sum(r * r, dim=1) / self.p
+            (g,) = torch.autograd.grad(torch.sum(mse), p)
+        return mse.detach(), g
+
+    def c1_and_exact(self, betas, y, exact: bool, box=None, pos=None):
         """``(c1 [B, K], G [B, K, K] or None)``: the exact Gram from each
-        frame's footprints scattered onto the whole volume."""
+        frame's footprints scattered onto the whole volume; footprints at
+        per-frame positions ``pos [B, K, 3]`` where given (``box`` must
+        hold them)."""
         box = box or self.boxes(betas)
-        a = self.footprints(betas, box)  # [B, K, nb]
+        a = self.footprints(betas, box, pos)  # [B, K, nb]
         c1 = torch.sum(a * y[:, box.flat], dim=-1)
         if not exact:
             return c1, None
@@ -255,9 +285,11 @@ class Model:
             del dense
         return c1, torch.stack(grams)
 
-    def closed_form(self, betas: torch.Tensor, window: int) -> torch.Tensor:
-        return closed_form_grams(betas, self.pos, self.sigma, self.size,
-                                 window, mm=self.plain.mm)
+    def closed_form(self, betas: torch.Tensor, window: int,
+                    pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return closed_form_grams(betas, self.pos if pos is None else pos,
+                                 self.sigma, self.size, window,
+                                 mm=self.plain.mm)
 
 
 # ----------------------------------------------------------------------
@@ -311,16 +343,17 @@ def closed_form_grams(betas: torch.Tensor, pos: torch.Tensor, sigma: float,
     the midpoint ``m``, and ``S`` the faded lattice sum of that Gaussian
     over the deformed voxels, with the warp linearized per axis around
     the inverse image of ``m`` (its own-axis curvature kept); an axis of
-    at most ``plane_axis_max`` planes summed plane by plane."""
+    at most ``plane_axis_max`` planes summed plane by plane.  ``pos``:
+    the anchors ``[K, 3]`` or per-frame positions ``[B, K, 3]``."""
     size = tuple(int(s) for s in size)
     kw = dict(dtype=torch.float32, device=pos.device)
     top = torch.tensor([float(s - 1) for s in size], **kw)
-    bsz, k = betas.shape[0], pos.shape[0]
+    bsz, k = betas.shape[0], pos.shape[-2]
     ck = torch.full((1, k, 3), 1.0 / (sigma * sigma), **kw)
     c = ck[:, :, None, :] + ck[:, None, :, :]
     gamma = ck[:, :, None, :] * ck[:, None, :, :] / c
     wk, wl = ck[:, :, None, :] / c, ck[:, None, :, :] / c
-    p = pos[None]
+    p = pos if pos.ndim == 3 else pos[None]
     pairfac = torch.exp(-torch.sum(
         gamma * (p[:, :, None, :] - p[:, None, :, :]) ** 2, dim=-1))
     m = wk * p[:, :, None, :] + wl * p[:, None, :, :]
@@ -398,10 +431,12 @@ def _batches(n: int, per: int):
     return [(s, min(s + per, n)) for s in range(0, n, per)]
 
 
-def passes(model: Model, beta: torch.Tensor):
+def passes(model: Model, beta: torch.Tensor,
+           excursion: Optional[torch.Tensor] = None):
     """``(box, [(start, stop)])``: one box for all of ``beta [F, 10, 3]``
-    and frame batches of about 2**25 footprint values each."""
-    box = model.boxes(beta)
+    (and positions within ``excursion`` of their anchors) and frame
+    batches of about 2**25 footprint values each."""
+    box = model.boxes(beta, excursion)
     per = max(1, (1 << 25) // (model.pos.shape[0] * box.nb))
     return box, _batches(beta.shape[0], per)
 
@@ -471,3 +506,62 @@ def follow(model: Model, y: torch.Tensor, beta0: torch.Tensor,
             c = c * c1.T / (c2 + EPS)
     return {"beta": beta, "c": c, "mse": torch.stack(mses),
             "reg": torch.stack(regs), "rel_err": rel, "gram_mode": mode}
+
+
+def _excursion(pos: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """Per axis ``[3]``: the largest distance of ``pos [F, K, 3]`` from
+    the anchors."""
+    return (pos - anchors).abs().amax(dim=(0, 1))
+
+
+def follow_refine(model: Model, y: torch.Tensor, beta: torch.Tensor,
+                  c: torch.Tensor, schedule: dict, gram_mode: str) -> dict:
+    """Run ``refine``'s schedule on the frames ``y [F, P]`` after the fit,
+    from its warps ``beta [F, 10, 3]`` and traces ``c [K, F]``.
+
+    ``schedule``: ``rounds``, ``epochs``, ``mu_iters``, ``learning_rate``
+    (pixels), ``prior``.  Each round takes ``epochs`` Adam steps on the
+    positions ``pos_t [F, K, 3]`` (the anchors at the first round, the
+    last round's after it; a fresh Adam each round) on the data gradient
+    plus the tether's ``2 prior / K (pos_t - anchor)``, then the Grams and
+    ``c1`` at ``pos_t`` in ``gram_mode`` (the fit's audit's choice) and
+    ``mu_iters`` multiplicative updates.  The warps are kept.  Returns
+    ``pos`` ``[F, K, 3]``, ``c`` and the last epoch's ``mse [F]`` (before
+    its step).
+
+    Departures from the port's ``models/refine.py``: the footprints live
+    on the boxes, the port's kernels cull at a reach of their own (both
+    far below float32's resolution of a footprint's peak); Adam's bias
+    corrections are Python floats here, float32 powers of the device
+    count there.
+    """
+    f, k = beta.shape[0], model.pos.shape[0]
+    anchors = model.pos
+    pos = anchors.expand(f, k, 3).clone()
+    lr, prior = schedule["learning_rate"], schedule["prior"]
+    window = default_window(model.sigma)
+    mse = None
+    for _ in range(schedule["rounds"]):
+        mu, nu, count = torch.zeros_like(pos), torch.zeros_like(pos), 0
+        for _ in range(schedule["epochs"]):
+            box, batches = passes(model, beta, _excursion(pos, anchors))
+            parts = [model.position_losses(beta[s:e], pos[s:e], c[:, s:e],
+                                           y[s:e], box) for s, e in batches]
+            mse = torch.cat([p[0] for p in parts])
+            g = torch.cat([p[1] for p in parts])
+            g = g + (2.0 * prior / k) * (pos - anchors)
+            pos, count, mu, nu = _adam(pos, g, count, mu, nu, lr)
+        box, batches = passes(model, beta, _excursion(pos, anchors))
+        c1s, grams = [], []
+        for s, e in batches:
+            c1, g_ex = model.c1_and_exact(beta[s:e], y[s:e],
+                                          gram_mode == "exact", box,
+                                          pos[s:e])
+            c1s.append(c1)
+            grams.append(g_ex if gram_mode == "exact"
+                         else model.closed_form(beta[s:e], window, pos[s:e]))
+        c1, grams = torch.cat(c1s), torch.cat(grams)
+        for _ in range(schedule["mu_iters"]):
+            c2 = model.plain.mm(grams, c.T[:, :, None])[..., 0].T
+            c = c * c1.T / (c2 + EPS)
+    return {"pos": pos, "c": c, "mse": mse}

@@ -16,7 +16,8 @@ for path in (os.path.dirname(BENCH), BENCH):
 
 def tiny_cell(workload: str = "roi_demix", check_frames="all") -> dict:
     """The workload's files at a size the CPU runs in seconds: 24x20x6
-    voxels, K=4, T=6, 2 rounds of 3 epochs (1 for a one-epoch traffic)."""
+    voxels, K=4, T=6, 2 rounds of 3 epochs (1 for a one-epoch traffic);
+    a refinement of 2 rounds of 4 epochs and 10 trace updates."""
     from cardbench import spec
 
     cell = spec.cell(workload)
@@ -27,6 +28,9 @@ def tiny_cell(workload: str = "roi_demix", check_frames="all") -> dict:
     opt = cell["traffic_spec"]["optimizer"]
     opt["outer_rounds"] = 2
     opt["motion_epochs"] = min(opt["motion_epochs"], 3)
+    if "refine" in cell["traffic_spec"]:
+        cell["traffic_spec"]["refine"].update(rounds=2, epochs=4,
+                                              mu_iters=10)
     cell["limits"]["check_frames"] = check_frames
     return cell
 

@@ -76,7 +76,7 @@ def _grams_altered(orig):
     return step
 
 
-@pytest.mark.parametrize("workload", ["roi_demix", "wb_round"])
+@pytest.mark.parametrize("workload", ["roi_demix", "wb_round", "wb_refine"])
 @pytest.mark.parametrize("attr,fault", [
     ("motion_epoch", _motion_unchanged),   # a step returns its state
     ("motion_epoch", _motion_half),        # half the frames left out
@@ -92,11 +92,89 @@ def test_a_broken_timed_path_is_not_correct(workload, attr, fault,
     assert out["correct"] is False, out["checks"]
 
 
-def test_the_control_is_not_correct():
+def _positions_unchanged(orig):
+    def step(state, pos_t, video, *args, **kwargs):
+        _, m = orig(state, pos_t, video, *args, **kwargs)
+        t, k = video.shape[0], state.pos.shape[0]
+        return (state.pos.expand(t, k, 3) if pos_t is None else pos_t), m
+    return step
+
+
+def _positions_half(orig):
+    def step(state, pos_t, video, *args, **kwargs):
+        t, k = video.shape[0], state.pos.shape[0]
+        start = state.pos.expand(t, k, 3) if pos_t is None else pos_t
+        h = t // 2
+        part = state.replace(beta=state.beta[:h], c=state.c[:, :h])
+        new, m = orig(part, start[:h], video[:h], *args, **kwargs)
+        return torch.cat([new, start[h:]]), m
+    return step
+
+
+def _tracked_altered(orig):
+    def step(*args, **kwargs):
+        grams, c1 = orig(*args, **kwargs)
+        return grams, c1 * 1.01
+    return step
+
+
+@pytest.mark.parametrize("attr,fault", [
+    ("refine_positions", _positions_unchanged),  # a step returns its state
+    ("refine_positions", _positions_half),       # half the frames left out
+    ("tracked_grams", _tracked_altered),         # a statistic altered
+])
+def test_a_broken_refinement_is_not_correct(attr, fault, monkeypatch,
+                                            capsys):
+    from dnmf_tpu_torch.models import refine
+
+    monkeypatch.setattr(refine, attr, fault(getattr(refine, attr)))
+    out, _ = _run(tiny_cell("wb_refine"), capsys)
+    assert out["correct"] is False, out["checks"]
+
+
+@pytest.mark.parametrize("workload", ["roi_demix", "wb_round", "wb_refine"])
+def test_the_job_and_warm_up_call_what_the_traffic_names(workload,
+                                                         monkeypatch,
+                                                         capsys):
+    """Without ``refine`` a job is one ``fit`` and the warm-up one
+    ``fit(rounds=1)``; with it each is followed by ``refine``, the warm-up's
+    of one round with the traffic's other arguments."""
+    from dnmf_tpu_torch.engine import trainer
+
+    calls = []
+
+    def spy(name):
+        orig = getattr(trainer.DeformableNMF, name)
+
+        def method(self, video, **kwargs):
+            calls.append((name, kwargs))
+            return orig(self, video, **kwargs)
+        return method
+
+    for name in ("fit", "refine"):
+        monkeypatch.setattr(trainer.DeformableNMF, name, spy(name))
+    cell = tiny_cell(workload)
+    out, _ = _run(cell, capsys)
+    refine = cell["traffic_spec"].get("refine")
+    if refine is None:
+        warm_up, job = [("fit", {"rounds": 1})], [("fit", {})]
+    else:
+        warm_up = [("fit", {"rounds": 1}),
+                   ("refine", {**refine, "rounds": 1})]
+        job = [("fit", {}), ("refine", refine)]
+    jobs = (len(calls) - len(warm_up)) // len(job)
+    assert jobs >= 1 and calls == warm_up + job * jobs
+    assert out["attempted"] == jobs * (
+        cell["traffic_spec"]["optimizer"]["outer_rounds"]
+        + (refine["rounds"] if refine else 0))
+
+
+@pytest.mark.parametrize("workload", ["roi_demix", "wb_refine"])
+def test_the_control_is_not_correct(workload):
     """The reference in TF32 in the program's place fails the limits."""
     from cardbench import check, recording
 
-    cell = tiny_cell()
+    cell = tiny_cell(workload)
     rec = recording.make(cell["config_spec"], 23, torch.device("cpu"))
     ref = check.Reference(cell, rec, 23, [0])
     control = check.Reference(cell, rec, 23, [0], precision="tf32")

@@ -87,3 +87,41 @@ def test_counter_readers_sum_the_entries():
 def test_counter_readers_read_nothing_without_the_counters(name):
     assert spec.reader(name)(_run(entries=[_entry(), _entry()])) is None
     assert spec.reader(name)(_run(entries=[])) is None
+
+
+def _job_with(phases):
+    return harness.Job(None, None, [{"phase": p, **kw} for p, kw in phases])
+
+
+def test_rounds_done_counts_the_refinements_rounds():
+    fit = [("round", {"seconds": 0.5})] * 5
+    run = _run()
+    run.jobs = [_job_with(fit), _job_with(fit + [("refine", {"rounds": 3,
+                                                            "seconds": 9.0})])]
+    assert run.refine_rounds == 3
+    assert run.rounds_done == 13
+    assert len(run.round_seconds) == 10
+    run.frames, run.window_s = 1000, 10.0
+    assert spec.reader("frames_per_s")(run) == 1300.0
+
+
+def test_refinement_readers_read_per_refine_round():
+    run = _run()
+    run.jobs = [_job_with([("round", {"seconds": 0.5}),
+                           ("refine", {"rounds": 3, "seconds": 9.0})])] * 2
+    run.spans = {"motion": 0.1, "refine": 6.0, "tracked_grams": 0.9}
+    assert spec.reader("refine_ms_per_round")(run) == pytest.approx(1000.0)
+    assert spec.reader("tracked_grams_ms_per_round")(run) == pytest.approx(
+        150.0)
+    # the fit's rounds alone: the refinement's spans lie outside them
+    assert spec.reader("host_ms_per_round")(run) is None
+
+
+@pytest.mark.parametrize("name", ["refine_ms_per_round",
+                                  "tracked_grams_ms_per_round",
+                                  "refine_kernel_roofline"])
+def test_refinement_readers_read_nothing_without_a_refinement(name):
+    run = _run()
+    run.jobs = [_job_with([("round", {"seconds": 0.5})])]
+    run.spans = {"motion": 0.1, "refine": 0.0, "tracked_grams": 0.0}
+    assert spec.reader(name)(run) is None
