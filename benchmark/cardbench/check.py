@@ -8,10 +8,13 @@ warps and the traces that the fit's seed gives.  Frames are independent
 in the fit, so each job's final warps and traces of those frames are
 compared with the reference's one by one, and the losses the job logged
 with the reference's losses: every epoch's where all frames are followed,
-else the first epoch's, computed over all frames.  Where the traffic has
-``refine``, the reference then follows the refinement on the same frames
-(``follow_refine``), from its own fit's warps and traces, and the job's
-positions and final traces are compared with its.
+else the first epoch's, computed over all frames.  The reference reads
+the frames from the recording (``rows`` and ``frames``): from the card,
+or, for a stored recording, from its file, the bytes the fit streamed.
+Where the traffic has ``refine``, the reference then follows the
+refinement on the same frames (``follow_refine``), from its own fit's
+warps and traces, and the job's positions and final traces are compared
+with its.
 
 The numbers, each with its limit (``limits/<workload>.json``):
 
@@ -83,11 +86,12 @@ class Reference:
         self.sched = schedule(traffic)
         self.gamma = self.sched["gamma_motion"]
         t, k = int(cfg["num_frames"]), int(cfg["num_neurons"])
-        dev = rec.video.device
+        dev = rec.pos.device
         self.frames = check_frames(cell["limits"], t, seed, audit_at)
         self.audit = audit_at[0] if audit_at else None
         self.refine = traffic.get("refine")
         idx = torch.tensor(self.frames, device=dev)
+        y = rec.rows(idx)
         model = self.ref.Model(cfg["size"], rec.pos, cfg["shape_std"],
                                precision)
         opt_seed = traffic_seed(seed)
@@ -95,7 +99,7 @@ class Reference:
         self.beta0 = rec.beta0[idx]
         with torch.no_grad():
             self.out = self.ref.follow(
-                model, rec.frames_flat()[idx], self.beta0, c0, self.sched,
+                model, y, self.beta0, c0, self.sched,
                 audit_at=(self.frames.index(self.audit)
                           if self.audit is not None else None),
                 gram_trust_tol=cell["traffic_spec"]["runtime"].get(
@@ -103,7 +107,7 @@ class Reference:
             self.pos = None
             if self.refine is not None:
                 polished = self.ref.follow_refine(
-                    model, rec.frames_flat()[idx], self.out["beta"],
+                    model, y, self.out["beta"],
                     self.out["c"], self.refine, self.out["gram_mode"])
                 self.out["c"] = polished["c"]
                 self.pos = polished["pos"]
@@ -113,9 +117,8 @@ class Reference:
                              + self.gamma * self.out["reg"].mean(1)).tolist()
             else:
                 c_all = self.ref.initial_traces(k, t, opt_seed, range(t), dev)
-                flat = rec.frames_flat()
                 mse, reg = self.ref.losses(model, rec.beta0, c_all,
-                                           lambda s, e: flat[s:e], self.gamma)
+                                           rec.frames, self.gamma)
                 self.loss = [float(mse.mean() + self.gamma * reg.mean())]
 
     def view(self) -> dict:

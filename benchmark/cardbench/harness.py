@@ -4,19 +4,23 @@ Set-up makes the recording on the card from the seed, builds the engine's
 configuration from the cell's files and runs one warm-up round: the
 kernel library's build or load, every captured graph of the job, the
 audit's eager Gram; where the traffic has ``refine``, one round of the
-refinement after it, which captures the refinement's graphs.  The window
-then runs whole jobs, each a new ``DeformableNMF`` and one ``fit`` over
-the same resident recording (then ``refine`` with the traffic's
+refinement after it, which captures the refinement's graphs.  Where the
+configuration has ``storage``, set-up first writes the recording to a
+raw float32 file in memory and frees the card's copy, and every ``fit``
+streams the file through the program's own reader (:func:`fit_source`).
+The window then runs whole jobs, each a new ``DeformableNMF`` and one
+``fit`` over the same recording (then ``refine`` with the traffic's
 ``refine`` arguments, where it has them), until ``--seconds`` have
-passed; the last job ends past that.  ``--trace 1``
-adds the spans of :mod:`cardbench.trace` to the window and profiles one
-more whole job after it, the spans still in place to name its idle
-gaps.  Then the program's state is freed and every job is checked
+passed; the last job ends past that.  ``--trace 1`` adds the spans of
+:mod:`cardbench.trace` to the window and profiles one more whole job
+after it, the spans still in place to name its idle gaps.  Then the
+program's state is freed and every job is checked
 (:mod:`cardbench.check`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -59,6 +63,10 @@ class Run:
         self.frames = None  # T
         self.peak_reserved_bytes = None
         self.spans = None  # span name -> seconds over the window
+        # a streamed source's reads in the window (cardbench.trace.Fills):
+        # host seconds in its _fill and the bytes filled; None unstreamed
+        self.fill_seconds = None
+        self.fill_bytes = None
         self.entries = []  # graphs.entries() after set-up
         self.shared_bytes = 0
         self.profile: Optional[trace.Profile] = None
@@ -180,17 +188,64 @@ def engine_configs(cell: dict, seed: int):
     return model, opt, runtime
 
 
-def run_job(eng, rec, refine: Optional[dict], device) -> Job:
+def run_job(eng, source, refine: Optional[dict], device) -> Job:
     """One whole job on a new engine: ``fit``, then ``refine`` with the
     traffic's ``refine`` arguments where it has them."""
-    res = eng.fit(rec)
+    res = eng.fit(source)
     if refine is not None:
-        res = eng.refine(rec, **refine)
+        res = eng.refine(source, **refine)
     _sync(device)
     return Job(res.state.beta, res.state.c, res.metrics, eng.pos_t)
 
 
+@contextlib.contextmanager
+def fit_source(cell: dict, seed: int, device):
+    """``(rec, source)``: the cell's recording, drawn on ``device`` from the
+    seed, and what every ``fit`` of the run gets.  Without ``storage`` in
+    the configuration both are the resident recording.  With it the
+    recording is written to a raw float32 file in memory
+    (:func:`cardbench.recording.store`), the card's copy freed, and the
+    source is the program's reader over the file, opened as
+    ``engine/pipeline.py`` takes a raw file (``open_raw_video``); on a card
+    it has to be the native reader, never the memmap fallback.  The file
+    and the reader are closed on exit, also when the run raises."""
+    rec = recording.make(cell["config_spec"], seed, device)
+    storage = cell["config_spec"].get("storage")
+    if storage is None:
+        yield rec, rec
+        return
+    from dnmf_tpu_torch.data import streaming
+
+    rec = recording.store(rec, storage)
+    source = None
+    try:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        source = streaming.open_raw_video(
+            rec.path, rec.shape, block=int(storage["block"]),
+            num_threads=int(storage["reader_threads"]), device=device)
+        kind = type(source).__name__
+        if device.type == "cuda" and not isinstance(source,
+                                                    streaming.RawFileVideo):
+            raise RuntimeError(f"the fit's source is a {kind}: the native "
+                               "block reader did not load")
+        _say(f"fit source: {kind} over a raw float32 file of "
+             f"{'x'.join(map(str, rec.shape))} in memory, block "
+             f"{source.block}, {int(storage['reader_threads'])} reader "
+             "threads")
+        yield rec, source
+    finally:
+        if isinstance(source, streaming.RawFileVideo):
+            source._reader.close()  # joins a prefetch still in flight
+        rec.close()
+
+
 def run_cell(cell: dict, args, t_process: float, device) -> int:
+    with fit_source(cell, args.seed, device) as (rec, source):
+        return _run(cell, args, t_process, device, rec, source)
+
+
+def _run(cell: dict, args, t_process: float, device, rec, source) -> int:
     from dnmf_tpu_torch.engine.trainer import DeformableNMF
     from dnmf_tpu_torch.models import graphs
     from dnmf_tpu_torch.ops import fused
@@ -200,24 +255,24 @@ def run_cell(cell: dict, args, t_process: float, device) -> int:
     run = Run()
     cfg = cell["config_spec"]
     model, opt, runtime = engine_configs(cell, args.seed)
-    rec = recording.make(cfg, args.seed, device)
     run.frames = int(cfg["num_frames"])
     refine = cell["traffic_spec"].get("refine")
+    streamed = source is not rec
 
     def engine():
         return DeformableNMF(model, opt, runtime, positions=rec.pos,
                              device=device, beta0=rec.beta0)
 
     def job() -> Job:
-        return run_job(engine(), rec, refine, device)
+        return run_job(engine(), source, refine, device)
 
     # Warm-up: one round builds or loads the kernels and captures every
     # graph of the job (one round of the refinement captures its three);
     # set-up ends with it.
     warm = engine()
-    warm.fit(rec, rounds=1)
+    warm.fit(source, rounds=1)
     if refine is not None:
-        warm.refine(rec, **{**refine, "rounds": 1})
+        warm.refine(source, **{**refine, "rounds": 1})
     del warm
     _sync(device)
     gc.collect()
@@ -227,10 +282,13 @@ def run_cell(cell: dict, args, t_process: float, device) -> int:
         torch.cuda.reset_peak_memory_stats(device)
     run.entries = graphs.entries()
     run.shared_bytes = graphs.shared_bytes()
-    spans = None
+    spans = fills = None
     if args.trace:
         spans = trace.Spans(graphs)
         spans.install()
+        if streamed:
+            fills = trace.Fills(source)
+            fills.install()
     t_window = time.perf_counter()
     run.setup_s = t_window - t_process
     while True:
@@ -246,10 +304,15 @@ def run_cell(cell: dict, args, t_process: float, device) -> int:
     if args.trace:
         run.spans = spans.seconds()
         spans.clear()
+        if fills is not None:
+            run.fill_seconds, run.fill_bytes = fills.seconds, fills.bytes
+            fills.clear()
         before = fused.launch_counts()
         replays = {id(e): e.replays for e in graphs.entries()}
         extra, run.profile = trace.profile(job)
         spans.uninstall()
+        if fills is not None:
+            fills.uninstall()
         run.launches = {k: n - before[k]
                         for k, n in fused.launch_counts().items()
                         if n != before[k]}
@@ -258,9 +321,11 @@ def run_cell(cell: dict, args, t_process: float, device) -> int:
                 run.graph_launches[k] = run.graph_launches.get(k, 0) + n * (
                     e.replays - replays.get(id(e), 0))
         run.jobs.append(extra)
+        # a streamed pass launches once per block of the source
         run.work = (tuple(int(s) for s in cfg["size"]),
                     int(cfg["num_neurons"]), run.frames,
-                    int(runtime.frame_block), rec.pos,
+                    int(source.block if streamed else runtime.frame_block),
+                    rec.pos,
                     float(cfg["shape_std"]), extra.beta, extra.pos_t)
         breakdown = {"device_ops": run.profile.top_ops(),
                      "idle_gaps": run.profile.idle_gaps()}

@@ -22,13 +22,25 @@ makes.
 Every size and draw is fixed by the configuration's ``size``,
 ``num_neurons``, ``num_frames``, ``shape_std`` and ``assumed`` and by the
 seed; the seed changes values only, never the amount of work.
+
+A configuration with ``storage`` (``{"kind": "raw_float32", "block",
+"reader_threads"}``) is drawn the same way, then written block by block
+to a raw float32 ``[T, M, N, Z]`` file (:func:`store`): the fit streams
+that file through the program's reader, and the check reads it back here
+with a NumPy memmap, so the reference judges the bytes the fit streamed.
+The file is an anonymous one in memory (``memfd_create``), opened by its
+``/proc/self/fd`` path: a page-cached file wherever the run is, whose
+reads never leave the host's memory and which writes nothing to disk.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from references import deformable_nmf as ref
@@ -43,6 +55,68 @@ class Recording:
     def frames_flat(self) -> torch.Tensor:
         """``[T, P]``: how the datasets hand a recording to ``fit``."""
         return self.video.reshape(self.video.shape[0], -1)
+
+    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """Frames ``idx`` as ``[len(idx), P]``: what the check reads."""
+        return self.frames_flat()[idx]
+
+    def frames(self, start: int, stop: int) -> torch.Tensor:
+        """Frames ``[start, stop)`` as ``[stop - start, P]``."""
+        return self.frames_flat()[start:stop]
+
+
+STORED_NAME = "cardbench_recording"  # the in-memory file's name
+
+
+@dataclasses.dataclass
+class StoredRecording:
+    """A recording in a raw float32 ``[T, M, N, Z]`` file; no copy stays
+    on the card.  The check's reads come from the file, moved to the
+    anchors' device.  :meth:`close` frees the file once nothing else
+    holds it open."""
+
+    path: str
+    shape: Tuple[int, ...]  # (T, M, N, Z)
+    pos: torch.Tensor
+    beta0: torch.Tensor
+    fd: int = -1
+
+    def close(self) -> None:
+        if self.fd >= 0:
+            os.close(self.fd)
+            self.fd = -1
+
+    def _flat(self) -> np.memmap:
+        return np.memmap(self.path, dtype=np.float32, mode="r",
+                         shape=(self.shape[0], math.prod(self.shape[1:])))
+
+    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+        host = np.ascontiguousarray(self._flat()[idx.cpu().numpy()])
+        return torch.from_numpy(host).to(self.pos.device)
+
+    def frames(self, start: int, stop: int) -> torch.Tensor:
+        host = np.array(self._flat()[start:stop])
+        return torch.from_numpy(host).to(self.pos.device)
+
+
+def store(rec: Recording, storage: dict) -> StoredRecording:
+    """Write ``rec``'s video to a new in-memory file as the
+    configuration's ``storage`` says, ``storage["block"]`` frames at a time
+    through the host; the caller drops ``rec``, which frees the card's
+    copy, and closes the result."""
+    if storage["kind"] != "raw_float32":
+        raise ValueError(f"unknown storage kind {storage['kind']!r}")
+    fd = os.memfd_create(STORED_NAME)
+    try:
+        t, block = rec.video.shape[0], int(storage["block"])
+        with open(fd, "wb", closefd=False) as f:
+            for s in range(0, t, block):
+                rec.video[s:s + block].cpu().numpy().tofile(f)
+    except BaseException:
+        os.close(fd)
+        raise
+    return StoredRecording(f"/proc/self/fd/{fd}", tuple(rec.video.shape),
+                           rec.pos, rec.beta0, fd)
 
 
 # Basis rows by the order of their terms: translation, linear, quadratic.

@@ -1,10 +1,13 @@
 """What a ``--trace 1`` run reads: CUDA-event spans around the engine's
-steps, and ``torch.profiler`` over one whole job.
+steps, host-clock spans around a streamed source's reads, and
+``torch.profiler`` over one whole job.
 
 The spans wrap the module attributes of ``dnmf_tpu_torch.models.graphs``
 that the trainer calls (:data:`STEPS`), from here, without editing the
 package: each call gets a start and an end event on the current stream
 and a ``record_function`` label that the profile's host side carries.
+:class:`Fills` wraps the ``_fill`` of one streamed source the same way,
+on the host's clock.
 """
 
 from __future__ import annotations
@@ -14,8 +17,11 @@ import time
 
 import torch
 
-# graphs attribute -> the span's name
+# graphs attribute -> the span's name; a streamed fit's steps count as
+# the resident fit's
 STEPS = {"motion_epoch": "motion", "compute_grams": "grams",
+         "motion_epoch_streaming": "motion",
+         "compute_grams_streaming": "grams",
          "footprint_update": "traces", "refine_positions": "refine",
          "tracked_grams": "tracked_grams"}
 NAME_CHARS = 160  # of a device activity's name in the breakdown
@@ -65,6 +71,35 @@ class Spans:
         torch.cuda.synchronize()
         return {name: sum(s.elapsed_time(e) for s, e in ev) * 1e-3
                 for name, ev in self.events.items()}
+
+
+class Fills:
+    """Host seconds and bytes of a streamed source's ``_fill`` calls (the
+    wait on the reader's prefetch of a block and its copy into the pinned
+    buffer), by a wrapper on the source instance, each call labelled
+    ``span.fill`` for the profile."""
+
+    def __init__(self, source):
+        self.source = source
+        self.seconds = 0.0
+        self.bytes = 0
+
+    def install(self) -> None:
+        fill = self.source._fill
+
+        def wrapped(start, stop, out, voxels):
+            with torch.profiler.record_function("span.fill"):
+                t0 = time.perf_counter()
+                fill(start, stop, out, voxels)
+                self.seconds += time.perf_counter() - t0
+            self.bytes += (stop - start) * out.shape[1] * 4  # float32
+        self.source._fill = wrapped
+
+    def uninstall(self) -> None:
+        del self.source._fill  # the class's method again
+
+    def clear(self) -> None:
+        self.seconds, self.bytes = 0.0, 0
 
 
 def _attr(event, *names):

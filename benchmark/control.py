@@ -4,13 +4,14 @@
         --control-seeds 1 2 3 > readings.jsonl
 
 For each of ``--seeds``: the recording and one whole job of the program
-(``fit``, then ``refine`` where the traffic has it), as a run makes them,
-and the check's numbers for it (the lower readings: sound runs).  For
-each of ``--control-seeds``: the plain reference, its refinement
-included, computed with TF32-rounded products in the program's place,
-against the float32 reference (the upper readings: the control, which
-has to come out not correct).  One JSON line per reading; the
-benchmark's own runs never run this.
+(``fit``, then ``refine`` where the traffic has it), as a run makes them
+(``harness.fit_source``: a stored configuration's recording written to
+its file and streamed from it), and the check's numbers for it (the
+lower readings: sound runs).  For each of ``--control-seeds``: the plain
+reference, its refinement included, computed with TF32-rounded products
+in the program's place, against the float32 reference (the upper
+readings: the control, which has to come out not correct).  One JSON
+line per reading; the benchmark's own runs never run this.
 """
 
 import argparse
@@ -35,7 +36,7 @@ def main():
     import torch
 
     torch.set_num_threads(2)
-    from cardbench import check, harness, recording, spec
+    from cardbench import check, harness, spec
 
     cell = spec.cell(args.workload)
     dev = torch.device("cuda")
@@ -52,34 +53,35 @@ def main():
 
         t0 = time.perf_counter()
         model, opt, runtime = harness.engine_configs(cell, seed)
-        rec = recording.make(cell["config_spec"], seed, dev)
-        eng = DeformableNMF(model, opt, runtime, positions=rec.pos,
-                            device=dev, beta0=rec.beta0)
-        job = harness.run_job(eng, rec, cell["traffic_spec"].get("refine"),
-                              dev)
-        del eng
-        graphs.clear()
-        torch.cuda.empty_cache()
-        reference = check.Reference(cell, rec, seed,
-                                    check.audit_frames(job.metrics))
-        readings = check.numbers(check.job_view(job, reference.frames,
-                                                gamma), reference)
-        emit("program", seed, readings, time.perf_counter() - t0)
-        del rec, reference, job
+        with harness.fit_source(cell, seed, dev) as (rec, source):
+            eng = DeformableNMF(model, opt, runtime, positions=rec.pos,
+                                device=dev, beta0=rec.beta0)
+            job = harness.run_job(eng, source,
+                                  cell["traffic_spec"].get("refine"), dev)
+            del eng
+            graphs.clear()
+            torch.cuda.empty_cache()
+            reference = check.Reference(cell, rec, seed,
+                                        check.audit_frames(job.metrics))
+            readings = check.numbers(check.job_view(job, reference.frames,
+                                                    gamma), reference)
+            emit("program", seed, readings, time.perf_counter() - t0)
+            del rec, source, reference, job
         gc.collect()
         torch.cuda.empty_cache()
 
     for seed in args.control_seeds:
         t0 = time.perf_counter()
-        rec = recording.make(cell["config_spec"], seed, dev)
-        t = int(cell["config_spec"]["num_frames"])
-        frames = check.check_frames(cell["limits"], t, seed, [])
-        reference = check.Reference(cell, rec, seed, [frames[0]])
-        control = check.Reference(cell, rec, seed, [frames[0]],
-                                  precision="tf32")
-        emit("control_tf32", seed, check.numbers(control.view(), reference),
-             time.perf_counter() - t0)
-        del rec, reference, control
+        with harness.fit_source(cell, seed, dev) as (rec, _):
+            t = int(cell["config_spec"]["num_frames"])
+            frames = check.check_frames(cell["limits"], t, seed, [])
+            reference = check.Reference(cell, rec, seed, [frames[0]])
+            control = check.Reference(cell, rec, seed, [frames[0]],
+                                      precision="tf32")
+            emit("control_tf32", seed,
+                 check.numbers(control.view(), reference),
+                 time.perf_counter() - t0)
+            del rec, reference, control
         gc.collect()
         torch.cuda.empty_cache()
 

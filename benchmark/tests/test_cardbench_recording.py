@@ -1,13 +1,17 @@
 """The recordings: a configuration without neuron motion draws exactly
 what it drew before the motion existed, and one with it moves each cell
-off its anchor by a draw of its own generator."""
+off its anchor by a draw of its own generator; a stored configuration's
+file (in memory) holds the resident draw's bytes and is freed after the
+run, and a resident one makes none."""
 
 import hashlib
 
+import numpy as np
 import pytest
 import torch
 
-from cardbench import recording, spec
+from cardbench import harness, recording, spec
+from conftest import held_config, stored_files, tiny_cell
 
 # sha256 of the tensors' bytes, made on the CPU (PyTorch 2.13) by the
 # recording code before neuron motion was added, at these shapes and the
@@ -28,8 +32,13 @@ SEED = (1 << 31) + 17
 
 
 def _config(name, shape=None):
-    cfg = spec.cell({"whole_brain_k200": "wb_demix", "roi_k50": "roi_demix",
-                     "whole_brain_k200_gp": "wb_refine"}[name])["config_spec"]
+    if name == "whole_brain_k200_raw":  # no cell runs it yet
+        cfg = held_config(name)
+    else:
+        cfg = spec.cell({"whole_brain_k200": "wb_demix",
+                         "roi_k50": "roi_demix",
+                         "whole_brain_k200_gp": "wb_refine"}[name]
+                        )["config_spec"]
     size, k, t = shape or SHAPES[name]
     cfg.update(size=size, num_neurons=k, num_frames=t)
     return cfg
@@ -77,3 +86,59 @@ def test_gp_offsets_have_the_rbf_covariance():
         assert float((got - want).abs().max()) < 0.05 * amp
     with pytest.raises(ValueError):
         recording._gp_offsets(gen, pos, 2, {**motion, "model": "walk"})
+
+
+def test_a_stored_recording_reads_back_bit_equal_to_the_resident_draw(
+        scratch):
+    cfg = _config("whole_brain_k200_raw", SHAPES["whole_brain_k200"])
+    cfg["storage"]["block"] = 4  # 8 frames: two blocks
+    rec = recording.make(cfg, SEED, torch.device("cpu"))
+    resident = recording.make(_config("whole_brain_k200"), SEED,
+                              torch.device("cpu"))
+    video = rec.video.clone()
+    torch.testing.assert_close(video, resident.video, rtol=0, atol=0)
+    stored = recording.store(rec, cfg["storage"])
+    assert stored.shape == tuple(video.shape)
+    in_file = np.fromfile(stored.path, dtype=np.float32)
+    assert in_file.tobytes() == video.numpy().tobytes()
+    idx = torch.tensor([6, 0, 3])
+    flat = video.reshape(video.shape[0], -1)
+    assert torch.equal(stored.rows(idx), flat[idx])
+    assert torch.equal(stored.frames(2, 7), flat[2:7])
+    assert torch.equal(stored.pos, rec.pos)
+    assert torch.equal(stored.beta0, rec.beta0)
+    assert stored_files() and not list(scratch.iterdir())
+    stored.close()
+    assert not stored_files()
+    with pytest.raises(ValueError):
+        recording.store(rec, {**cfg["storage"], "kind": "tiff"})
+
+
+def test_a_resident_configuration_hands_frames_flat_and_writes_no_file(
+        scratch):
+    cell = tiny_cell("wb_round")
+    with harness.fit_source(cell, SEED, torch.device("cpu")) as (rec,
+                                                                  source):
+        assert source is rec
+        assert source.frames_flat().shape == (6, 24 * 20 * 6)
+        assert not list(scratch.iterdir())
+    made = recording.make(cell["config_spec"], SEED, torch.device("cpu"))
+    assert torch.equal(rec.video, made.video)
+
+
+def test_a_stored_configuration_streams_its_file_and_removes_it(scratch):
+    from dnmf_tpu_torch.data import streaming
+
+    cell = tiny_cell("wb_stream_raw")
+    made = recording.make(cell["config_spec"], SEED, torch.device("cpu"))
+    with harness.fit_source(cell, SEED, torch.device("cpu")) as (rec,
+                                                                  source):
+        assert not hasattr(source, "frames_flat")
+        assert isinstance(source, (streaming.RawFileVideo,
+                                   streaming.StreamingVideo))
+        assert (source.num_frames, source.block) == (6, 4)
+        assert stored_files()
+        got = torch.cat([f[:n] for f, _, n in source.blocks()])
+        assert torch.equal(got, made.frames_flat())
+        assert torch.equal(rec.rows(torch.arange(6)), made.frames_flat())
+    assert not stored_files() and not list(scratch.iterdir())

@@ -1,9 +1,11 @@
 """The readers of the program's spans and graph counters on a made-up
 profiled job and made-up entries: what each reads, and nothing where the
-program has no such labels or counters (a program without spans)."""
+program has no such labels or counters (a program without spans); the
+reader's metrics from a streamed source's fills."""
 
 import types
 
+import numpy as np
 import pytest
 
 from cardbench import harness, spec, trace
@@ -125,3 +127,44 @@ def test_refinement_readers_read_nothing_without_a_refinement(name):
     run.jobs = [_job_with([("round", {"seconds": 0.5})])]
     run.spans = {"motion": 0.1, "refine": 0.0, "tracked_grams": 0.0}
     assert spec.reader(name)(run) is None
+
+
+def test_stream_readers_read_the_windows_fills():
+    run = _run()
+    run.jobs = [_job_with([("round", {"seconds": 2.0})] * 5)]
+    run.window_s = 10.0
+    run.fill_seconds, run.fill_bytes = 7.5, 25_000_000_000
+    assert spec.reader("stream_gb_per_s")(run) == pytest.approx(2.5)
+    assert spec.reader("fill_ms_per_round")(run) == pytest.approx(1500.0)
+
+
+@pytest.mark.parametrize("name", ["stream_gb_per_s", "fill_ms_per_round"])
+def test_stream_readers_read_nothing_where_nothing_streamed(name):
+    run = _run()
+    run.jobs = [_job_with([("round", {"seconds": 2.0})] * 5)]
+    run.window_s = 10.0
+    assert run.fill_bytes is None
+    assert spec.reader(name)(run) is None
+
+
+def test_fills_count_every_frame_a_source_hands_out_once():
+    """Two passes over 6 frames of 10 voxels in blocks of 4: each frame's
+    40 bytes twice (the padded tail's zeros are not filled), then nothing
+    once cleared and taken off."""
+    import torch
+
+    from dnmf_tpu_torch.data import streaming
+
+    source = streaming.StreamingVideo(
+        np.arange(60, dtype=np.float32).reshape(6, 10), block=4,
+        device="cpu")
+    fills = trace.Fills(source)
+    fills.install()
+    for _ in range(2):
+        got = torch.cat([f[:n] for f, _, n in source.blocks()])
+    assert torch.equal(got, torch.arange(60.0).reshape(6, 10))
+    assert fills.bytes == 2 * 6 * 10 * 4 and fills.seconds > 0
+    fills.clear()
+    fills.uninstall()
+    list(source.blocks())
+    assert (fills.bytes, fills.seconds) == (0, 0.0)

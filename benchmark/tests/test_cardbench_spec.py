@@ -27,9 +27,11 @@ def test_every_cell_and_metric_of_the_manifest_is_found():
         assert cell["config_spec"]["name"] == w["config"]
         assert set(cell["limits"]["limits"]) >= {"loss_err", "beta_err",
                                                  "c_err", "audit_gap"}
-        assert {m["name"] for m in cell["end_to_end"]} >= {"setup_s",
-                                                           "frames_per_s"}
+        names = {m["name"] for m in cell["end_to_end"]}
+        assert names >= {"setup_s", "frames_per_s"}
         assert cell["per_layer"]
+        # each per-layer metric moves an end-to-end metric the cell reports
+        assert {m["moves"] for m in cell["per_layer"]} <= names
     for m in man["end_to_end"] + man["per_layer"]:
         assert callable(spec.reader(m["name"]))
 
